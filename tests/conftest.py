@@ -21,3 +21,11 @@ import jax  # noqa: E402
 # updating the config still works as long as no backend has been initialized.
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: launches a hand-written CUDA kernel; skips unless "
+        "torch.cuda.is_available()",
+    )
