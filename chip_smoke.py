@@ -26,12 +26,25 @@ Phases (any failure exits non-zero and prints no result):
    solve, kernel launches per solve, device time by kernel and the device's
    idle share (1 - device / wall; one stream, so kernels do not overlap),
    against phase 4's unprofiled median as well, since the profiler slows
-   the host.
+   the host;
+7. the fused PCG tail (``make_fused_pcg`` in the port's ``bench.py``, on
+   phase 4's assembled values and aggblock preconditioner, f32 and f64):
+   K3 (``agg_smooth_restrict``) and K4 (``coarse_prolong_dot``) against
+   their plain versions on seeded vectors (f64 1e-12, f32 1e-5, relative to
+   each output's max magnitude; ``rz`` relative to |rz|), and at gs=64 on
+   a seeded table (the one-block-per-row K3); their times beside plain,
+   library and bound; ``run_stock(30)`` against ``run_fused(30)`` as CUDA
+   graphs (5e-5 in f32, the tool's measure; 1e-10 in f64); the graphed
+   per-iteration time of both over 100 iterations, median of 3; and
+   ``solve_fused(1e-6)``: residual <= 1e-6 in <= 80 iterations, within 1
+   of phase 4's count (equal in f64), within 1e-4 of phase 4's solution,
+   K2-K4 launched at least once per iteration.
 
 The last three lines are the card line, the kernels JSON line and the
 ``{"ok": true, ...}`` line. Kernel times use CUDA events around single
 launches with the 50 MB L2 flushed before each (the PCG loop streams more
-than L2 between SpMVs), median of the repeats.
+than L2 between SpMVs) and the card held busy while the host enqueues the
+launch, median of the repeats.
 """
 
 from __future__ import annotations
@@ -52,6 +65,14 @@ SEED = 0
 TIMED_REPEATS = 5
 PROFILED_SOLVES = 3
 KERNEL_REPS = 30
+FIXED_ITERS = 30  # the tool's fused-vs-stock check
+LOOP_ITERS = 100  # the tool's PROF_REPS: graphed iterations per timed run
+FUSED_VS_STOCK = 5e-5
+# device cycles (about 0.25 ms at the H100's 1.98 GHz boost) the card spins
+# before each timed launch, so the host's enqueue of the launch falls inside
+# the spin and not inside the timed window
+SPIN_CYCLES = 500_000
+DEVICE = "cuda"  # where phase 7 makes its inputs
 
 # H100 SXM data sheet: HBM3 rate and the non-tensor-core float32 peak (the
 # table in the on-chip measurement notes); both assume the 700 W limit.
@@ -92,6 +113,7 @@ def time_ms(fn, reps: int = KERNEL_REPS) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -265,7 +287,7 @@ def phase_main(st, V32, V64):
         times.append(time.perf_counter() - t0)
     median = float(np.median(times))
     log(f"main path f32 h={H}: median {median:.6f} s over {TIMED_REPEATS} repeats {times}")
-    return solve32, x32, iters, launches, median
+    return solve32, x32, iters, iters64, launches, median
 
 
 def phase_compiled(st, V32, x32):
@@ -325,6 +347,210 @@ def phase_profile(solve32, median_s: float):
         log(f"{us / 1e3:14.4f}  {count:14.1f}  {name[:110]}")
 
 
+def _rel_err(ours, ref) -> float:
+    """max |ours - ref| / max |ref| (for a 0-d tensor |ours - ref| / |ref|)."""
+    return float((ours - ref).abs().max() / ref.abs().max())
+
+
+def _tail_inputs(ns, gs, dtype):
+    """Seeded (alpha, [x, r, p, ap]) for K3, on the card."""
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    vecs = [torch.as_tensor(rng.standard_normal((ns, gs)), device=DEVICE).to(dtype)
+            for _ in range(4)]
+    alpha = torch.tensor(rng.uniform(0.5, 1.5), dtype=dtype, device=DEVICE)
+    return alpha, vecs
+
+
+def _check_tail(tag, pre_inv, coarse_inv, alpha, vecs, tol):
+    """K3 and K4 against their plain versions on the same inputs (K4 fed the
+    plain K3's outputs); returns the largest absolute error of each."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops import fused_pcg as fp
+
+    k3 = fp.agg_smooth_restrict(alpha, *vecs, pre_inv)
+    ref3 = fp._agg_smooth_restrict_plain(alpha, *vecs, pre_inv)
+    k4 = fp.coarse_prolong_dot(coarse_inv, ref3[3], ref3[2], ref3[1])
+    ref4 = fp._coarse_prolong_dot_plain(coarse_inv, ref3[3], ref3[2], ref3[1])
+    torch.cuda.synchronize()
+    out = {}
+    for kernel, names, ours, refs in (
+        ("K3", ("xn", "rn", "s", "rc"), k3, ref3),
+        ("K4", ("z", "rz"), k4, ref4),
+    ):
+        errs = {n: _rel_err(a, b) for n, a, b in zip(names, ours, refs)}
+        finite = all(bool(torch.isfinite(a).all()) for a in ours)
+        worst = max(errs.values())
+        check(finite and worst <= tol,
+              f"{kernel} {tag} vs plain: rel err {worst:.3e} <= {tol:g} "
+              + " ".join(f"{n}={e:.2e}" for n, e in errs.items()))
+        out[kernel] = max(float((a - b).abs().max()) for a, b in zip(ours, refs))
+    return out
+
+
+def _loop_s_per_iter(run) -> float:
+    """Median wall time per iteration of ``run(LOOP_ITERS)`` (a replayed
+    CUDA graph), over 3 runs after the capturing one."""
+    import torch
+
+    run(LOOP_ITERS)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(LOOP_ITERS)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / LOOP_ITERS)
+    return float(np.median(times))
+
+
+def _figure(tag, name, replaces, kernel, plain, library, lib_name, n_bytes, n_flops,
+            max_abs):
+    """Time one kernel, its plain version and its library yardstick; the
+    kernels-line entry without ``launches``."""
+    ms = time_ms(kernel)
+    plain_ms = time_ms(plain)
+    library_ms = time_ms(library)
+    b_ms, by = bound_ms(n_bytes, n_flops)
+    log(f"{tag} {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, {lib_name} "
+        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms by {by})")
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "pytorch_fem_solver_tpu_torch/csrc/fused_pcg.cu",
+        "replaces": replaces,
+        "max_abs_err": max_abs,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": by,
+        "library_ms": library_ms,
+    }
+
+
+def phase_fused(st, V32, V64, x32, iters, iters64, card):
+    """Phase 7: the fused PCG tail, K3 and K4."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import make_fused_pcg
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+    from pytorch_fem_solver_tpu_torch.ops import fused_pcg as fp
+
+    fused = {torch.float32: make_fused_pcg(V32), torch.float64: make_fused_pcg(V64)}
+    ns, gs = fp.fused_shape(fused[torch.float32].precond, st.n_pad)
+    nc = ns
+    log(f"fused tail: ns={ns} gs={gs} nc={nc} g={fused[torch.float32].precond.g}")
+
+    # 1. the kernels against their plain versions
+    max_abs = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        pre = fused[dtype].precond
+        alpha, vecs = _tail_inputs(ns, gs, dtype)
+        max_abs[dtype] = _check_tail(f"{dtype} h={H}", pre.inv_agg, pre.coarse_inv, alpha, vecs, tol)
+        # gs=64: K3's one-block-per-row kernel, on seeded SPD tables (so rz
+        # is a sum of mostly positive terms, as with the real M^{-1})
+        rng = np.random.default_rng(SEED + 1)
+        a = rng.standard_normal((65, 64, 64))
+        spd = a @ a.transpose(0, 2, 1) / 64 + np.eye(64)
+        inv64 = torch.as_tensor(spd[:64], device=DEVICE).to(dtype)
+        cinv64 = torch.as_tensor(spd[64], device=DEVICE).to(dtype)
+        alpha64, vecs64 = _tail_inputs(64, 64, dtype)
+        _check_tail(f"{dtype} gs=64", inv64, cinv64, alpha64, vecs64, tol)
+
+    # 2. per-kernel figures, f32 at the benchmark shapes; bounds count f32
+    # words: each input read once, each output written once
+    pre = fused[torch.float32].precond
+    alpha, vecs = _tail_inputs(ns, gs, torch.float32)
+    xn, rn, s, rc = fp._agg_smooth_restrict_plain(alpha, *vecs, pre.inv_agg)
+    n = ns * gs
+    k3 = _figure(
+        "K3", "agg_smooth_restrict", "tools/exp_pallas_fused_pcg.py:125",
+        lambda: fp.agg_smooth_restrict(alpha, *vecs, pre.inv_agg),
+        lambda: fp._agg_smooth_restrict_plain(alpha, *vecs, pre.inv_agg),
+        lambda: torch.bmm(pre.inv_agg, rn.view(ns, gs, 1)), "torch.bmm",
+        # inv_agg, alpha, x r p ap in; xn rn s, rc out
+        4 * (ns * gs * gs + 1 + 7 * n + ns), 2 * ns * gs * gs + 5 * n,
+        max_abs[torch.float32]["K3"],
+    )
+    k4 = _figure(
+        "K4", "coarse_prolong_dot", "tools/exp_pallas_fused_pcg.py:173",
+        lambda: fp.coarse_prolong_dot(pre.coarse_inv, rc, s, rn),
+        lambda: fp._coarse_prolong_dot_plain(pre.coarse_inv, rc, s, rn),
+        lambda: torch.mv(pre.coarse_inv, rc), "torch.mv",
+        # coarse_inv, rc, s rn in; z, rz out
+        4 * (nc * nc + nc + 3 * n + 1), 2 * nc * nc + 3 * n,
+        max_abs[torch.float32]["K4"],
+    )
+
+    # 3. fixed-length runs as CUDA graphs
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, FUSED_VS_STOCK)):
+        xs, _ = fused[dtype].run_stock(FIXED_ITERS)
+        xf, _ = fused[dtype].run_fused(FIXED_ITERS)
+        torch.cuda.synchronize()
+        dx = _rel_err(xf, xs)
+        check(bool(torch.isfinite(xf).all()) and dx <= tol,
+              f"graphed run_fused({FIXED_ITERS}) vs run_stock({FIXED_ITERS}) {dtype}: "
+              f"{dx:.3e} <= {tol:g}")
+    f32 = fused[torch.float32]
+    cuda_build.reset_launch_counts()
+    s_stock = _loop_s_per_iter(f32.run_stock)
+    captured_stock = dict(cuda_build.launch_counts)
+    cuda_build.reset_launch_counts()
+    s_fused = _loop_s_per_iter(f32.run_fused)
+    captured_fused = dict(cuda_build.launch_counts)
+    log(f"launches counted while capturing {LOOP_ITERS} iterations (warm-up + capture, "
+        f"so twice one replay): stock {captured_stock}, fused {captured_fused}")
+    s_stock2 = _loop_s_per_iter(f32.run_stock)
+    s_fused2 = _loop_s_per_iter(f32.run_fused)
+    log(f"graphed s/iteration, in turns stock, fused, stock, fused: "
+        f"{s_stock:.4e} {s_fused:.4e} {s_stock2:.4e} {s_fused2:.4e}")
+    log(json.dumps({
+        "metric": "fused_pcg_s_per_iter",
+        "h": H,
+        "n_pad": st.n_pad,
+        "g": f32.precond.g,
+        "reps": LOOP_ITERS,
+        "stock_s_per_iter": s_stock2,
+        "fused_s_per_iter": s_fused2,
+        "speedup": s_stock2 / s_fused2,
+        "card": card,
+    }))
+
+    # 4. the fused solve to tolerance
+    cuda_build.reset_launch_counts()
+    xf, it, rel = f32.solve_fused(TOL)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.launch_counts)
+    n_in = st.n_inner
+    diff = float((xf[:n_in] - x32[:n_in]).norm() / x32[:n_in].norm())
+    log(f"solve_fused f32: iterations={it} rel_res={float(rel):.4e} launches={launches}; "
+        f"vs main path rel L2 {diff:.4e}")
+    check(float(rel) <= TOL, f"solve_fused relative residual {float(rel):.3e} <= {TOL:g}")
+    check(it <= MAX_ITERATIONS, f"solve_fused iterations {it} <= {MAX_ITERATIONS}")
+    check(abs(it - iters) <= 1, f"solve_fused iterations {it} within 1 of the main path's {iters}")
+    check(bool(torch.isfinite(xf).all()) and diff <= 1e-4,
+          f"solve_fused vs main-path solution {diff:.3e} <= 1e-4")
+    for name in ("bsr_spmv", "agg_smooth_restrict", "coarse_prolong_dot"):
+        check(launches[name] >= it, f"{name} launches {launches[name]} >= iterations {it}")
+    _, it64, rel64 = fused[torch.float64].solve_fused(TOL)
+    log(f"solve_fused f64: iterations={it64} rel_res={float(rel64):.4e}")
+    check(it64 == iters64, f"solve_fused f64 iterations {it64} == main path f64 {iters64}")
+    times = []
+    for _ in range(TIMED_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f32.solve_fused(TOL)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"solve_fused f32 (host-driven loop, assembly and setup excluded): median "
+        f"{float(np.median(times)):.6f} s over {TIMED_REPEATS} repeats {times}")
+    for fig in (k3, k4):
+        fig["launches"] = launches[fig["name"]]
+    return k3, k4
+
+
 def main() -> int:
     import torch
 
@@ -374,9 +600,10 @@ def main() -> int:
     )
     k2 = phase_k2(st, values64)
     del values64
-    solve32, x32, iters, launches, median = phase_main(st, V32, V64)
+    solve32, x32, iters, iters64, launches, median = phase_main(st, V32, V64)
     phase_compiled(st, V32, x32)
     phase_profile(solve32, median)
+    k3, k4 = phase_fused(st, V32, V64, x32, iters, iters64, card)
 
     if failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
@@ -385,14 +612,11 @@ def main() -> int:
     k2["launches"] = launches["bsr_spmv"]
     log(f"main path median {median:.6f} s, {iters} iterations, on {card}")
     print(card, flush=True)
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
+    # the run uses one card, whatever the machine holds
     print(json.dumps({
         "ok": True,
-        "device": {
-            "platform": "gpu",
-            "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
-        },
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1},
     }), flush=True)
     return 0
 

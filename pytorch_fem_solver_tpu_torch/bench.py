@@ -12,9 +12,16 @@ path takes both from the output rows of the P1 element kernel K1
 (``ops.kernels.p1_element_3d``): the same numbers to roundoff (the JAX
 package asserts it), computed by the kernel the port carries over from the
 TPU. The per-iteration SpMV is kernel K2 (``ops.bsr.bsr_spmv``).
+
+``make_fused_pcg`` is the counterpart of ``tools/exp_pallas_fused_pcg.py``
+on the same assembled system: the stock iteration and the one whose tail
+runs through kernels K3/K4 (``ops.fused_pcg``), each as a fixed-length loop
+captured as a CUDA graph, and the fused iteration to tolerance.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -22,13 +29,18 @@ import torch
 from .basis import FractureNetworkBasis
 from .element import ElementTri
 from .ops.bsr import (
+    BSRStructure,
     _scatter_drop,
     bsr_complete_symmetric,
+    bsr_matvec,
     get_bsr_structure,
     inverse_inner_perm,
 )
-from .ops.compiled import bsr_pcg
+from .ops.compiled import aggblock_setup, bsr_pcg
+from .ops.fused_pcg import fused_pcg, fused_pcg_steps, fused_shape
 from .ops.kernels import p1_element_3d
+from .ops.precondition import AggBlockTwoLevel
+from .ops.solvers import pcg_steps
 
 #: K1 rows of the canonical pairs (0,0) (0,1) (0,2) (1,1) (1,2) (2,2)
 SYM_ROWS = (0, 1, 2, 4, 5, 8)
@@ -41,15 +53,10 @@ def benchmark_basis(mesh) -> FractureNetworkBasis:
     return FractureNetworkBasis(mesh, ElementTri(1, 2))
 
 
-def make_bsr_solve(basis, *, max_b: int = 8, tol: float = 1e-6, maxiter: int = 600):
-    """Build the host tables once; return ``solve() -> (x_pad, iterations,
-    rel_res)``.
-
-    ``x_pad`` is the permuted padded solution (``n_pad``,) of the structure
-    ``get_bsr_structure(basis, max_b=max_b)`` (cached on the basis), and
-    ``rel_res`` the final residual norm over ``||b||`` as a tensor.
-    """
-    st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=False)
+def _assembly(basis, st):
+    """Build the host tables once; return ``assemble() -> (values, b_pad)``:
+    K1's rows scattered into the canonical-pair BSR values and the padded
+    reduced load vector of the structure ``st``."""
     device = basis.device
     n_cells = int(basis._global_dofs4elements.shape[0])
     coords = basis.mesh["cells", "coordinates_3d"].contiguous()  # (T, 3, 3)
@@ -70,17 +77,124 @@ def make_bsr_solve(basis, *, max_b: int = 8, tol: float = 1e-6, maxiter: int = 6
     )[:, None]
     sym_rows = torch.as_tensor(SYM_ROWS, device=device)
 
-    solve_padded = bsr_pcg(st, "auto", tol=tol, maxiter=maxiter)
-
-    def solve():
+    def assemble():
         out = p1_element_3d(coords)  # (13, T)
         e6 = out[sym_rows] * w6  # diagonal pairs pre-halved
         values = bsr_complete_symmetric(
             st, _scatter_drop(slots_T, e6.reshape(-1), st.n_values)
         )
         b_pad = _scatter_drop(dofs_pad_T, out[LOAD_ROWS].reshape(-1), st.n_pad)
+        return values, b_pad
+
+    return assemble
+
+
+def make_bsr_solve(basis, *, max_b: int = 8, tol: float = 1e-6, maxiter: int = 600):
+    """Build the host tables once; return ``solve() -> (x_pad, iterations,
+    rel_res)``.
+
+    ``x_pad`` is the permuted padded solution (``n_pad``,) of the structure
+    ``get_bsr_structure(basis, max_b=max_b)`` (cached on the basis), and
+    ``rel_res`` the final residual norm over ``||b||`` as a tensor.
+    """
+    st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=False)
+    assemble = _assembly(basis, st)
+    solve_padded = bsr_pcg(st, "auto", tol=tol, maxiter=maxiter)
+
+    def solve():
+        values, b_pad = assemble()
         x, info = solve_padded(values, b_pad)
         rel = info.residual_norm / torch.sqrt(torch.dot(b_pad, b_pad))
         return x, info.iterations, rel
 
     return solve
+
+
+class FusedPCG(NamedTuple):
+    """The assembled benchmark system and its three PCG entry points (see
+    ``make_fused_pcg``)."""
+
+    structure: BSRStructure
+    values: tuple
+    b_pad: torch.Tensor
+    precond: AggBlockTwoLevel
+    run_stock: Callable  # iters -> (x_pad, r_pad)
+    run_fused: Callable  # iters -> (x_pad, r_pad)
+    solve_fused: Callable  # tol, maxiter=600 -> (x_pad, iterations, rel_res)
+
+
+def _capture(loop, b):
+    """Capture ``loop(b)`` once as a CUDA graph; returns ``(graph, static_b,
+    outputs)``. One warm-up run on a side stream first, as capture needs
+    (library handles, kernel loading, the allocator's pool)."""
+    static_b = b.clone()
+    current = torch.cuda.current_stream(b.device)
+    side = torch.cuda.Stream(device=b.device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        loop(static_b)
+    current.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = loop(static_b)
+    return graph, static_b, out
+
+
+def _fixed_length(loop, matvec, precond, b):
+    """``run(iters) -> (x, r)`` of a fixed-length loop on ``b``: eager on the
+    CPU; on the card captured once per ``iters`` as a CUDA graph and
+    replayed (the port's ``jax.jit(..., static_argnames=("iters",))`` over
+    ``lax.scan``). Launch counts rise at capture (warm-up and capture runs),
+    not at replay."""
+    graphs = {}
+
+    def run(iters: int):
+        if b.device.type == "cpu":
+            return loop(matvec, precond, b, iters)
+        if iters not in graphs:
+            graphs[iters] = _capture(lambda v: loop(matvec, precond, v, iters), b)
+        graph, static_b, out = graphs[iters]
+        static_b.copy_(b)
+        graph.replay()
+        return tuple(t.clone() for t in out)
+
+    return run
+
+
+def make_fused_pcg(basis, *, max_b: int = 8) -> FusedPCG:
+    """Assemble the benchmark system once and set up its aggblock
+    preconditioner; return the entry points of ``tools/exp_pallas_fused_pcg.py``:
+
+    * ``run_stock(iters)``: ``ops.solvers.pcg_steps``, the stock iteration;
+    * ``run_fused(iters)``: ``ops.fused_pcg.fused_pcg_steps``, the same
+      iteration with the tail through K3/K4;
+    * ``solve_fused(tol, maxiter=600)``: ``ops.fused_pcg.fused_pcg`` to
+      tolerance, ``(x_pad, iterations, rel_res)`` as ``make_bsr_solve``.
+
+    The fixed-length runs start from r0 = b (as the tool does) and return
+    ``(x_pad, r_pad)``; on the card each is a CUDA graph per ``iters``.
+    Raises ``ValueError`` unless the aggregates satisfy the fused algebra
+    (``g == gs``).
+    """
+    st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=False)
+    values, b_pad = _assembly(basis, st)()
+    precond = aggblock_setup(st)(values)
+    fused_shape(precond, st.n_pad)
+
+    def matvec(v):
+        return bsr_matvec(st, values, v)
+
+    def solve_fused(tol: float, maxiter: int = 600):
+        x, info = fused_pcg(matvec, b_pad, precond, tol=tol, maxiter=maxiter)
+        rel = info.residual_norm / torch.sqrt(torch.dot(b_pad, b_pad))
+        return x, info.iterations, rel
+
+    return FusedPCG(
+        structure=st,
+        values=values,
+        b_pad=b_pad,
+        precond=precond,
+        run_stock=_fixed_length(pcg_steps, matvec, precond, b_pad),
+        run_fused=_fixed_length(fused_pcg_steps, matvec, precond, b_pad),
+        solve_fused=solve_fused,
+    )

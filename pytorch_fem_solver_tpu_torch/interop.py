@@ -15,6 +15,7 @@ from . import config
 from .mesh.fracture_network import FractureNetworkMesh
 from .mesh.mesh_tri import _freeze
 from .ops.bsr import BSRStructure
+from .ops.precondition import AggBlockTwoLevel
 
 _DEVICE_FIELDS = ("bcols", "entry_slot", "bcols2", "heavy_rows", "entry_slot_sym", "tpartner")
 _HOST_FIELDS = ("perm", "inner_perm", "ubr_host", "ubc_host", "blk_id_host")
@@ -55,3 +56,20 @@ def structure_from_numpy(fields: dict, *, device=None) -> BSRStructure:
         else:
             kwargs[name] = int(value)
     return BSRStructure(**kwargs)
+
+
+def agg_block_two_level_from_numpy(
+    inv_agg, coarse_inv, g: int, gs: int, *, device=None, dtype=None
+) -> AggBlockTwoLevel:
+    """An ``AggBlockTwoLevel`` from the NumPy arrays of a JAX one
+    (``inv_agg`` (ns, gs, gs), ``coarse_inv`` (nc, nc)) and its sizes.
+    Arrays take ``dtype`` (default ``config.default_dtype()``)."""
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_dtype()
+
+    def dev(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return AggBlockTwoLevel(
+        inv_agg=dev(inv_agg), coarse_inv=dev(coarse_inv), g=int(g), gs=int(gs)
+    )

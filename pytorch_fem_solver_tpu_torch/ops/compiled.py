@@ -38,7 +38,27 @@ from .precondition import (
 )
 from .solvers import pcg
 
-__all__ = ["bsr_pcg", "compiled_bsr_solver"]
+__all__ = ["aggblock_setup", "bsr_pcg", "compiled_bsr_solver"]
+
+
+def aggblock_setup(structure):
+    """Build the aggregate table once; return ``setup(values, diag=None) ->
+    AggBlockTwoLevel``, the aggblock preconditioner of assembled ``values``
+    (g from ``default_aggregate_size``, gs = min(g, 128))."""
+    g = default_aggregate_size(structure)
+    gs = min(g, 128)
+    table = torch.as_tensor(
+        build_agg_block_table(structure, gs), device=structure.bcols.device
+    )
+
+    def setup(values, diag=None):
+        if diag is None:
+            diag = bsr_diagonal(structure, values)
+        return agg_block_two_level_from_values(
+            structure, values, diag, g=g, gs=gs, table=table
+        )
+
+    return setup
 
 
 def bsr_pcg(
@@ -60,21 +80,11 @@ def bsr_pcg(
             "'jacobi')"
         )
     st = structure
-    g = gs = agg_table = None
-    if precondition == "auto":
-        g = default_aggregate_size(st)
-        gs = min(g, 128)
-        agg_table = torch.as_tensor(
-            build_agg_block_table(st, gs), device=st.bcols.device
-        )
+    setup = aggblock_setup(st) if precondition == "auto" else None
 
     def run(values, b_pad):
         diag = bsr_diagonal(st, values)
-        precond = None
-        if precondition == "auto":
-            precond = agg_block_two_level_from_values(
-                st, values, diag, g=g, gs=gs, table=agg_table
-            )
+        precond = None if setup is None else setup(values, diag)
         return pcg(
             lambda v: bsr_matvec(st, values, v),
             b_pad,

@@ -28,6 +28,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "p1_element": SOURCE_DIR / "p1_element.cu",
     "bsr_spmv": SOURCE_DIR / "bsr_spmv.cu",
+    "fused_pcg": SOURCE_DIR / "fused_pcg.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -35,7 +36,12 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-launch_counts = {"p1_element_3d": 0, "bsr_spmv": 0}
+launch_counts = {
+    "p1_element_3d": 0,
+    "bsr_spmv": 0,
+    "agg_smooth_restrict": 0,
+    "coarse_prolong_dot": 0,
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -267,7 +267,14 @@ def agg_block_two_level_from_values(
     g = base.g
     gs = min(g, 128) if gs is None else gs
     inv_agg = aggregate_block_inverses(structure, values, gs, table=table)
-    return AggBlockTwoLevel(inv_agg=inv_agg, coarse_inv=base.coarse_inv, g=g, gs=gs)
+    # contiguous, as the fused tail's kernels read them (the Gauss-Jordan
+    # result is a column slice of the augmented matrix)
+    return AggBlockTwoLevel(
+        inv_agg=inv_agg.contiguous(),
+        coarse_inv=base.coarse_inv.contiguous(),
+        g=g,
+        gs=gs,
+    )
 
 
 def aggregate_block_inverses(structure, values, gs: int, table=None):

@@ -3,9 +3,10 @@
 Counterpart of ``pcg`` and ``PCGInfo`` in
 ``pytorch_fem_solver_tpu/ops/solvers.py``. The JAX loop is one
 ``lax.while_loop`` on the device; here the loop runs on the host with one
-device-to-host read of the stopping test per iteration. Keeping the loop on
-the device (CUDA graphs over iteration chunks) is queued in ROADMAP.md (B).
-The stopping rule, the default ``maxiter`` and the ``converged`` test are the
+device-to-host read of the stopping test per iteration. ``pcg_steps`` is the
+fixed-length loop with no host read, which ``bench.make_fused_pcg`` captures
+as a CUDA graph; routing ``pcg`` itself onto the device is queued in
+ROADMAP.md (B). The stopping rule, the default ``maxiter`` and the ``converged`` test are the
 JAX package's, so iteration counts match. The JAX ``x0`` and ``dot``
 arguments (the latter for sharded inner products) wait for the slices that
 use them.
@@ -82,3 +83,32 @@ def pcg(
     res = torch.sqrt(dot(r, r))
     info = PCGInfo(iterations=k, residual_norm=res, converged=res <= torch.sqrt(atol2))
     return x, info
+
+
+def pcg_steps(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    precond: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    iters: int,
+):
+    """``iters`` PCG iterations from x0 = 0 and r0 = b, with no host read of
+    the device; returns ``(x, r)``.
+
+    The stock loop of ``tools/exp_pallas_fused_pcg.py`` (``run_stock``): a
+    fixed trip count in place of the stopping test, so the loop can be
+    captured as a CUDA graph.
+    """
+    x = torch.zeros_like(b)
+    r = b
+    p = precond(r)
+    rz = torch.dot(r, p)
+    for _ in range(iters):
+        ap = matvec(p)
+        alpha = rz / torch.dot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = precond(r)
+        rz_new = torch.dot(r, z)
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+    return x, r
