@@ -11,20 +11,40 @@ This package imports neither ``jax`` nor ``pytorch_fem_solver_tpu``.
 """
 
 from . import config
-from .basis import AbstractBasis, Basis, FractureNetworkBasis
+from .basis import AbstractBasis, Basis, FractureBasis, FractureNetworkBasis
 from .element import ElementTri
-from .mesh import FractureNetworkMesh, MeshTri, build_fracture_network
+from .mesh import (
+    FractureNetworkMesh,
+    FracturesTri,
+    MeshesTri,
+    MeshTri,
+    build_fracture_network,
+    rectangle,
+    refine_uniform,
+    triangulation_max_area,
+    unit_square,
+)
+from .models import FeedForwardNeuralNetwork, Model
 from .utils import benchmark_seven_fracture_geometry, build_benchmark_network
 
 __all__ = [
     "config",
     "AbstractBasis",
     "Basis",
+    "FractureBasis",
     "FractureNetworkBasis",
     "ElementTri",
     "FractureNetworkMesh",
+    "FracturesTri",
+    "MeshesTri",
     "MeshTri",
     "build_fracture_network",
+    "rectangle",
+    "refine_uniform",
+    "triangulation_max_area",
+    "unit_square",
+    "FeedForwardNeuralNetwork",
+    "Model",
     "benchmark_seven_fracture_geometry",
     "build_benchmark_network",
 ]

@@ -1,10 +1,12 @@
 """Template-method core of the basis/assembly layer.
 
 Counterpart of ``pytorch_fem_solver_tpu/basis/abstract_basis.py``, limited to
-what the compiled BSR solve and the DFN benchmark read. All
+what the compiled BSR solve, the DFN benchmark and RVPINN training read. All
 quadrature-evaluated tensors (shape values, physical gradients, integration
 points, weights, DOF and scatter indices) are computed once at construction
-on the mesh's device; the integrate methods are plain functions of them.
+on the mesh's device; the integrate methods are plain functions of them, and
+the assembled forms are out-of-place scatter-adds that autograd
+differentiates (the VPINN loss differentiates them twice).
 
 Tensor-shape convention (identical to the JAX package): integrands broadcast
 over trailing dims (..., n_cells, n_quad, n_loc, n_dim).
@@ -83,6 +85,16 @@ class AbstractBasis(abc.ABC):
         """
         return function(*args, **kwargs)
 
+    def integrate_functional(
+        self, function: Callable[..., torch.Tensor], *args: Any, **kwargs: Any
+    ) -> torch.Tensor:
+        """Per-cell integral of a functional: sums quadrature and local axes."""
+        return (
+            (self._evaluate_form(function, self, *args, **kwargs) * self._dx)
+            .sum(-3)
+            .sum(-2)
+        )
+
     def integrate_bilinear_form_local(
         self, function: Callable[..., torch.Tensor], *args: Any, **kwargs: Any
     ) -> torch.Tensor:
@@ -98,6 +110,45 @@ class AbstractBasis(abc.ABC):
         return (
             self._evaluate_form(function, self, *args, **kwargs) * self._dx
         ).sum(-3)
+
+    # -- assembly (differentiable scatter-add) ------------------------------
+
+    def integrate_bilinear_form(
+        self, function: Callable[..., torch.Tensor], *args: Any, **kwargs: Any
+    ) -> torch.Tensor:
+        """Assembled dense global matrix (n_dofs, n_dofs)."""
+        return self._assemble_bilinear_from_local(
+            self.integrate_bilinear_form_local(function, *args, **kwargs)
+        )
+
+    def _assemble_bilinear_from_local(self, local: torch.Tensor) -> torch.Tensor:
+        """Scatter element matrices (..., T, n_loc, n_loc) into the dense
+        global matrix: local entry (i, j) of a cell adds at (row_i, col_j)."""
+        values = self.reshape_for_assembly(local, "bilinear")
+        n_rows, n_cols = self._basis_parameters["bilinear_form_shape"]
+        rows, cols = self._basis_parameters["bilinear_form_idx"]
+        flat = rows.long() * n_cols + cols.long()
+        return values.new_zeros(n_rows * n_cols).index_add(0, flat, values).reshape(
+            n_rows, n_cols
+        )
+
+    def integrate_linear_form(
+        self, function: Callable[..., torch.Tensor], *args: Any, **kwargs: Any
+    ) -> torch.Tensor:
+        """Assembled global load vector (n_dofs, 1)."""
+        return self._assemble_linear_from_local(
+            self.integrate_linear_form_local(function, *args, **kwargs)
+        )
+
+    def _assemble_linear_from_local(self, local: torch.Tensor) -> torch.Tensor:
+        """Scatter element vectors (..., T, n_loc, 1) into the global load
+        vector. Out-of-place ``index_add``, so training differentiates
+        through it (twice, for losses built on the network's input
+        gradient)."""
+        values = self.reshape_for_assembly(local, "linear")
+        shape = self._basis_parameters["linear_form_shape"]
+        (idx,) = self._basis_parameters["linear_form_idx"]
+        return values.new_zeros(shape).index_add(0, idx, values)
 
     # -- reduction --------------------------------------------------------
 
@@ -115,6 +166,38 @@ class AbstractBasis(abc.ABC):
             dtype=self.dtype,
             device=self.device,
         )
+
+    def gram_solver(
+        self, form: Callable[..., torch.Tensor], method: str = "cholesky"
+    ) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Differentiable ``r -> G^{-1} r`` on the reduced DOFs, G the Gram
+        matrix of ``form`` on this basis (the RVPINN loss ``r^T G^{-1} r``).
+
+        ``method="cholesky"`` factors the dense reduced Gram once; each
+        application is a pair of triangular solves. The returned callable
+        takes ``(n_inner, 1)`` or ``(n_inner,)`` vectors and keeps the shape.
+        ``method="pcg"`` (matrix-free, with warm starts) is queued in
+        ROADMAP.md (A10).
+        """
+        if method == "pcg":
+            raise NotImplementedError(
+                "gram_solver(method='pcg') needs the ELL operator "
+                "(ops/sparse.py) and the two-level preconditioner; see "
+                "ROADMAP.md, queue A10"
+            )
+        if method != "cholesky":
+            raise ValueError(
+                f"unknown gram_solver method: {method!r} "
+                "(expected 'cholesky' or 'pcg')"
+            )
+        factor = torch.linalg.cholesky(self.reduce(self.integrate_bilinear_form(form)))
+
+        def solve(r: torch.Tensor) -> torch.Tensor:
+            if r.dim() == 1:
+                return torch.cholesky_solve(r[:, None], factor)[:, 0]
+            return torch.cholesky_solve(r, factor)
+
+        return solve
 
     def compiled_solver(self, bilinear_form, linear_form=None, **kwargs):
         """Assemble+solve pipeline for this basis (BSR path).

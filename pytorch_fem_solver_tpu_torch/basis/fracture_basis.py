@@ -1,0 +1,209 @@
+"""P1 basis over a glued discrete fracture network of ``FracturesTri``.
+
+Counterpart of ``pytorch_fem_solver_tpu/basis/fracture_basis.py``, P1 only.
+Pressure continuity across fracture intersections (traces) is enforced by
+DOF identification: the 3D vertex coordinates of all fractures are grouped
+with a tolerance on the host (NumPy float64, ``mesh.dedup``) into one global
+triangulation, and assembly scatters into its vertices. The shape-function
+gradients are the tangential 3D gradients (2D gradients times the chart's
+pseudo-inverse) and the weights carry the chart's area scale.
+
+P2/P3 DOF maps and ``interpolate`` (with the interior-edge fracture basis)
+are queued in ROADMAP.md (A12).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import config
+from ..mesh.dedup import tolerant_group
+from .abstract_basis import AbstractBasis
+
+
+def _group_rows(coords: np.ndarray, tol: float):
+    """(group_ids, counts) of coordinate rows equal within tolerance."""
+    scale = max(1.0, float(np.abs(coords).max()))
+    ids = tolerant_group(coords, tol * scale)
+    return ids, np.bincount(ids)
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def build_global_triangulation(mesh, tol: float = 1e-9) -> dict:
+    """Glue B fracture meshes into one global conforming triangulation.
+
+    Host-side NumPy on float64 copies of the mesh; returns a dict of tensors
+    on the mesh's device (floats in its dtype, indices int32):
+      vertices_3D (n_g, 3), vertices_2D (n_g, 2), vertex_markers (n_g,),
+      triangles (B*T, 3), edges (E_g, 2), edge_markers (E_g,),
+      global2local_idx (B*n_v,), local2global_idx (n_g,),
+      traces_global_vertices_idx, traces_global_edges_idx,
+      traces_local_edges_idx (B, K), traces_interior_edges_idx (B, K).
+    """
+    coords3d = _host(mesh["vertices", "coordinates_3d"]).astype(np.float64)
+    coords2d = _host(mesh["vertices", "coordinates"]).astype(np.float64)
+    markers = _host(mesh["vertices", "markers"]).reshape(coords3d.shape[0], -1)
+    cells = _host(mesh["cells", "vertices"]).astype(np.int64)
+    edges = _host(mesh["edges", "vertices"]).astype(np.int64)
+
+    nb_fractures, nb_vertices, _ = coords3d.shape
+    nb_edges = edges.shape[-2]
+
+    flat3d = coords3d.reshape(-1, 3)
+    global2local_idx, vertex_counts = _group_rows(flat3d, tol)
+    nb_global = vertex_counts.shape[0]
+
+    # canonical (minimal) local flat index per global vertex
+    local2global_idx = np.full(nb_global, flat3d.shape[0], dtype=np.int64)
+    np.minimum.at(local2global_idx, global2local_idx, np.arange(flat3d.shape[0]))
+
+    global_vertices_3d = flat3d[local2global_idx]
+    global_vertices_2d = coords2d.reshape(-1, 2)[local2global_idx]
+
+    traces_global_vertices_idx = np.nonzero(vertex_counts > 1)[0]
+
+    # a global DOF is Dirichlet iff ANY local copy is marked boundary
+    flat_markers = markers.reshape(-1)
+    global_markers = np.zeros(nb_global, dtype=np.int64)
+    np.maximum.at(global_markers, global2local_idx, flat_markers)
+
+    vertex_offset = np.arange(nb_fractures)[:, None, None] * nb_vertices
+    global_triangles = global2local_idx[cells + vertex_offset].reshape(-1, 3)
+
+    local_edges_global = global2local_idx[edges + vertex_offset].reshape(-1, 2)
+    local_edges_sorted = np.sort(local_edges_global, axis=-1)
+    global_edges, global2local_edges_idx, edge_counts = np.unique(
+        local_edges_sorted, axis=0, return_inverse=True, return_counts=True
+    )
+    global2local_edges_idx = global2local_edges_idx.reshape(-1)
+    nb_global_edges = global_edges.shape[0]
+
+    traces_global_edges_idx = np.nonzero(edge_counts > 1)[0]
+    trace_flat = np.nonzero(np.isin(global2local_edges_idx, traces_global_edges_idx))[0]
+    # per-fracture local indices of trace edges, padded with -1
+    per_fracture = [
+        trace_flat[(trace_flat >= b * nb_edges) & (trace_flat < (b + 1) * nb_edges)]
+        - b * nb_edges
+        for b in range(nb_fractures)
+    ]
+    k_max = max((len(p) for p in per_fracture), default=0)
+    traces_local_edges_idx = np.full((nb_fractures, k_max), -1, dtype=np.int64)
+    for b, p in enumerate(per_fracture):
+        traces_local_edges_idx[b, : len(p)] = p
+
+    # positions of trace edges inside each fracture's interior-edge list
+    # (the axis jump tensors live on); -1 where a trace edge is a boundary
+    # edge of that fracture
+    interior_vertices = _host(mesh["interior_edges", "vertices"])
+    traces_interior_edges_idx = np.full((nb_fractures, k_max), -1, dtype=np.int64)
+    for b in range(nb_fractures):
+        lookup = {
+            tuple(pair): pos
+            for pos, pair in enumerate(np.sort(interior_vertices[b], axis=-1))
+        }
+        for k, local_edge in enumerate(per_fracture[b]):
+            pair = tuple(np.sort(edges[b, local_edge]))
+            traces_interior_edges_idx[b, k] = lookup.get(pair, -1)
+
+    local2global_edges_idx = np.full(
+        nb_global_edges, nb_fractures * nb_edges, dtype=np.int64
+    )
+    np.minimum.at(
+        local2global_edges_idx, global2local_edges_idx, np.arange(nb_fractures * nb_edges)
+    )
+
+    edge_markers_flat = _host(mesh["edges", "markers"]).reshape(-1)
+    global_edge_markers = np.zeros(nb_global_edges, dtype=np.int64)
+    np.maximum.at(global_edge_markers, global2local_edges_idx, edge_markers_flat)
+
+    device, f, i = mesh.device, mesh.dtype, config.index_dtype()
+
+    def real(a):
+        return torch.tensor(a, dtype=f, device=device)
+
+    def index(a):
+        return torch.tensor(np.asarray(a).astype(np.int32), dtype=i, device=device)
+
+    return {
+        "vertices_3D": real(global_vertices_3d),
+        "vertices_2D": real(global_vertices_2d),
+        "vertex_markers": index(global_markers),
+        "triangles": index(global_triangles),
+        "edges": index(global_edges),
+        "edge_markers": index(global_edge_markers),
+        "global2local_idx": index(global2local_idx),
+        "local2global_idx": index(local2global_idx),
+        "traces_global_vertices_idx": index(traces_global_vertices_idx),
+        "traces_global_edges_idx": index(traces_global_edges_idx),
+        "traces_local_edges_idx": index(traces_local_edges_idx),
+        "traces_interior_edges_idx": index(traces_interior_edges_idx),
+    }
+
+
+class FractureBasis(AbstractBasis):
+    """P1 basis on the glued global DFN triangulation of a ``FracturesTri``."""
+
+    def __init__(self, mesh, element, tol: float = 1e-9):
+        self.global_triangulation = build_global_triangulation(mesh, tol)
+        self.nb_fractures = int(mesh.batch_size()[0])
+
+        super().__init__(mesh, element)
+
+        # correct 2D reference gradients to tangential 3D gradients:
+        # (B, T, 1, n_loc, 2) @ (B, 1, 1, 2, 3) -> (B, T, 1, n_loc, 3)
+        inv_frac = mesh["inv_jacobian_fracture_map"][:, None, None]
+        self.v_grad = self.v_grad @ inv_frac
+        self._inv_map_jacobian = self._inv_map_jacobian @ inv_frac
+
+    def _compute_dofs(self, mesh, element):
+        if element.polynomial_order != 1:
+            raise NotImplementedError(
+                "the port's FractureBasis has P1 DOF maps only; P2/P3 are "
+                "queued in ROADMAP.md (A12)"
+            )
+        g = self.global_triangulation
+        coords_4_global_dofs = g["vertices_3D"]
+        global_dofs_4_elements = g["triangles"]  # (B*T, 3)
+        nodes_4_boundary_dofs = g["vertex_markers"][:, None]
+        coords_4_elements = coords_4_global_dofs[global_dofs_4_elements.long()]
+        return (
+            coords_4_global_dofs,
+            global_dofs_4_elements,
+            nodes_4_boundary_dofs,
+            coords_4_elements,
+        )
+
+    def _compute_basis_parameters(
+        self, coords4global_dofs, global_dofs4elements, nodes4boundary_dofs
+    ):
+        return self._build_assembly_parameters(
+            int(coords4global_dofs.shape[-2]),
+            global_dofs4elements,
+            nodes4boundary_dofs,
+        )
+
+    # -- geometry -----------------------------------------------------------
+
+    def _compute_jacobian_map(self, mesh, element):
+        coords = mesh["cells", "coordinates"]
+        return coords.mT @ element.barycentric_grad.to(coords)
+
+    def _compute_integration_points(self, mesh, bar_coords):
+        # quadrature points directly in 3D via the lifted cell coordinates
+        return bar_coords.mT @ mesh["cells", "coordinates_3d"][..., None, :, :]
+
+    def _compute_integral_weights(self, element, det_map_jacobian):
+        # 2D reference measure x per-fracture area scale ||j1 x j2||
+        scale = self.mesh["det_jacobian_fracture_map"][..., None, None]
+        weights = element.gaussian_weights.to(det_map_jacobian)
+        return element.reference_element_area * weights * det_map_jacobian * scale
+
+    def interpolate(self, basis, tensor=None):
+        raise NotImplementedError(
+            "FractureBasis.interpolate (with the interior-edge fracture "
+            "basis) is queued in ROADMAP.md (A12)"
+        )

@@ -1,0 +1,204 @@
+"""The RVPINN training workload on the port, and the two-fracture RVPINN loss.
+
+``make_rvpinn`` is the counterpart of the repo-root ``bench_vpinn.py``
+(``tpu_epoch_time``): the reference's ``examples/example_weak.py`` epoch
+on ``MeshTri(unit_square(n))`` with ``ElementTri(1, 4)``: the network's
+input gradient at every quadrature point, the weighted scatter into the
+residual vector, the Gram-preconditioned loss ``r^T G^{-1} r``, the
+relative-loss and H1 metrics, the double backward and an Adam step at 1e-3.
+Its defaults are that benchmark's (N=64: 8,192 cells, 49,152 quadrature
+points; width 15, depth 4, 50 epochs).
+
+The Gram G is the reduced P1 stiffness of the test space. Where the JAX
+benchmark integrates ``grad . grad`` with XLA, this one assembles it from
+the rows of the 2D P1 element kernel K5 (``ops.kernels.p1_local_stiffness_load``,
+the port of the Pallas ``_p1_kernel``), which computes exactly that matrix on
+this mesh; ``G^{-1}`` is dense, as in the benchmark.
+
+``make_two_fracture`` is the counterpart of ``__graft_entry__.py``'s
+``_build_problem``: two isometric fracture charts of ``rectangle(2n, n)``
+glued along their trace, ``ElementTri(1, 2)``, a 3 -> 16 MLP with 3 hidden
+layers and the RVPINN loss ``sum(r^2)``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from . import config
+from .basis import Basis, FractureBasis
+from .element import ElementTri
+from .mesh import FracturesTri, MeshTri, rectangle, unit_square
+from .models import FeedForwardNeuralNetwork, Model
+from .ops.kernels import p1_local_stiffness_load
+
+N = 64
+WIDTH = 15
+DEPTH = 4
+EPOCHS = 50
+LEARNING_RATE = 1e-3
+
+
+def _unit_square_bc(inputs):
+    x, y = inputs[..., 0:1], inputs[..., 1:2]
+    return x * (x - 1) * y * (y - 1)
+
+
+def _exact(x, y):
+    return torch.sin(math.pi * x) * torch.sin(math.pi * y)
+
+
+def _exact_dx(x, y):
+    return math.pi * torch.cos(math.pi * x) * torch.sin(math.pi * y)
+
+
+def _exact_dy(x, y):
+    return math.pi * torch.sin(math.pi * x) * torch.cos(math.pi * y)
+
+
+def _h1_exact(basis):
+    x, y = basis.integration_points[..., 0:1], basis.integration_points[..., 1:2]
+    return _exact(x, y) ** 2 + _exact_dx(x, y) ** 2 + _exact_dy(x, y) ** 2
+
+
+def _residual(basis, gradient):
+    pts = basis.integration_points
+    x, y = pts[..., 0:1], pts[..., 1:2]
+    rhs = 2.0 * math.pi**2 * torch.sin(math.pi * x) * torch.sin(math.pi * y)
+    return rhs * basis.v - (basis.v_grad @ gradient(pts).mT)
+
+
+def _h1_norm(basis, net, gradient):
+    pts = basis.integration_points
+    x, y = pts[..., 0:1], pts[..., 1:2]
+    g = gradient(pts)
+    return (
+        (_exact(x, y) - net(pts)) ** 2
+        + (_exact_dx(x, y) - g[..., 0:1]) ** 2
+        + (_exact_dy(x, y) - g[..., 1:2]) ** 2
+    )
+
+
+def rvpinn_gram_inverse(basis) -> torch.Tensor:
+    """Dense ``inv(reduce(K))``, K the P1 stiffness assembled from K5's
+    rows of the basis's mesh cells."""
+    stiff, _, _ = p1_local_stiffness_load(basis.mesh["cells", "coordinates"])
+    return torch.linalg.inv(basis.reduce(basis._assemble_bilinear_from_local(stiff)))
+
+
+class RVPINN(NamedTuple):
+    mesh: MeshTri
+    basis: Basis
+    network: FeedForwardNeuralNetwork
+    gram_inv: torch.Tensor
+    exact_norm: torch.Tensor
+    training_step: Callable
+    model: Model
+
+
+def make_rvpinn(
+    n: int = N,
+    width: int = WIDTH,
+    depth: int = DEPTH,
+    *,
+    epochs: int = EPOCHS,
+    seed: int = 0,
+    device=None,
+    dtype: torch.dtype | None = None,
+) -> RVPINN:
+    """The RVPINN benchmark: mesh, basis, seeded network, K5-built Gram
+    inverse, training step and an Adam ``Model`` at 1e-3.
+
+    ``training_step(net)`` returns ``(loss, relative, h1_error)``; the two
+    metrics are computed under ``torch.no_grad()`` and feed no backward.
+    ``device`` defaults to the card, ``dtype`` to ``config.default_dtype()``.
+    """
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_dtype()
+    mesh = MeshTri(unit_square(n=n), device=device, dtype=dtype)
+    V = Basis(mesh, ElementTri(1, 4))
+    net = FeedForwardNeuralNetwork(
+        2, 1, depth, width, boundary_condition_modifier=_unit_square_bc, seed=seed,
+        device=device, dtype=dtype,
+    )
+    gram_inv = rvpinn_gram_inverse(V)
+    exact_norm = torch.sqrt(V.integrate_functional(_h1_exact).sum())
+
+    def training_step(net):
+        r = V.reduce(V.integrate_linear_form(_residual, net.gradient))
+        loss = (r.T @ (gram_inv @ r))[0, 0]
+        with torch.no_grad():
+            relative = torch.sqrt(loss) / exact_norm**2
+            h1_err = torch.sqrt(V.integrate_functional(_h1_norm, net, net.gradient).sum())
+        return loss, relative, h1_err / exact_norm
+
+    model = Model(
+        net, training_step, epochs=epochs, optimizer_kwargs={"lr": LEARNING_RATE},
+        progress_bar=False,
+    )
+    return RVPINN(mesh, V, net, gram_inv, exact_norm, training_step, model)
+
+
+# -- the two-fracture RVPINN loss -------------------------------------------
+
+#: the 3D images of the two charts' anchors (x = -1..1, y = 0..1)
+FRACTURES_3D = np.array(
+    [
+        [[-1.0, 0.0, 0.0], [1.0, 0.0, 0.0], [-1.0, 1.0, 0.0]],
+        [[0.0, 0.0, -1.0], [0.0, 0.0, 1.0], [0.0, 1.0, -1.0]],
+    ]
+)
+ANCHORS_2D = np.array([[[-1.0, 0.0], [1.0, 0.0], [-1.0, 1.0]]] * 2)
+
+
+def _fracture_bc(inputs):
+    x, y, z = inputs[..., 0:1], inputs[..., 1:2], inputs[..., 2:3]
+    return y * (1 - y) * (x**2 - 1) * (z**2 - 1)
+
+
+def _fracture_rhs(c):
+    x, y, z = c[..., 0:1], c[..., 1:2], c[..., 2:3]
+    r1 = 6.0 * (y - y**2) * torch.abs(x) - 2.0 * (torch.abs(x) ** 3 - torch.abs(x))
+    r2 = -6.0 * (y - y**2) * torch.abs(z) + 2.0 * (torch.abs(z) ** 3 - torch.abs(z))
+    return torch.cat([r1[0:1], r2[1:2]], dim=0)
+
+
+def _fracture_residual(basis, gradient):
+    pts = basis.integration_points
+    return _fracture_rhs(pts) * basis.v - (basis.v_grad @ gradient(pts).mT)
+
+
+def two_fracture_loss(net, basis) -> torch.Tensor:
+    """The RVPINN loss ``sum(r^2)`` of the reduced residual vector."""
+    r = basis.reduce(basis.integrate_linear_form(_fracture_residual, net.gradient))
+    return (r**2).sum()
+
+
+class TwoFractureProblem(NamedTuple):
+    mesh: FracturesTri
+    basis: FractureBasis
+    network: FeedForwardNeuralNetwork
+
+
+def make_two_fracture(
+    n: int = 8, *, seed: int = 0, device=None, dtype: torch.dtype | None = None
+) -> TwoFractureProblem:
+    """Two perpendicular unit-height fractures meeting along x = z = 0,
+    each a ``rectangle(2n, n)`` chart, with the entry's network (3 -> 16,
+    3 hidden layers, seeded). The loss is ``two_fracture_loss(net, basis)``."""
+    device = config.resolve_device(device)
+    tri = rectangle(2 * n, n, x0=-1.0, x1=1.0, y0=0.0, y1=1.0)
+    mesh = FracturesTri(
+        [tri, tri], FRACTURES_3D, anchor_vertices_2d=ANCHORS_2D, device=device, dtype=dtype
+    )
+    V = FractureBasis(mesh, ElementTri(1, 2))
+    net = FeedForwardNeuralNetwork(
+        input_dimension=3, output_dimension=1, nb_hidden_layers=3,
+        neurons_per_layers=16, boundary_condition_modifier=_fracture_bc, seed=seed,
+        device=device, dtype=mesh.dtype,
+    )
+    return TwoFractureProblem(mesh, V, net)

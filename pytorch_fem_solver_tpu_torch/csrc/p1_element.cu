@@ -77,13 +77,89 @@ __global__ void p1_element_3d_kernel(const T* __restrict__ coords,
   out[12 * n + t] = area;
 }
 
+// K5: 2D P1 element kernel with a per-cell scale.
+//
+// Replaces: pytorch_fem_solver_tpu/ops/pallas_kernels.py:_p1_kernel, launched
+// by _p1_pallas. Per cell with vertices p0, p1, p2 and scale s: the SIGNED
+// det = (p1 - p0) x (p2 - p0) (no abs: a clockwise cell gives a negative
+// area and stiffness, as on the TPU), area = 1/2 det s, the P1 gradients
+// divided by det, S_ij = area (g_i . g_j), the f=1 load area/3 (x3), the
+// area and det. The scale multiplies the stiffness as well as the load, so on
+// a fracture chart this is the tangential stiffness only where the chart is
+// an isometry (K1 is the kernel for general charts).
+//
+// What bounds it on an H100: memory, as K1. Each cell reads 6 coordinates
+// and the scale and writes 14 values (21 words, 84 bytes in f32) for about
+// 40 floating-point operations.
+//
+// Design: one thread per cell reading the mesh's (T, 3, 2) AoS coordinates
+// as they are (a warp's 32 cells are 768 contiguous bytes) and writing SoA
+// (14, T) rows: 0-8 the row-major stiffness, 9-11 the load, 12 the area,
+// 13 det. This is the TPU kernel's output without its two zero rows and its
+// 2048-lane padding. A null scale pointer means a scale of 1.
+template <typename T>
+__global__ void p1_element_2d_kernel(const T* __restrict__ coords,
+                                     const T* __restrict__ scale,
+                                     T* __restrict__ out, int64_t n) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (t >= n) return;
+  const T* p = coords + 6 * t;
+  const T x0 = p[0], y0 = p[1], x1 = p[2], y1 = p[3], x2 = p[4], y2 = p[5];
+  const T s = scale ? scale[t] : T(1);
+
+  const T ux1 = x1 - x0, uy1 = y1 - y0;
+  const T ux2 = x2 - x0, uy2 = y2 - y0;
+  const T det = ux1 * uy2 - ux2 * uy1;
+  const T inv_det = T(1) / det;
+  const T area = T(0.5) * det * s;
+
+  const T g1x = (uy1 - uy2) * inv_det, g1y = (ux2 - ux1) * inv_det;
+  const T g2x = uy2 * inv_det, g2y = -ux2 * inv_det;
+  const T g3x = -uy1 * inv_det, g3y = ux1 * inv_det;
+
+  const T s11 = area * (g1x * g1x + g1y * g1y);
+  const T s12 = area * (g1x * g2x + g1y * g2y);
+  const T s13 = area * (g1x * g3x + g1y * g3y);
+  const T s22 = area * (g2x * g2x + g2y * g2y);
+  const T s23 = area * (g2x * g3x + g2y * g3y);
+  const T s33 = area * (g3x * g3x + g3y * g3y);
+  const T load = area * T(1.0 / 3.0);
+
+  out[0 * n + t] = s11;
+  out[1 * n + t] = s12;
+  out[2 * n + t] = s13;
+  out[3 * n + t] = s12;
+  out[4 * n + t] = s22;
+  out[5 * n + t] = s23;
+  out[6 * n + t] = s13;
+  out[7 * n + t] = s23;
+  out[8 * n + t] = s33;
+  out[9 * n + t] = load;
+  out[10 * n + t] = load;
+  out[11 * n + t] = load;
+  out[12 * n + t] = area;
+  out[13 * n + t] = det;
+}
+
+constexpr int kThreads = 256;
+
 template <typename T>
 int launch(const T* coords, T* out, int64_t n, cudaStream_t stream) {
-  constexpr int kThreads = 256;
   if (n > 0) {
     const int64_t blocks = (n + kThreads - 1) / kThreads;
     p1_element_3d_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
         coords, out, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_2d(const T* coords, const T* scale, T* out, int64_t n,
+              cudaStream_t stream) {
+  if (n > 0) {
+    const int64_t blocks = (n + kThreads - 1) / kThreads;
+    p1_element_2d_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        coords, scale, out, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -98,4 +174,14 @@ extern "C" int p1_element_3d_f32(const float* coords, float* out, int64_t n,
 extern "C" int p1_element_3d_f64(const double* coords, double* out, int64_t n,
                                  cudaStream_t stream) {
   return launch<double>(coords, out, n, stream);
+}
+
+extern "C" int p1_element_2d_f32(const float* coords, const float* scale,
+                                 float* out, int64_t n, cudaStream_t stream) {
+  return launch_2d<float>(coords, scale, out, n, stream);
+}
+
+extern "C" int p1_element_2d_f64(const double* coords, const double* scale,
+                                 double* out, int64_t n, cudaStream_t stream) {
+  return launch_2d<double>(coords, scale, out, n, stream);
 }

@@ -1,9 +1,10 @@
 """State carried across from the JAX package, as NumPy.
 
-The FEM has no weights: its state is the mesh, the DOF maps and the BSR
-tables. These helpers build the port's objects from a JAX package object's
-arrays handed over as NumPy, so both packages can run on byte-identical
-inputs. They take NumPy only and never import the JAX package.
+The FEM's state is the mesh, the DOF maps and the BSR tables; a VPINN adds
+the network's weights. These helpers build the port's objects from a JAX
+package object's arrays handed over as NumPy, so both packages can run on
+byte-identical inputs. They take NumPy only and never import the JAX
+package.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from . import config
 from .mesh.fracture_network import FractureNetworkMesh
 from .mesh.mesh_tri import _freeze
+from .models.network import FeedForwardNeuralNetwork
 from .ops.bsr import BSRStructure
 from .ops.precondition import AggBlockTwoLevel
 
@@ -73,3 +75,19 @@ def agg_block_two_level_from_numpy(
     return AggBlockTwoLevel(
         inv_agg=dev(inv_agg), coarse_inv=dev(coarse_inv), g=int(g), gs=int(gs)
     )
+
+
+def network_from_numpy(weights, biases, **arch) -> FeedForwardNeuralNetwork:
+    """The port's network holding a JAX network's ``weights`` / ``biases``
+    tuples (as NumPy, each weight (fan_in, fan_out)). ``arch`` takes the
+    constructor's arguments (``input_dimension``, ..., ``device``,
+    ``dtype``); the seeded draw is overwritten."""
+    net = FeedForwardNeuralNetwork(**arch)
+    if len(weights) != net.n_layers or len(biases) != net.n_layers:
+        raise ValueError(
+            f"expected {net.n_layers} weights and biases, got "
+            f"{len(weights)} and {len(biases)}"
+        )
+    params = {f"w{i}": w for i, w in enumerate(weights)}
+    params.update({f"b{i}": b for i, b in enumerate(biases)})
+    return net.with_parameters(params)

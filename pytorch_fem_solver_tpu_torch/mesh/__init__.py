@@ -2,15 +2,24 @@
 
 from .dfn import build_fracture_network
 from .fracture_network import FractureNetworkMesh, fit_affine_maps
+from .fractures_tri import FracturesTri
+from .generation import rectangle, refine_uniform, triangulation_max_area, unit_square
 from .mesh_tri import MeshTri
+from .meshes_tri import MeshesTri
 from .pslg import triangulate_pslg
 from .quality import triangle_min_angles
 
 __all__ = [
     "FractureNetworkMesh",
+    "FracturesTri",
     "MeshTri",
+    "MeshesTri",
     "build_fracture_network",
     "fit_affine_maps",
+    "rectangle",
+    "refine_uniform",
     "triangle_min_angles",
     "triangulate_pslg",
+    "triangulation_max_area",
+    "unit_square",
 ]

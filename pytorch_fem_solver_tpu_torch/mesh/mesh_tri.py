@@ -130,6 +130,15 @@ class MeshTri:
             return node
         return node[key]
 
+    def __setitem__(self, key: str | Tuple[str, ...], value) -> None:
+        if isinstance(key, tuple):
+            node = self._t
+            for k in key[:-1]:
+                node = node.setdefault(k, {})
+            node[key[-1]] = value
+        else:
+            self._t[key] = value
+
     def refined(self, marked):
         raise NotImplementedError(
             "adaptive refinement (mesh/refinement.py) is not ported yet; "

@@ -1,0 +1,432 @@
+"""Training harness for VPINN models.
+
+Counterpart of ``pytorch_fem_solver_tpu/models/model.py``: a user-supplied
+``training_step(net) -> (loss, validation, accuracy)``, an epoch loop with
+a ``torch.optim`` optimizer (Adam at 1e-3 by default), early stopping, the
+best-parameter snapshot, a non-finite guard, histories and ``.npz``
+checkpoints that include the optimizer state.
+
+``train()`` reads the three scalars back once per epoch, as the JAX loop
+does. ``train_compiled(block_size)`` runs ``block_size`` epochs with no host
+read and reads the block's scalars back once: the best snapshot, the
+best loss and the non-finite count live on the device, and a non-finite
+epoch holds the parameters and the optimizer state through ``torch.where``
+on flat copies (a few launches per epoch, no host sync).
+
+On a CUDA network the optimizer is built ``capturable`` where its class
+takes that option, so its step counter lives on the card: the hold then
+covers the whole optimizer state, and ``train()`` and ``train_compiled()``
+run the same arithmetic. Plateau schedulers and the stateful
+``training_state0`` protocol are queued in ROADMAP.md (A10); they raise.
+"""
+
+from __future__ import annotations
+
+import copy
+import inspect
+import math
+import time
+from collections import defaultdict
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+
+def _flat(tensors) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _unflat(flat: torch.Tensor, like) -> list:
+    """Views of ``flat`` shaped like the tensors of ``like``."""
+    parts = flat.split([t.numel() for t in like])
+    return [p.view_as(t) for p, t in zip(parts, like)]
+
+
+def _grouped(tensors) -> list:
+    """The tensors split into lists of one dtype and device each."""
+    groups = defaultdict(list)
+    for t in tensors:
+        groups[(t.dtype, t.device)].append(t)
+    return list(groups.values())
+
+
+class _FlatCopies:
+    """Persistent flat buffers for a fixed list of tensors, a pair per dtype
+    and device, with views shaped like the tensors: a copy in or out is one
+    ``_foreach_copy_`` and no view is made per epoch."""
+
+    def __init__(self, tensors):
+        self.ids = [id(t) for t in tensors]
+        self.groups = []
+        for group in _grouped(tensors):
+            n = sum(t.numel() for t in group)
+            saved, scratch = group[0].new_empty(n), group[0].new_empty(n)
+            self.groups.append(
+                (group, saved, _unflat(saved, group), scratch, _unflat(scratch, group))
+            )
+
+    def save(self) -> None:
+        for group, _, saved_views, _, _ in self.groups:
+            torch._foreach_copy_(saved_views, group)
+
+    def keep_where(self, cond: torch.Tensor) -> None:
+        """Each tensor keeps its value where ``cond``, else takes back its
+        saved one."""
+        for group, saved, _, scratch, scratch_views in self.groups:
+            torch._foreach_copy_(scratch_views, group)
+            torch.where(cond, scratch, saved, out=scratch)
+            torch._foreach_copy_(group, scratch_views)
+
+
+def _architecture_signature(net) -> str:
+    """The layer names and shapes, e.g. ``w0:(2, 15);b0:(15,);...``."""
+    return ";".join(f"{n}:{tuple(p.shape)}" for n, p in net.named_parameters())
+
+
+class Model:
+    """Trains a neural-network trial function against a variational loss."""
+
+    def __init__(
+        self,
+        neural_network,
+        training_step: Callable,
+        epochs: int = 5000,
+        optimizer: Any = torch.optim.Adam,
+        optimizer_kwargs: Optional[dict] = None,
+        learning_rate_scheduler: Optional[Any] = None,
+        scheduler_kwargs: Optional[dict] = None,
+        use_early_stopping: bool = False,
+        early_stopping_patience: int = 10,
+        min_delta: float = 1e-12,
+        progress_bar: bool = True,
+        training_state0: Any = None,
+    ):
+        if learning_rate_scheduler is not None:
+            raise NotImplementedError(
+                "learning-rate schedulers are not ported: plateau scheduling "
+                "differs between optax and torch.optim; see ROADMAP.md, queue A10"
+            )
+        if training_state0 is not None:
+            raise NotImplementedError(
+                "the stateful training protocol (training_state0) comes with "
+                "the PCG Gram warm start; see ROADMAP.md, queue A10"
+            )
+        self._neural_network = neural_network
+        self._training_step = training_step
+        self._epochs = int(epochs)
+
+        kwargs = dict(optimizer_kwargs or {"lr": 1e-3})
+        # accept the JAX package's spelling
+        if "learning_rate" in kwargs:
+            kwargs["lr"] = kwargs.pop("learning_rate")
+        self._optimizer_class = optimizer
+        self._optimizer_kwargs = kwargs
+        self._optimizer = self._make_optimizer()
+
+        self._use_early_stopping = use_early_stopping
+        self._early_stopping_patience = int(early_stopping_patience)
+        self._min_delta = float(min_delta)
+        self._progress_bar = progress_bar
+
+        self._loss_history: list[float] = []
+        self._validation_loss_history: list[float] = []
+        self._accuracy_history: list[float] = []
+        self._epoch_times: list[float] = []
+
+        self._best_loss = float("inf")
+        self.optimal_parameters = self._snapshot()
+        self.early_stopping_counter = 0
+        self._diverged_steps = 0
+
+    # -- internals ---------------------------------------------------------
+
+    def _make_optimizer(self):
+        params = list(self._neural_network.parameters())
+        kwargs = dict(self._optimizer_kwargs)
+        if (
+            params
+            and params[0].is_cuda
+            and "capturable" in inspect.signature(self._optimizer_class).parameters
+        ):
+            kwargs.setdefault("capturable", True)
+        return self._optimizer_class(params, **kwargs)
+
+    def _snapshot(self) -> dict:
+        return {
+            n: p.detach().clone() for n, p in self._neural_network.named_parameters()
+        }
+
+    def _load_parameters(self, params: dict) -> None:
+        with torch.no_grad():
+            for n, p in self._neural_network.named_parameters():
+                p.copy_(params[n])
+
+    def _epoch(self):
+        """One forward + backward; returns (loss, validation, accuracy) as
+        detached 0-d tensors. The optimizer step is left to the caller."""
+        self._optimizer.zero_grad(set_to_none=True)
+        loss, validation, accuracy = self._training_step(self._neural_network)
+        loss = loss.reshape(())
+        loss.backward()
+        return (
+            loss.detach(),
+            torch.as_tensor(validation).detach().reshape(()).to(loss),
+            torch.as_tensor(accuracy).detach().reshape(()).to(loss),
+        )
+
+    def _held_tensors(self) -> list:
+        """The parameters and the optimizer's state tensors."""
+        params = list(self._neural_network.parameters())
+        held = list(params)
+        for p in params:
+            held += [v for v in self._optimizer.state.get(p, {}).values() if torch.is_tensor(v)]
+        return held
+
+    # -- public API --------------------------------------------------------
+
+    def train(self):
+        """Run the epoch loop; returns the trained network."""
+        iterator = range(self._epochs)
+        bar = None
+        if self._progress_bar:
+            try:
+                import tqdm
+
+                bar = tqdm.tqdm(iterator, desc="Training Progress")
+                iterator = bar
+            except ImportError:
+                pass
+
+        for _ in iterator:
+            t0 = time.perf_counter()
+            scalars = torch.stack(self._epoch())
+            loss_value, validation_value, accuracy_value = scalars.tolist()
+            self._epoch_times.append(time.perf_counter() - t0)
+            # history first, aligned with _epoch_times: the guard and the
+            # early stop below must not drop the epoch they evaluated
+            self._loss_history.append(loss_value)
+            self._validation_loss_history.append(validation_value)
+            self._accuracy_history.append(accuracy_value)
+
+            # a non-finite loss would poison the parameters and the optimizer
+            # state: skip the update and fall back to the best snapshot
+            if not math.isfinite(loss_value):
+                self._load_parameters(self.optimal_parameters)
+                self._optimizer = self._make_optimizer()
+                self._diverged_steps += 1
+                if self._diverged_steps > 10:
+                    break
+                continue
+
+            # snapshot the parameters that ACHIEVED loss_value (the
+            # pre-update ones) before stepping
+            if self._use_early_stopping:
+                if loss_value < self._best_loss - self._min_delta:
+                    self._best_loss = loss_value
+                    self.early_stopping_counter = 0
+                    self.optimal_parameters = self._snapshot()
+                else:
+                    self.early_stopping_counter += 1
+                    if self.early_stopping_counter >= self._early_stopping_patience:
+                        break
+            elif loss_value < self._best_loss:
+                self._best_loss = loss_value
+                self.optimal_parameters = self._snapshot()
+
+            self._optimizer.step()
+
+            if bar is not None:
+                bar.set_postfix(
+                    {
+                        "Loss": f"{loss_value:.8f}",
+                        "Validation loss": f"{validation_value:.8f}",
+                        "Accuracy": f"{accuracy_value:.8f}",
+                    }
+                )
+        return self._neural_network
+
+    def train_compiled(self, block_size: int = 100):
+        """Epoch blocks with one host read each: ``block_size`` epochs run
+        back to back on the device, and their losses and metrics are read
+        back once per block.
+
+        Per-epoch math is that of :meth:`train`; where the host used to step
+        in mid-epoch the semantics are the JAX package's:
+
+        * the best snapshot (the pre-update parameters of the lowest finite
+          loss, under the ``min_delta`` margin with early stopping) is
+          tracked on the device;
+        * a non-finite epoch holds the parameters and the optimizer state
+          (the eager loop resets to the snapshot); more than 10 of them
+          stop training at the next block edge;
+        * early stopping replays the patience rule on the block's losses;
+          after a stop in mid-block the block is re-run from its saved
+          start state for exactly ``stop_epoch + 1`` epochs, so nothing past
+          the stopping point reaches the parameters or the snapshot, and
+          the live network is then the best snapshot.
+        """
+        block_size = max(1, int(block_size))
+        use_es = self._use_early_stopping
+        margin = self._min_delta if use_es else 0.0
+        net = self._neural_network
+        params = list(net.parameters())
+        names = [n for n, _ in net.named_parameters()]
+
+        n_params = sum(p.numel() for p in params)
+        best_loss = torch.tensor(self._best_loss, dtype=params[0].dtype, device=params[0].device)
+        carry = [best_loss, _flat(params).detach(), torch.zeros_like(best_loss, dtype=torch.int64)]
+        copies = None
+
+        def run_block(length, carry):
+            nonlocal copies
+            best_loss, best_flat, n_bad = carry
+            rows = []
+            for _ in range(length):
+                loss, validation, accuracy = self._epoch()
+                finite = torch.isfinite(loss)
+                improved = finite & (loss < best_loss - margin)
+                held = self._held_tensors()
+                if copies is None or copies.ids != [id(t) for t in held]:
+                    copies = _FlatCopies(held)
+                with torch.no_grad():
+                    copies.save()  # the parameters come first: pre-step values
+                    best_flat = torch.where(improved, copies.groups[0][1][:n_params], best_flat)
+                    best_loss = torch.where(improved, loss, best_loss)
+                    n_bad = n_bad + ~finite
+                    self._optimizer.step()
+                    # a non-finite epoch holds the parameters and the
+                    # optimizer state; state the step created (the first
+                    # step's) falls back to zeros, the fresh state
+                    copies.keep_where(finite)
+                    saved_ids = set(copies.ids)
+                    for t in self._held_tensors():
+                        if id(t) not in saved_ids:
+                            t.copy_(torch.where(finite, t, torch.zeros_like(t)))
+                rows.append(torch.stack([loss, validation, accuracy]))
+            return torch.stack(rows), [best_loss, best_flat, n_bad]
+
+        done = 0
+        stopped = False
+        while done < self._epochs and not stopped:
+            length = min(block_size, self._epochs - done)
+            if use_es:
+                # the block's start state, re-entered after a mid-block stop
+                start = (
+                    [t.clone() for t in carry],
+                    [p.detach().clone() for p in params],
+                    copy.deepcopy(self._optimizer.state_dict()),
+                )
+            t0 = time.perf_counter()
+            rows, carry = run_block(length, carry)
+            rows = rows.cpu().numpy()  # the block's one host read
+            block_dt = (time.perf_counter() - t0) / length
+            done += length
+
+            # replay the eager per-epoch bookkeeping on the block's scalars
+            stop_epoch = None
+            for e in range(length):
+                lv = float(rows[e, 0])
+                self._epoch_times.append(block_dt)
+                self._loss_history.append(lv)
+                self._validation_loss_history.append(float(rows[e, 1]))
+                self._accuracy_history.append(float(rows[e, 2]))
+                if not math.isfinite(lv):
+                    continue
+                if use_es:
+                    if lv < self._best_loss - self._min_delta:
+                        self._best_loss = lv
+                        self.early_stopping_counter = 0
+                    else:
+                        self.early_stopping_counter += 1
+                        if self.early_stopping_counter >= self._early_stopping_patience:
+                            stopped = True
+                            stop_epoch = e
+                            break
+                elif lv < self._best_loss:
+                    self._best_loss = lv
+            if stop_epoch is not None and stop_epoch + 1 < length:
+                # the block ran past the stopping point: re-run it from its
+                # start state for exactly the epochs the eager loop ran
+                carry0, params0, opt0 = start
+                with torch.no_grad():
+                    torch._foreach_copy_(params, params0)
+                self._optimizer.load_state_dict(opt0)
+                _, carry = run_block(stop_epoch + 1, carry0)
+            if int(carry[2]) > 10:
+                stopped = True
+
+        best = _unflat(carry[1], params)
+        self.optimal_parameters = {n: b.clone() for n, b in zip(names, best)}
+        if stopped:
+            self._load_parameters(self.optimal_parameters)
+        return self._neural_network
+
+    @property
+    def neural_network(self):
+        return self._neural_network
+
+    def get_training_history(self):
+        return (
+            self._loss_history,
+            self._validation_loss_history,
+            self._accuracy_history,
+        )
+
+    def load_optimal_parameters(self):
+        """Restore the best-seen parameters into the live network."""
+        self._load_parameters(self.optimal_parameters)
+        return self._neural_network
+
+    # -- checkpointing -----------------------------------------------------
+
+    def save_checkpoint(self, path: str):
+        """Write parameters, optimizer state and histories to ``path``
+        (.npz), with the architecture signature checked on load. The
+        optimizer state (Adam's moments and step) makes a resumed run
+        continue the interrupted trajectory."""
+        net = self._neural_network
+        arrays = {
+            f"param_{n}": p.detach().cpu().numpy() for n, p in net.named_parameters()
+        }
+        for idx, state in self._optimizer.state_dict()["state"].items():
+            for key, value in state.items():
+                arrays[f"opt_{idx}_{key}"] = (
+                    value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
+                )
+        arrays["architecture"] = np.array(_architecture_signature(net))
+        arrays["loss_history"] = np.asarray(self._loss_history)
+        arrays["validation_loss_history"] = np.asarray(self._validation_loss_history)
+        arrays["accuracy_history"] = np.asarray(self._accuracy_history)
+        np.savez(path, **arrays)
+
+    def load_checkpoint(self, path: str):
+        """Restore parameters, optimizer state and histories.
+
+        Raises ``ValueError`` if the checkpoint's layer names and shapes do
+        not match the live network.
+        """
+        data = np.load(path)
+        live = _architecture_signature(self._neural_network)
+        saved = str(data["architecture"])
+        if saved != live:
+            raise ValueError(
+                f"checkpoint {path!r} was written for a different network "
+                f"architecture:\n  checkpoint: {saved}\n  live:       {live}"
+            )
+        self._load_parameters(
+            {n: torch.as_tensor(data[f"param_{n}"]) for n, _ in self._neural_network.named_parameters()}
+        )
+        state: dict = {}
+        for key in data.files:
+            if key.startswith("opt_"):
+                _, idx, name = key.split("_", 2)
+                state.setdefault(int(idx), {})[name] = torch.as_tensor(data[key])
+        if state:
+            opt_state = self._optimizer.state_dict()
+            opt_state["state"] = state
+            self._optimizer.load_state_dict(opt_state)
+        self._loss_history = [float(v) for v in data["loss_history"]]
+        self._validation_loss_history = [float(v) for v in data["validation_loss_history"]]
+        self._accuracy_history = [float(v) for v in data["accuracy_history"]]
+        return self._neural_network

@@ -29,6 +29,7 @@ SOURCES = {
     "p1_element": SOURCE_DIR / "p1_element.cu",
     "bsr_spmv": SOURCE_DIR / "bsr_spmv.cu",
     "fused_pcg": SOURCE_DIR / "fused_pcg.cu",
+    "gather": SOURCE_DIR / "gather.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,6 +42,8 @@ launch_counts = {
     "bsr_spmv": 0,
     "agg_smooth_restrict": 0,
     "coarse_prolong_dot": 0,
+    "p1_element_2d": 0,
+    "gather_rows": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

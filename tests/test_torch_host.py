@@ -7,6 +7,9 @@ helpers, the DFN builder and every array of the frozen mesh.
 
 import ast
 import pathlib
+import subprocess
+import sys
+import textwrap
 
 import jax
 import numpy as np
@@ -67,6 +70,48 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "pytorch_fem_solver_tpu_torch" not in FORBIDDEN
 
 
+_BLOCKED_IMPORTS = textwrap.dedent(
+    """
+    import importlib, importlib.abc, importlib.util, pathlib, sys
+
+    FORBIDDEN = ("jax", "pytorch_fem_solver_tpu")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in FORBIDDEN:
+                raise ImportError("blocked import of " + name)
+            return None
+
+    sys.meta_path.insert(0, Block())
+    root = pathlib.Path("pytorch_fem_solver_tpu_torch")
+    names = sorted(
+        ".".join(p.with_suffix("").parts).removesuffix(".__init__")
+        for p in root.rglob("*.py")
+        if "_build" not in p.parts
+    )
+    for name in names:
+        importlib.import_module(name)
+    spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    leaked = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
+    assert not leaked, leaked
+    print(len(names))
+    """
+)
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    """The no-JAX rule, executed: in a fresh interpreter where importing
+    ``jax`` or ``pytorch_fem_solver_tpu`` raises, every module of the port
+    and ``chip_smoke.py`` import."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORTS],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split()[-1]) > 30
+
+
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -75,6 +120,16 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
         pt.build_benchmark_network(0.5)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.MeshTri({"vertices": np.eye(3)[:, :2], "triangles": [[0, 1, 2]]})
+    from pytorch_fem_solver_tpu_torch.bench_vpinn import make_rvpinn, make_two_fracture
+
+    for entry in (
+        lambda: pt.FeedForwardNeuralNetwork(2, 1, 1, 4),
+        lambda: pt.MeshesTri([pt.unit_square(n=2)]),
+        lambda: make_rvpinn(n=2, width=2, depth=1),
+        lambda: make_two_fracture(n=2),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
     assert config.resolve_device("cpu") == torch.device("cpu")
 
 

@@ -127,3 +127,95 @@ def test_k1_kernel_matches_plain_on_card(network, dtype, tol):
     ref = pk._p1_plain_3d(coords.reshape(-1, 9).T)
     err = ((out - ref).abs().amax(dim=1) / ref.abs().amax(dim=1)).max()
     assert float(err) <= tol
+
+
+# -- K5: the 2D P1 element kernel ---------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def square():
+    """unit_square(n=7) cells, a seeded scale, and one clockwise cell."""
+    tri = fem.unit_square(n=7)
+    coords = np.asarray(tri["vertices"])[np.asarray(tri["triangles"])]
+    coords[5] = coords[5][[0, 2, 1]]  # clockwise: negative det and area
+    scale = np.random.default_rng(0).uniform(0.5, 2.0, size=coords.shape[0])
+    return coords, scale
+
+
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_soa_layout_matches_jax_2d(square, with_scale):
+    coords, scale = square
+    s = scale if with_scale else None
+    ours = pk.coords_to_soa(torch.tensor(coords), None if s is None else torch.tensor(s))
+    ref = jk.coords_to_soa(jnp.asarray(coords), None if s is None else jnp.asarray(s))
+    assert ours.dtype == torch.float64
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("oracle", ["xla", "pallas_interpret"])
+def test_plain_k5_matches_jax_kernel(square, oracle):
+    coords, scale = square
+    jsoa = jk.coords_to_soa(jnp.asarray(coords), jnp.asarray(scale))
+    ref = np.asarray(jk._p1_xla(jsoa) if oracle == "xla" else jk._p1_pallas(jsoa, interpret=True))
+    ours = pk._p1_plain(pk.coords_to_soa(torch.tensor(coords), torch.tensor(scale)))
+    # padding lanes included: the unit triangle with scale 0
+    assert ours.shape == (pk.P1_OUT_ROWS_2D, ref.shape[1]) and ref.shape[1] > coords.shape[0]
+    assert _rel(ours.numpy(), ref[: pk.P1_OUT_ROWS_2D]) <= 1e-14
+    assert not ref[pk.P1_OUT_ROWS_2D :].any()  # the TPU's zero pad rows
+    assert ours[12, 5] < 0 and ours[13, 5] < 0  # signed det, as on the TPU
+
+
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_public_api_2d_matches_jax_and_generic_assembly(with_scale):
+    tri = fem.unit_square(n=7)
+    mesh = pt.MeshTri(tri, device="cpu")
+    V = pt.Basis(mesh, pt.ElementTri(1, 2))
+    coords = mesh["cells", "coordinates"]
+    scale = np.full(mesh.n_cells, 2.5) if with_scale else None
+    ours = pk.p1_local_stiffness_load(coords, None if scale is None else torch.tensor(scale))
+    ref = jk.p1_local_stiffness_load(
+        jnp.asarray(coords.numpy()), None if scale is None else jnp.asarray(scale),
+        use_pallas=False,
+    )
+    for a, b in zip(ours, ref):
+        assert _rel(a.numpy(), b) <= 1e-14
+    factor = 2.5 if with_scale else 1.0
+    stiff_ref = V.integrate_bilinear_form_local(lambda b: b.v_grad @ b.v_grad.mT)
+    load_ref = V.integrate_linear_form_local(lambda b: b.v)[..., 0]
+    np.testing.assert_allclose(ours[0].numpy(), factor * stiff_ref.numpy(), atol=1e-13)
+    np.testing.assert_allclose(ours[1].numpy(), factor * load_ref.numpy(), atol=1e-13)
+    assert abs(float(ours[2].sum()) - factor) < 1e-12
+
+
+def test_k5_wrapper_on_cpu_is_the_plain_version(square):
+    coords, scale = square
+    c, s = torch.tensor(coords), torch.tensor(scale)
+    before = dict(cuda_build.launch_counts)
+    out = pk.p1_element_2d(c, s)
+    assert cuda_build.launch_counts == before  # no kernel launched
+    assert torch.equal(out, pk._p1_plain(pk._soa_rows(c, s)))
+    assert torch.equal(pk._soa_rows(c, s), pk.coords_to_soa(c, s)[:7, : c.shape[0]])
+
+
+def test_k5_on_non_cpu_non_cuda_tensor_raises():
+    coords = torch.empty((4, 3, 2), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pk.p1_element_2d(coords)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_k5_kernel_matches_plain_on_card(square, dtype, tol, with_scale):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: K5 is a CUDA kernel with no CPU mode")
+    coords, scale = square
+    c = torch.tensor(coords).to("cuda", dtype)
+    s = torch.tensor(scale).to("cuda", dtype) if with_scale else None
+    before = cuda_build.launch_counts["p1_element_2d"]
+    out = pk.p1_element_2d(c, s)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["p1_element_2d"] == before + 1
+    ref = pk._p1_plain(pk._soa_rows(c, s))
+    err = ((out - ref).abs().amax(dim=1) / ref.abs().amax(dim=1)).max()
+    assert float(err) <= tol
