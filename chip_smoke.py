@@ -15,7 +15,11 @@ Phases (any failure exits non-zero and prints no result):
    float32 (1e-5 relative to each output row's max magnitude: FMA
    contraction and operation order differ, so it cannot be bit-exact);
 3. K2 (BSR SpMV) against its plain version on the h=0.03 assembled values
-   and a seeded x, in float64 (1e-12 relative to ||y||) and float32 (1e-5);
+   and a seeded x, in float64 (1e-12 relative to ||y||) and float32 (1e-5),
+   two launches bitwise equal; the stored and slot counts of both tiers,
+   and the bytes the kernel streams beside the bound's (within 5%); the
+   same comparison on the h=0.1 DFN for a narrow tier 1 (``max_b=4``), the
+   default (8) and no tier 2 (``max_b=None``);
 4. the main path, ``pytorch_fem_solver_tpu_torch/bench.py``, at h=0.03 in
    float32 on the card: 107,355 DOFs, PCG to a relative residual <= 1e-6 in
    <= 80 iterations, K1 and K2 launched on that run, the solution within
@@ -32,8 +36,11 @@ Phases (any failure exits non-zero and prints no result):
    K3 (``agg_smooth_restrict``) and K4 (``coarse_prolong_dot``) against
    their plain versions on seeded vectors (f64 1e-12, f32 1e-5, relative to
    each output's max magnitude; ``rz`` relative to |rz|), and at gs=64 on
-   a seeded table (the one-block-per-row K3); their times beside plain,
-   library and bound; ``run_stock(30)`` against ``run_fused(30)`` as CUDA
+   a seeded table (the one-block-per-row K3), and at nc = ns = 67 (no
+   multiple of 4: K4's one-word loads) with gs=32 and gs=5; two launches
+   of K4 bitwise equal (z and rz); their times beside plain, library and bound, and K2,
+   K4 and ``torch.mv`` once more with the L2 flushed by a read (clean
+   lines) beside the window's own overhead; ``run_stock(30)`` against ``run_fused(30)`` as CUDA
    graphs (5e-5 in f32, the tool's measure; 1e-10 in f64); the graphed
    per-iteration time of both over 100 iterations, median of 3; and
    ``solve_fused(1e-6)``: residual <= 1e-6 in <= 80 iterations, within 1
@@ -65,7 +72,10 @@ The last three lines are the card line, the kernels JSON line and the
 ``{"ok": true, ...}`` line. Kernel times use CUDA events around single
 launches with the 50 MB L2 flushed before each (the PCG loop streams more
 than L2 between SpMVs) and the card held busy while the host enqueues the
-launch, median of the repeats.
+launch, median of the repeats. The flush is a write of 128 MB, which leaves
+the L2 full of dirty lines that the timed kernel's loads have to evict; the
+``flush="read"`` times of phase 7 leave clean lines instead, as the PCG loop
+does, and the empty window says what the two events cost by themselves.
 """
 
 from __future__ import annotations
@@ -132,15 +142,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = KERNEL_REPS) -> float:
-    """Median device time of one call of ``fn`` with a cold L2."""
+def time_ms(fn, reps: int = KERNEL_REPS, flush: str = "write") -> float:
+    """Median device time of one call of ``fn`` with a cold L2: flushed by
+    writing 128 MB (dirty lines, the figure every kernel is quoted at) or,
+    with ``flush="read"``, by summing them after the write (clean lines)."""
     import torch
 
-    flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")  # 128 MB
+    buf = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")  # 128 MB
     fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        buf.zero_()
+        if flush == "read":
+            buf.sum()
         torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -221,6 +235,60 @@ def _csr_of(st, values):
     return a.coalesce().to_sparse_csr()
 
 
+def _check_k2(tag, st, values64, x64):
+    """K2 against its plain version in f64 and f32, two launches bitwise
+    equal, one launch counted per product; the f32 max absolute error."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+    from pytorch_fem_solver_tpu_torch.ops.bsr import _bsr_spmv_plain, bsr_matvec
+
+    max_abs = None
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        vals = tuple(v.to(dtype).contiguous() for v in values64)
+        x = x64.to(dtype)
+        before = cuda_build.launch_counts["bsr_spmv"]
+        y = bsr_matvec(st, vals, x)
+        counted = cuda_build.launch_counts["bsr_spmv"] - before
+        ref = _bsr_spmv_plain(st.bcols, vals[0], x, st.bcols2, vals[1], st.heavy_rows)
+        again = bsr_matvec(st, vals, x)
+        torch.cuda.synchronize()
+        err = float((y - ref).norm() / ref.norm())
+        check(bool(torch.isfinite(y).all()) and err <= tol,
+              f"K2 {tag} {dtype} vs plain: rel err {err:.3e} <= {tol:g}")
+        check(torch.equal(y, again) and counted == 1,
+              f"K2 {tag} {dtype}: two launches bitwise equal, {counted} launch per product")
+        max_abs = float((y - ref).abs().max())
+    return max_abs
+
+
+def phase_k2_structures():
+    """K2 on the h=0.1 DFN with a narrow tier 1 and a wide tier 2
+    (``max_b=4``), the default (8) and no tier 2 at all (``max_b=None``)."""
+    import torch
+
+    import pytorch_fem_solver_tpu_torch as pt
+    from pytorch_fem_solver_tpu_torch.bench import benchmark_basis
+    from pytorch_fem_solver_tpu_torch.ops.bsr import (
+        bsr_values_from_local_symmetric,
+        get_bsr_structure,
+    )
+
+    V = benchmark_basis(pt.build_benchmark_network(0.1, device=DEVICE, dtype=torch.float64))
+    local = V.integrate_bilinear_form_local(lambda b: b.v_grad @ b.v_grad.mT)
+    for max_b in (4, 8, None):
+        st = get_bsr_structure(V, max_b=max_b, want_entry_slot=False)
+        (nb, B), (nh, B2) = st.bcols.shape, st.bcols2.shape
+        log(f"K2 structure h=0.1 max_b={max_b}: nb={nb} B={B} nh={nh} B2={B2} "
+            f"stored={st.blk_id_host.size} of {nb * B + nh * B2} slots")
+        check((nh == 0) == (max_b is None) and (max_b != 4 or B2 > B),
+              f"K2 structure max_b={max_b}: tier 2 as expected (nh={nh}, B2={B2})")
+        x64 = torch.as_tensor(
+            np.random.default_rng(SEED + 2).standard_normal(st.n_pad), device=DEVICE
+        )
+        _check_k2(f"h=0.1 max_b={max_b}", st, bsr_values_from_local_symmetric(st, local), x64)
+
+
 def phase_k2(st, values64):
     import torch
 
@@ -228,17 +296,7 @@ def phase_k2(st, values64):
 
     rng = np.random.default_rng(SEED)
     x64 = torch.as_tensor(rng.standard_normal(st.n_pad), device=values64[0].device)
-    max_abs = None
-    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        vals = tuple(v.to(dtype).contiguous() for v in values64)
-        x = x64.to(dtype)
-        y = bsr_matvec(st, vals, x)
-        ref = _bsr_spmv_plain(st.bcols, vals[0], x, st.bcols2, vals[1], st.heavy_rows)
-        torch.cuda.synchronize()
-        err = float((y - ref).norm() / ref.norm())
-        check(bool(torch.isfinite(y).all()) and err <= tol,
-              f"K2 {dtype} vs plain: rel err {err:.3e} <= {tol:g}")
-        max_abs = float((y - ref).abs().max())
+    max_abs = _check_k2(f"h={H}", st, values64, x64)
     vals32 = tuple(v.to(torch.float32).contiguous() for v in values64)
     x32 = x64.to(torch.float32)
     ms = time_ms(lambda: bsr_matvec(st, vals32, x32))
@@ -253,11 +311,26 @@ def phase_k2(st, values64):
     check(lib_err <= 1e-5, f"K2 vs torch CSR matvec: rel diff {lib_err:.3e} <= 1e-05")
     library_ms = time_ms(lambda: torch.mv(csr, x32))
     n_stored = int(st.blk_id_host.size)
-    nh = int(st.heavy_rows.shape[0])
-    n_bytes = n_stored * (64 * 4 + 4) + nh * 4 + 2 * st.n_pad * 4
+    (nb, B), (nh, B2) = st.bcols.shape, st.bcols2.shape
+    stored1 = int((st.blk_id_host < nb * B).sum())
+    log(f"K2 tiers: tier 1 (nb={nb}, B={B}) {stored1} of {nb * B} slots stored; "
+        f"tier 2 (nh={nh}, B2={B2}) {n_stored - stored1} of {nh * B2} slots stored")
+    # every stored block and its column, the two per-row tables (row_blocks,
+    # heavy_rank) and the two vectors, in f32 words
+    n_bytes = n_stored * (64 * 4 + 4) + 2 * nb * 4 + 2 * st.n_pad * 4
     b_ms, by = bound_ms(n_bytes, 2 * 64 * n_stored)
+    # what the kernel's loads ask of memory: the same, but the column tables
+    # come in 32-byte sectors, so a row's last sector brings padded slots
+    counts = st.row_blocks.cpu().numpy().astype(np.int64)
+    sectors = -(-np.minimum(counts, B) * 4 // 32) + -(-np.maximum(counts - B, 0) * 4 // 32)
+    streamed = n_stored * 64 * 4 + int(sectors.sum()) * 32 + 2 * nb * 4 + 2 * st.n_pad * 4
+    log(f"K2 bytes: the bound counts {n_bytes}, the kernel streams {streamed} "
+        f"({streamed / n_bytes:.4f} of it); a walk of every slot would stream "
+        f"{(nb * B + nh * B2) * (64 * 4 + 4) + 2 * st.n_pad * 4}")
+    check(abs(streamed / n_bytes - 1) <= 0.05,
+          f"K2 streams {streamed / n_bytes:.4f} of the bound's bytes (within 5%)")
     log(
-        f"K2 bsr_spmv nb={st.nb} B={st.bcols.shape[1]} spill_rows={nh} "
+        f"K2 bsr_spmv nb={st.nb} B={B} spill_rows={nh} "
         f"stored_blocks={n_stored}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
         f"torch CSR {library_ms:.4f} ms, bound {b_ms:.4f} ms by {by})"
     )
@@ -412,7 +485,10 @@ def _check_tail(tag, pre_inv, coarse_inv, alpha, vecs, tol):
     ref3 = fp._agg_smooth_restrict_plain(alpha, *vecs, pre_inv)
     k4 = fp.coarse_prolong_dot(coarse_inv, ref3[3], ref3[2], ref3[1])
     ref4 = fp._coarse_prolong_dot_plain(coarse_inv, ref3[3], ref3[2], ref3[1])
+    again = fp.coarse_prolong_dot(coarse_inv, ref3[3], ref3[2], ref3[1])
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(again, k4)),
+          f"K4 {tag}: two launches bitwise equal (z and rz)")
     out = {}
     for kernel, names, ours, refs in (
         ("K3", ("xn", "rn", "s", "rc"), k3, ref3),
@@ -475,6 +551,7 @@ def phase_fused(st, V32, V64, x32, iters, iters64, card):
     from pytorch_fem_solver_tpu_torch.bench import make_fused_pcg
     from pytorch_fem_solver_tpu_torch.ops import cuda_build
     from pytorch_fem_solver_tpu_torch.ops import fused_pcg as fp
+    from pytorch_fem_solver_tpu_torch.ops.bsr import bsr_matvec
 
     fused = {torch.float32: make_fused_pcg(V32), torch.float64: make_fused_pcg(V64)}
     ns, gs = fp.fused_shape(fused[torch.float32].precond, st.n_pad)
@@ -496,6 +573,17 @@ def phase_fused(st, V32, V64, x32, iters, iters64, card):
         cinv64 = torch.as_tensor(spd[64], device=DEVICE).to(dtype)
         alpha64, vecs64 = _tail_inputs(64, 64, dtype)
         _check_tail(f"{dtype} gs=64", inv64, cinv64, alpha64, vecs64, tol)
+        # nc = ns = 67: rows of coarse_inv are not 16-byte aligned, so K4
+        # takes its one-word loads; gs=32 (K3's warp kernel) and gs=5
+        b = rng.standard_normal((67, 67))
+        cinv67 = torch.as_tensor(b @ b.T / 67 + np.eye(67), device=DEVICE).to(dtype)
+        for gs_odd in (32, 5):
+            c = rng.standard_normal((67, gs_odd, gs_odd))
+            inv67 = torch.as_tensor(
+                c @ c.transpose(0, 2, 1) / gs_odd + np.eye(gs_odd), device=DEVICE
+            ).to(dtype)
+            alpha67, vecs67 = _tail_inputs(67, gs_odd, dtype)
+            _check_tail(f"{dtype} nc=67 gs={gs_odd}", inv67, cinv67, alpha67, vecs67, tol)
 
     # 2. per-kernel figures, f32 at the benchmark shapes; bounds count f32
     # words: each input read once, each output written once
@@ -521,6 +609,21 @@ def phase_fused(st, V32, V64, x32, iters, iters64, card):
         4 * (nc * nc + nc + 3 * n + 1), 2 * nc * nc + 3 * n,
         max_abs[torch.float32]["K4"],
     )
+    # K2, K4 and K4's yardstick once more behind a flush that leaves clean
+    # lines, and the window with nothing in it
+    values32 = fused[torch.float32].values
+    x_seed = torch.as_tensor(
+        np.random.default_rng(SEED).standard_normal(st.n_pad), device=DEVICE
+    ).to(torch.float32)
+    windows = {
+        "K2": lambda: bsr_matvec(st, values32, x_seed),
+        "K4": lambda: fp.coarse_prolong_dot(pre.coarse_inv, rc, s, rn),
+        "torch.mv": lambda: torch.mv(pre.coarse_inv, rc),
+        "empty window": lambda: None,
+    }
+    log("ms with the L2 flushed by a write (dirty lines) / by a read (clean lines): "
+        + "; ".join(f"{name} {time_ms(fn):.4f} / {time_ms(fn, flush='read'):.4f}"
+                    for name, fn in windows.items()))
 
     # 3. fixed-length runs as CUDA graphs
     for dtype, tol in ((torch.float64, 1e-10), (torch.float32, FUSED_VS_STOCK)):
@@ -871,6 +974,7 @@ def main() -> int:
     )
     k2 = phase_k2(st, values64)
     del values64
+    phase_k2_structures()
     solve32, x32, iters, iters64, launches, median = phase_main(st, V32, V64)
     phase_compiled(st, V32, x32)
     phase_profile(solve32, median)

@@ -36,13 +36,35 @@
 // - K3, other gs (<= 1024): one thread block of gs threads per row; rn[i]
 //   is staged in shared memory, thread j reads row j of inv_agg[i] from
 //   global memory, and thread 0 sums rc[i] in index order.
-// - K4: one warp per coarse row i reads row i of coarse_inv coalesced
-//   (32 consecutive words per load) against rc through the read-only
-//   cache (rc is nc words, 13 KB, shared by every warp), reduces zc[i] by
-//   butterfly shuffles, writes z[i, :] and a per-row partial of rn . z.
-//   A second one-block kernel sums the ns partials in a fixed order, so rz
-//   is the same on every run (no float atomics): repeated solves take the
-//   same iteration count.
+// - K4 is a dense matrix-vector product whose matrix is read once: no
+//   tensor core helps (0.5 flop per byte), the card's means are wide loads
+//   and enough of them in flight.
+//   * A persistent grid of kK4BlocksPerSM (2) thread blocks per SM, each
+//     of ceil(nc / blocks) warps (at most 32); warp w of block b owns rows
+//     b + w * blocks, then every (warps * blocks)-th after it, so at the
+//     benchmark (3,248 rows, 264 blocks of 13 warps) every SM holds 24 to
+//     26 rows, each warp at most one, and no SM is left with a longer tail.
+//   * rc is staged in shared memory once per thread block with 16-byte
+//     loads (dynamic shared memory, 13 KB in f32 and 26 KB in f64 at
+//     nc = 3,248; above 48 KB the launcher raises the kernel's limit
+//     first), so it is read from L2 once per block and not once per row.
+//   * A lane reads its row of coarse_inv 16 bytes at a time (float4 /
+//     double2, streaming hint), kK4Unroll independent loads in flight, the
+//     first batch issued before rc is staged. Rows are 16-byte aligned only
+//     when nc * sizeof(T) is a multiple of 16 (3,248 * 4 is); for any other
+//     nc, or a misaligned base, the launcher takes the same kernel with
+//     one-word loads.
+//   * zc[i] is a butterfly shuffle sum; the warp then writes z[i, :] and
+//     its share of rn . z (s and rn of the row are fetched before the
+//     matrix row, so their latency hides behind it). A block adds its
+//     warps' shares in warp order into one partial.
+//   * rz is the sum of the blocks' partials in a fixed order with no float
+//     atomics, so repeated solves take the same iteration count. It is
+//     folded into the same launch: a block adds one to an integer counter
+//     when its partial is written, and the block that finds it was the
+//     last sums them (a tree of a fixed shape) and resets the counter, so
+//     graph replays work. A second one-block launch for the sum was
+//     slower on the card by about its launch gap, and was dropped.
 
 #include <cuda_runtime.h>
 
@@ -52,8 +74,13 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRowsPerBlock = 4;  // warps (rows) per thread block
-constexpr int kSumThreads = 256;  // the partial-sum kernel's block
+constexpr int kRowsPerBlock = 4;  // K3: warps (rows) per thread block
+constexpr int kK4BlocksPerSM = 2;  // K4's persistent grid: thread blocks per SM
+constexpr int kK4Unroll = 4;  // K4: 16-byte loads of coarse_inv in flight per lane
+constexpr int kK4MaxThreads = 1024;
+// dynamic shared memory a K4 block may take for rc: the card's 227 KB less
+// the kernel's static words
+constexpr size_t kK4MaxShared = 226 * 1024;
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -130,44 +157,160 @@ __global__ void agg_smooth_restrict_any(const T* __restrict__ alpha_p,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
-    coarse_prolong_rows(const T* __restrict__ cinv, const T* __restrict__ rc,
-                        const T* __restrict__ s, const T* __restrict__ rn,
-                        T* __restrict__ z, T* __restrict__ partial, int64_t nc,
-                        int gs) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t i = blockIdx.x * static_cast<int64_t>(kRowsPerBlock) + threadIdx.x / kWarp;
-  if (i >= nc) return;
-  const T* row = cinv + i * nc;
-  T acc = T(0);
-#pragma unroll 8
-  for (int64_t k = lane; k < nc; k += kWarp) acc += __ldg(row + k) * __ldg(rc + k);
-  const T zc = warp_sum(acc);
-  T part = T(0);
-  for (int j = lane; j < gs; j += kWarp) {
-    const int64_t e = i * gs + j;
-    const T zz = __ldg(s + e) + zc;
-    z[e] = zz;
-    part += __ldg(rn + e) * zz;
-  }
-  part = warp_sum(part);
-  if (lane == 0) partial[i] = part;
+// One aligned piece of N words: 16 bytes for (float, 4) and (double, 2).
+template <typename T, int N>
+struct alignas(N * sizeof(T)) Piece {
+  T v[N];
+};
+
+template <typename T, int N>
+__device__ __forceinline__ Piece<T, N> load_streaming(const T* p);
+template <>
+__device__ __forceinline__ Piece<float, 4> load_streaming<float, 4>(const float* p) {
+  const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+  return {{a.x, a.y, a.z, a.w}};
+}
+template <>
+__device__ __forceinline__ Piece<double, 2> load_streaming<double, 2>(const double* p) {
+  const double2 a = __ldcs(reinterpret_cast<const double2*>(p));
+  return {{a.x, a.y}};
+}
+template <>
+__device__ __forceinline__ Piece<float, 1> load_streaming<float, 1>(const float* p) {
+  return {{__ldcs(p)}};
+}
+template <>
+__device__ __forceinline__ Piece<double, 1> load_streaming<double, 1>(const double* p) {
+  return {{__ldcs(p)}};
 }
 
+// Sum of the n values at buf over the calling thread block, in an order
+// fixed by n and blockDim alone; the result is valid in thread 0. scratch
+// holds blockDim / 32 words of shared memory.
 template <typename T>
-__global__ void __launch_bounds__(kSumThreads)
-    sum_partials(const T* __restrict__ partial, int64_t n, T* __restrict__ out) {
-  __shared__ T buf[kSumThreads];
+__device__ __forceinline__ T block_sum_fixed(const T* buf, int64_t n, T* scratch) {
   T acc = T(0);
-  for (int64_t k = threadIdx.x; k < n; k += kSumThreads) acc += partial[k];
-  buf[threadIdx.x] = acc;
+  for (int64_t k = threadIdx.x; k < n; k += blockDim.x) acc += __ldcg(buf + k);
+  acc = warp_sum(acc);
+  if (threadIdx.x % kWarp == 0) scratch[threadIdx.x / kWarp] = acc;
   __syncthreads();
-  for (int width = kSumThreads / 2; width > 0; width /= 2) {
-    if (threadIdx.x < width) buf[threadIdx.x] += buf[threadIdx.x + width];
-    __syncthreads();
+  T total = T(0);
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < static_cast<int>(blockDim.x) / kWarp; ++w) total += scratch[w];
   }
-  if (threadIdx.x == 0) *out = buf[0];
+  return total;
+}
+
+// N words per load: 16 / sizeof(T) on the aligned path, 1 otherwise.
+template <typename T, int N>
+__global__ void __launch_bounds__(kK4MaxThreads)
+    coarse_prolong_rows(const T* __restrict__ cinv, const T* __restrict__ rc,
+                        const T* __restrict__ s, const T* __restrict__ rn,
+                        T* __restrict__ z, T* partial, unsigned* counter,
+                        T* __restrict__ rz, int64_t nc, int gs, bool rc_wide) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* rc_s = reinterpret_cast<T*>(smem);
+  __shared__ T scratch[kK4MaxThreads / kWarp];
+  __shared__ bool last_block;
+
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int64_t row_step = static_cast<int64_t>(blockDim.x / kWarp) * gridDim.x;
+  const int64_t pieces = nc / N;  // N divides nc on the 16-byte path
+  constexpr int64_t kBatch = static_cast<int64_t>(kWarp) * kK4Unroll;
+
+  // first batch of this warp's first row, in flight while rc is staged
+  int64_t i = blockIdx.x + static_cast<int64_t>(warp) * gridDim.x;
+  T warp_part = T(0);  // rn . z over this warp's rows, in row order
+  Piece<T, N> m[kK4Unroll];
+  if (i < nc) {
+    const T* row = cinv + i * nc;
+#pragma unroll
+    for (int u = 0; u < kK4Unroll; ++u) {
+      const int64_t k = lane + static_cast<int64_t>(u) * kWarp;
+      if (k < pieces) m[u] = load_streaming<T, N>(row + k * N);
+    }
+  }
+  // rc into shared memory, N words a thread (rc_wide: its base is aligned)
+  if (N > 1 && rc_wide) {
+#pragma unroll 2
+    for (int64_t k = threadIdx.x; k < pieces; k += blockDim.x) {
+      *reinterpret_cast<Piece<T, N>*>(rc_s + k * N) =
+          *reinterpret_cast<const Piece<T, N>*>(rc + k * N);
+    }
+  } else {
+#pragma unroll 4
+    for (int64_t k = threadIdx.x; k < nc; k += blockDim.x) rc_s[k] = __ldg(rc + k);
+  }
+  __syncthreads();
+
+  for (; i < nc; i += row_step) {
+    const T* row = cinv + i * nc;
+    // the row's s and rn, first 32 columns, fetched ahead of the product
+    const int64_t e0 = i * gs + lane;
+    T s0 = T(0), rn0 = T(0);
+    if (lane < gs) {
+      s0 = __ldg(s + e0);
+      rn0 = __ldg(rn + e0);
+    }
+    T acc = T(0);
+    for (int64_t base = 0; base < pieces; base += kBatch) {
+#pragma unroll
+      for (int u = 0; u < kK4Unroll; ++u) {
+        const int64_t k = base + lane + static_cast<int64_t>(u) * kWarp;
+        if (k < pieces) {
+          const Piece<T, N> v = *reinterpret_cast<const Piece<T, N>*>(rc_s + k * N);
+#pragma unroll
+          for (int q = 0; q < N; ++q) acc += m[u].v[q] * v.v[q];
+        }
+      }
+      // next batch: of this row, or the first of this warp's next row
+      const bool more = base + kBatch < pieces;
+      const T* next = more ? row : row + row_step * nc;
+      const int64_t next_base = more ? base + kBatch : 0;
+      if (more || i + row_step < nc) {
+#pragma unroll
+        for (int u = 0; u < kK4Unroll; ++u) {
+          const int64_t k = next_base + lane + static_cast<int64_t>(u) * kWarp;
+          if (k < pieces) m[u] = load_streaming<T, N>(next + k * N);
+        }
+      }
+    }
+    const T zc = warp_sum(acc);
+    T part = T(0);
+    if (lane < gs) {
+      const T zz = s0 + zc;
+      z[e0] = zz;
+      part = rn0 * zz;
+    }
+    for (int j = lane + kWarp; j < gs; j += kWarp) {
+      const int64_t e = i * gs + j;
+      const T zz = __ldg(s + e) + zc;
+      z[e] = zz;
+      part += __ldg(rn + e) * zz;
+    }
+    warp_part += warp_sum(part);
+  }
+  // this block's partial: its warps' sums, added in warp order
+  if (lane == 0) scratch[warp] = warp_part;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T block_part = T(0);
+    for (int w = 0; w < static_cast<int>(blockDim.x) / kWarp; ++w) block_part += scratch[w];
+    partial[blockIdx.x] = block_part;
+    __threadfence();
+    last_block = atomicAdd(counter, 1u) == gridDim.x - 1;
+  }
+
+  // the last block to finish sums the blocks' partials
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  const T total = block_sum_fixed(partial, gridDim.x, scratch);
+  if (threadIdx.x == 0) {
+    *rz = total;
+    *counter = 0u;
+  }
 }
 
 template <typename T>
@@ -189,18 +332,50 @@ int launch_k3(const T* alpha, const T* x, const T* r, const T* p, const T* ap,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int N>
+int launch_k4_rows(const T* cinv, const T* rc, const T* s, const T* rn, T* z, T* partial,
+                   unsigned* counter, T* rz, int64_t nc, int gs, int64_t blocks,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  int64_t warps = (nc + blocks - 1) / blocks;
+  if (warps > kK4MaxThreads / kWarp) warps = kK4MaxThreads / kWarp;
+  const size_t shared = static_cast<size_t>(nc) * sizeof(T);
+  auto kernel = coarse_prolong_rows<T, N>;
+  if (shared > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(blocks), static_cast<unsigned>(warps * kWarp), shared,
+           stream>>>(cinv, rc, s, rn, z, partial, counter, rz, nc, gs,
+                     reinterpret_cast<uintptr_t>(rc) % 16 == 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_k4(const T* cinv, const T* rc, const T* s, const T* rn, T* z, T* partial,
-              T* rz, int64_t nc, int64_t gs, cudaStream_t stream) {
-  if (gs < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (nc > 0) {
-    const int64_t blocks = (nc + kRowsPerBlock - 1) / kRowsPerBlock;
-    coarse_prolong_rows<T><<<static_cast<unsigned>(blocks), kWarp * kRowsPerBlock, 0,
-                             stream>>>(cinv, rc, s, rn, z, partial, nc,
-                                       static_cast<int>(gs));
+              unsigned* counter, T* rz, int64_t nc, int64_t gs, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (gs < 1 || nc < 1 || gs > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  // rc has to fit one thread block's shared memory beside the sum's scratch
+  if (static_cast<size_t>(nc) * sizeof(T) > kK4MaxShared) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  sum_partials<T><<<1, kSumThreads, 0, stream>>>(partial, nc, rz);
-  return static_cast<int>(cudaGetLastError());
+  int device = 0, sms = 0;
+  cudaError_t status = cudaGetDevice(&device);
+  if (status == cudaSuccess) {
+    status = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (status != cudaSuccess) return static_cast<int>(status);
+  int64_t blocks = static_cast<int64_t>(sms) * kK4BlocksPerSM;
+  if (blocks > nc) blocks = nc;
+  const bool aligned = (nc * sizeof(T)) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(cinv) % 16 == 0;
+  const int g = static_cast<int>(gs);
+  return aligned ? launch_k4_rows<T, kVec>(cinv, rc, s, rn, z, partial, counter, rz, nc,
+                                           g, blocks, stream)
+                 : launch_k4_rows<T, 1>(cinv, rc, s, rn, z, partial, counter, rz, nc, g,
+                                        blocks, stream);
 }
 
 }  // namespace
@@ -221,14 +396,15 @@ extern "C" int agg_smooth_restrict_f64(const double* alpha, const double* x,
 }
 
 extern "C" int coarse_prolong_dot_f32(const float* cinv, const float* rc, const float* s,
-                                      const float* rn, float* z, float* partial, float* rz,
-                                      int64_t nc, int64_t gs, cudaStream_t stream) {
-  return launch_k4<float>(cinv, rc, s, rn, z, partial, rz, nc, gs, stream);
+                                      const float* rn, float* z, float* partial,
+                                      unsigned* counter, float* rz, int64_t nc,
+                                      int64_t gs, cudaStream_t stream) {
+  return launch_k4<float>(cinv, rc, s, rn, z, partial, counter, rz, nc, gs, stream);
 }
 
 extern "C" int coarse_prolong_dot_f64(const double* cinv, const double* rc,
                                       const double* s, const double* rn, double* z,
-                                      double* partial, double* rz, int64_t nc, int64_t gs,
-                                      cudaStream_t stream) {
-  return launch_k4<double>(cinv, rc, s, rn, z, partial, rz, nc, gs, stream);
+                                      double* partial, unsigned* counter, double* rz,
+                                      int64_t nc, int64_t gs, cudaStream_t stream) {
+  return launch_k4<double>(cinv, rc, s, rn, z, partial, counter, rz, nc, gs, stream);
 }

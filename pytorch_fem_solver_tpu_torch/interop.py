@@ -16,10 +16,13 @@ from . import config
 from .mesh.fracture_network import FractureNetworkMesh
 from .mesh.mesh_tri import _freeze
 from .models.network import FeedForwardNeuralNetwork
-from .ops.bsr import BSRStructure
+from .ops.bsr import BSRStructure, row_tables
 from .ops.precondition import AggBlockTwoLevel
 
-_DEVICE_FIELDS = ("bcols", "entry_slot", "bcols2", "heavy_rows", "entry_slot_sym", "tpartner")
+_DEVICE_FIELDS = (
+    "bcols", "entry_slot", "bcols2", "heavy_rows", "entry_slot_sym", "tpartner",
+    "row_blocks", "heavy_rank",
+)
 _HOST_FIELDS = ("perm", "inner_perm", "ubr_host", "ubc_host", "blk_id_host")
 
 
@@ -40,8 +43,15 @@ def structure_from_numpy(fields: dict, *, device=None) -> BSRStructure:
     """A ``BSRStructure`` from a dict of its fields as NumPy arrays and
     Python ints (e.g. ``{k: np.asarray(v) for k, v in st._asdict().items()}``
     of a JAX structure). Device tables become int32 tensors on ``device``;
-    host tables stay NumPy."""
+    host tables stay NumPy. The SpMV kernel's ``row_blocks`` and
+    ``heavy_rank``, which a JAX structure does not carry, are derived from
+    its ``ubr_host`` and ``heavy_rows``."""
     device = config.resolve_device(device)
+    if fields.get("row_blocks") is None and fields.get("ubr_host") is not None:
+        row_blocks, heavy_rank = row_tables(
+            fields["ubr_host"], int(fields["nb"]), fields["heavy_rows"]
+        )
+        fields = dict(fields, row_blocks=row_blocks, heavy_rank=heavy_rank)
     kwargs = {}
     for name in BSRStructure._fields:
         value = fields.get(name)

@@ -32,7 +32,12 @@ class BSRStructure(NamedTuple):
     to ``n_pad`` (identity rows); all device tables index the permuted,
     padded numbering. With ``max_b`` set, block-rows touching more than
     ``max_b`` neighbour blocks spill their excess blocks into a small second
-    tier (``bcols2``/``heavy_rows``).
+    tier (``bcols2``/``heavy_rows``). Both tiers are padded to their widths;
+    a block-row's slots are filled from the front (tier 1, then its tier-2
+    row), so ``row_blocks`` says where the stored blocks end. ``row_blocks``
+    and ``heavy_rank`` are tables of this package alone (the SpMV kernel
+    reads them to skip the padding); every other table is the JAX
+    package's, byte for byte.
     """
 
     bcols: torch.Tensor  # (nb, B) block-column ids; own block at b=0; pad -> 0
@@ -53,6 +58,10 @@ class BSRStructure(NamedTuple):
     ubr_host: np.ndarray = None  # (n_blocks,) host block-row of stored blocks
     ubc_host: np.ndarray = None  # (n_blocks,) host block-col of stored blocks
     blk_id_host: np.ndarray = None  # (n_blocks,) host flat value-block id
+    row_blocks: torch.Tensor = None  # (nb,) stored blocks per block-row, both
+    #   tiers: the first min(count, B) in tier 1, the rest in tier 2
+    heavy_rank: torch.Tensor = None  # (nb,) the block-row's row of tier 2
+    #   (its index in heavy_rows), -1 where it spills nothing
 
 
 def spatial_order(coords: np.ndarray, group: int = 32) -> np.ndarray:
@@ -84,6 +93,16 @@ def spatial_order(coords: np.ndarray, group: int = 32) -> np.ndarray:
         stack.append(order[half:])
         stack.append(order[:half])
     return perm
+
+
+def row_tables(ubr: np.ndarray, nb: int, heavy_rows: np.ndarray):
+    """``(row_blocks, heavy_rank)`` of a structure, as host int64 arrays,
+    from the block-row of every stored block and the sorted tier-2 rows."""
+    row_blocks = np.bincount(np.asarray(ubr, dtype=np.int64), minlength=nb)
+    heavy_rows = np.asarray(heavy_rows, dtype=np.int64)
+    heavy_rank = np.full(nb, -1, dtype=np.int64)
+    heavy_rank[heavy_rows] = np.arange(heavy_rows.size)
+    return row_blocks, heavy_rank
 
 
 def build_bsr_structure(
@@ -244,6 +263,8 @@ def build_bsr_structure(
     tpartner = np.arange(S_blocks, dtype=np.int64)
     tpartner[blk_id] = blk_id[trank]
 
+    row_blocks, spill_row = row_tables(ubr, nb, heavy_rows)
+
     def dev(a):
         return torch.as_tensor(
             np.asarray(a).astype(np.int32), dtype=config.index_dtype(),
@@ -267,6 +288,8 @@ def build_bsr_structure(
         ubr_host=ubr,
         ubc_host=ubc,
         blk_id_host=blk_id,
+        row_blocks=dev(row_blocks),
+        heavy_rank=dev(spill_row),
     )
 
 
@@ -340,15 +363,14 @@ def bsr_complete_symmetric(structure: BSRStructure, values):
 
 # -- kernel K2: BSR SpMV -----------------------------------------------------
 
-_SPMV_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [
-    ctypes.c_void_p
-] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
+_SPMV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
 
 
 def _bsr_spmv_plain(bcols, v1, x, bcols2, v2, heavy_rows):
     """Plain PyTorch version of K2: gather + einsum, as the JAX
     ``bsr_matvec`` computes it (own block by reshape, neighbours by
-    gather, tier-2 rows added back at the unique ``heavy_rows``)."""
+    gather, tier-2 rows added back at the unique ``heavy_rows``). It walks
+    every slot, padding included: padded slots hold zero values."""
     nb, _, k, _ = v1.shape
     x2 = x.reshape(nb, k)
     y = torch.einsum("rij,rj->ri", v1[:, 0], x2)
@@ -359,12 +381,15 @@ def _bsr_spmv_plain(bcols, v1, x, bcols2, v2, heavy_rows):
     return y.reshape(-1)
 
 
-def bsr_spmv(bcols, v1, x, bcols2, v2, heavy_rows):
+def bsr_spmv(bcols, v1, x, bcols2, v2, heavy_rows, row_blocks=None, heavy_rank=None):
     """y = A x over the permuted, padded vector (kernel K2).
 
     CPU tensors take ``_bsr_spmv_plain``. CUDA tensors launch
-    ``csrc/bsr_spmv.cu`` (tier 1, then the tier-2 rows added in place with
-    no atomics because ``heavy_rows`` is sorted and unique) or raise.
+    ``csrc/bsr_spmv.cu`` once or raise: a warp per block-row sums the row's
+    ``row_blocks[r]`` stored blocks, the first ``B`` of them from tier 1 and
+    the rest from row ``heavy_rank[r]`` of tier 2, and reads no padded slot
+    (``heavy_rows`` is the plain version's table; the kernel does not read
+    it). ``y`` is bitwise the same on every launch.
     """
     if x.device.type == "cpu":
         return _bsr_spmv_plain(bcols, v1, x, bcols2, v2, heavy_rows)
@@ -372,18 +397,23 @@ def bsr_spmv(bcols, v1, x, bcols2, v2, heavy_rows):
     nh, B2 = bcols2.shape
     if k != 8 or v1.shape[-1] != 8:
         raise ValueError(f"the SpMV kernel takes 8x8 blocks, got {k}x{v1.shape[-1]}")
+    if row_blocks is None or heavy_rank is None:
+        raise ValueError(
+            "the SpMV kernel needs the structure's row_blocks and heavy_rank tables"
+        )
     cuda_build.check(x, "x", (nb * k,), v1.dtype, align=16)
     cuda_build.check(v1, "v1", (nb, B, k, k), v1.dtype, align=16)
     cuda_build.check(bcols, "bcols", (nb, B), torch.int32)
     cuda_build.check(v2, "v2", (nh, B2, k, k), v1.dtype, align=16)
     cuda_build.check(bcols2, "bcols2", (nh, B2), torch.int32)
-    cuda_build.check(heavy_rows, "heavy_rows", (nh,), torch.int32)
+    cuda_build.check(row_blocks, "row_blocks", (nb,), torch.int32)
+    cuda_build.check(heavy_rank, "heavy_rank", (nb,), torch.int32)
     y = torch.empty_like(x)
     fn = cuda_build.function("bsr_spmv", "bsr_spmv", v1.dtype, _SPMV_ARGTYPES)
     err = fn(
-        bcols.data_ptr(), v1.data_ptr(), x.data_ptr(), y.data_ptr(), nb, B,
-        bcols2.data_ptr(), v2.data_ptr(), heavy_rows.data_ptr(), nh, B2,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        bcols.data_ptr(), v1.data_ptr(), bcols2.data_ptr(), v2.data_ptr(),
+        row_blocks.data_ptr(), heavy_rank.data_ptr(), x.data_ptr(), y.data_ptr(),
+        nb, B, B2, torch.cuda.current_stream(x.device).cuda_stream,
     )
     cuda_build.raise_on_error(err, "bsr_spmv")
     cuda_build.launch_counts["bsr_spmv"] += 1
@@ -403,7 +433,10 @@ def bsr_matvec(structure: BSRStructure, values, x):
             f"BSR values in {v1.dtype} with x in {x.dtype}: reduced-precision "
             "value storage is not ported yet (ROADMAP.md, queue B)"
         )
-    return bsr_spmv(structure.bcols, v1, x, structure.bcols2, v2, structure.heavy_rows)
+    return bsr_spmv(
+        structure.bcols, v1, x, structure.bcols2, v2, structure.heavy_rows,
+        structure.row_blocks, structure.heavy_rank,
+    )
 
 
 def bsr_diagonal(structure: BSRStructure, values):

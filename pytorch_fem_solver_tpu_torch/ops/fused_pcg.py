@@ -34,8 +34,9 @@ from .precondition import AggBlockTwoLevel
 from .solvers import PCGInfo
 
 _K3_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
-_K4_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
+_K4_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
 _MAX_GS = 1024  # one thread per smoother row entry
+_K4_MAX_RC_BYTES = 226 * 1024  # K4 stages rc in one thread block's shared memory
 
 
 # -- kernel K3: axpys + aggregate-block smoother + restriction ---------------
@@ -90,26 +91,53 @@ def _coarse_prolong_dot_plain(coarse_inv, rc, s, rn):
     return z, torch.sum(rn * z)
 
 
+# K4's "blocks done" counter, one zeroed int32 per device: the kernel's last
+# thread block resets it, so it is zero between launches. Launches on one
+# device therefore have to be ordered (one stream, or streams that wait on
+# each other, as a graph capture after its warm-up run is).
+_k4_counters: dict[int, torch.Tensor] = {}
+
+
+def _k4_counter(device: torch.device) -> torch.Tensor:
+    counter = _k4_counters.get(device.index)
+    if counter is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "coarse_prolong_dot: launch once before capturing a CUDA graph "
+                "(its counter is allocated at the first launch on a device)"
+            )
+        counter = torch.zeros((), dtype=torch.int32, device=device)
+        _k4_counters[device.index] = counter
+    return counter
+
+
 def coarse_prolong_dot(coarse_inv, rc, s, rn):
     """``(z, rz)``: ``z = s + prolong(coarse_inv @ rc)`` and ``rz = rn . z``
     (kernel K4).
 
     ``coarse_inv`` is ``(nc, nc)``, ``rc`` ``(nc,)``, ``s`` and ``rn``
     ``(nc, gs)``: coarse unknown i prolongs to smoother row i. ``rz`` is a
-    0-d tensor, summed in a fixed order on the card.
+    0-d tensor, summed in a fixed order on the card by the thread block
+    that finishes last, in the same launch.
     """
     if s.device.type == "cpu":
         return _coarse_prolong_dot_plain(coarse_inv, rc, s, rn)
     nc, gs = s.shape[0], s.shape[-1]
     dtype = coarse_inv.dtype
+    if nc < 1 or nc * coarse_inv.element_size() > _K4_MAX_RC_BYTES:
+        raise ValueError(
+            f"coarse_prolong_dot takes 1 <= nc <= "
+            f"{_K4_MAX_RC_BYTES // coarse_inv.element_size()} in {dtype}, got {nc}"
+        )
     cuda_build.check(coarse_inv, "coarse_inv", (nc, nc), dtype)
     cuda_build.check(rc, "rc", (nc,), dtype)
     cuda_build.check(s, "s", (nc, gs), dtype)
     cuda_build.check(rn, "rn", (nc, gs), dtype)
+    counter = _k4_counter(s.device)
     z = torch.empty_like(s)
-    # per-row partials of rz; freed on return while the kernels may still
-    # run, which is safe: the caching allocator hands the block only to
-    # work queued after them on this stream
+    # the thread blocks' partials of rz (at most nc blocks); freed on return
+    # while the kernel may still run, which is safe: the caching allocator
+    # hands the block only to work queued after it on this stream
     partial = torch.empty((nc,), dtype=dtype, device=s.device)
     rz = torch.empty((), dtype=dtype, device=s.device)
     fn = cuda_build.function(
@@ -117,8 +145,8 @@ def coarse_prolong_dot(coarse_inv, rc, s, rn):
     )
     err = fn(
         coarse_inv.data_ptr(), rc.data_ptr(), s.data_ptr(), rn.data_ptr(),
-        z.data_ptr(), partial.data_ptr(), rz.data_ptr(), nc, gs,
-        torch.cuda.current_stream(s.device).cuda_stream,
+        z.data_ptr(), partial.data_ptr(), counter.data_ptr(), rz.data_ptr(),
+        nc, gs, torch.cuda.current_stream(s.device).cuda_stream,
     )
     cuda_build.raise_on_error(err, "coarse_prolong_dot")
     cuda_build.launch_counts["coarse_prolong_dot"] += 1

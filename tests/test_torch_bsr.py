@@ -2,9 +2,12 @@
 
 Host tables must be byte-identical to the JAX package's; the plain SpMV
 agrees with ``bsr_matvec`` to 1e-13; assembled values, the diagonal and the
-aggregate-block preconditioner (setup and apply) to 1e-10. The kernel runs
-only on a card (``cuda`` marker); ``chip_smoke.py`` holds it against the
-plain version at the benchmark size.
+aggregate-block preconditioner (setup and apply) to 1e-10. The tables the
+port adds for its SpMV kernel (``row_blocks``, ``heavy_rank``) are held
+against the JAX tables they summarise, for a narrow tier 1 (``max_b=4``),
+the default (8) and no tier 2 (``max_b=None``). The kernel runs only on a
+card (``cuda`` marker); ``chip_smoke.py`` holds it against the plain version
+at the benchmark size and on the same three structures.
 """
 
 import jax
@@ -54,6 +57,31 @@ def setup():
     return jV, pV, jst, pst, jvals, pvals
 
 
+MAX_BS = [4, 8, None]
+
+
+@pytest.fixture(scope="module")
+def systems(setup):
+    """``max_b -> (jst, pst, jvals, pvals)``: structure and symmetric
+    assembly of both packages, built once per tier-1 width."""
+    jV, pV, jst8, pst8, jvals8, pvals8 = setup
+    out = {8: (jst8, pst8, jvals8, pvals8)}
+    for max_b in (4, None):
+        jst = jb.get_bsr_structure(jV, max_b=max_b)
+        pst = pb.get_bsr_structure(pV, max_b=max_b)
+        out[max_b] = (
+            jst,
+            pst,
+            jb.bsr_values_from_local_symmetric(
+                jst, jV.integrate_bilinear_form_local(a_form_j)
+            ),
+            pb.bsr_values_from_local_symmetric(
+                pst, pV.integrate_bilinear_form_local(a_form_p)
+            ),
+        )
+    return out
+
+
 def _rel(ours, ref):
     ours = ours.numpy() if isinstance(ours, torch.Tensor) else np.asarray(ours)
     ref = np.asarray(ref)
@@ -68,7 +96,9 @@ def test_structure_byte_identical(setup):
     )
     assert pst.n_pad == 1280
     assert pst.heavy_rows.shape[0] > 0  # the tier-2 path is exercised
-    for name in pst._fields:
+    # the SpMV kernel's tables are the port's own; every JAX table stays
+    assert set(pst._fields) - set(jst._fields) == {"row_blocks", "heavy_rank"}
+    for name in jst._fields:
         ours, ref = getattr(pst, name), getattr(jst, name)
         if isinstance(ours, int):
             continue
@@ -78,8 +108,10 @@ def test_structure_byte_identical(setup):
         np.testing.assert_array_equal(ours, np.asarray(ref), err_msg=name)
 
 
-def test_structure_from_numpy_round_trip(setup):
-    _, _, jst, pst, _, _ = setup
+@pytest.mark.parametrize("max_b", MAX_BS)
+def test_structure_from_numpy_round_trip(systems, max_b):
+    jst, pst, _, _ = systems[max_b]
+    assert pst.row_blocks is not None and pst.heavy_rank is not None
     fields = {
         k: (v if isinstance(v, int) or v is None else np.asarray(v))
         for k, v in jst._asdict().items()
@@ -95,6 +127,85 @@ def test_structure_from_numpy_round_trip(setup):
             assert a == b, name
 
 
+@pytest.mark.parametrize("max_b", MAX_BS)
+def test_row_tables_agree_with_structure(systems, max_b):
+    """``row_blocks`` and ``heavy_rank`` against ``bcols``/``bcols2``/
+    ``heavy_rows``/``blk_id_host``: what the kernel skips is padding."""
+    _, pst, _, pvals = systems[max_b]
+    nb, B = pst.bcols.shape
+    nh, B2 = pst.bcols2.shape
+    assert (nh > 0) == (max_b is not None)
+    if max_b == 4:
+        assert B == 4 and B2 > 4  # a tier 2 wider than tier 1
+    for table in (pst.row_blocks, pst.heavy_rank):
+        assert table.dtype == torch.int32 and table.shape == (nb,)
+    counts = pst.row_blocks.numpy().astype(np.int64)
+    rank = pst.heavy_rank.numpy().astype(np.int64)
+    heavy = pst.heavy_rows.numpy()
+
+    # counts: every stored block once, split as min(c, B) + max(c - B, 0)
+    assert counts.sum() == pst.blk_id_host.size == pst.ubr_host.size
+    np.testing.assert_array_equal(counts, np.bincount(pst.ubr_host, minlength=nb))
+    assert counts.max() == B + B2
+    in1 = np.minimum(counts, B)
+    in2 = counts - in1
+    assert in1.sum() == (pst.blk_id_host < nb * B).sum()
+    assert in2.sum() == (pst.blk_id_host >= nb * B).sum()
+
+    # heavy_rank inverts heavy_rows and is -1 exactly where nothing spills
+    np.testing.assert_array_equal(rank[heavy], np.arange(nh))
+    np.testing.assert_array_equal(np.nonzero(rank >= 0)[0], heavy)
+    np.testing.assert_array_equal(rank >= 0, in2 > 0)
+
+    # slots are filled from the front: the stored flat ids are the first
+    # in1 slots of each tier-1 row and the first in2 of its tier-2 row
+    front1 = np.arange(B)[None, :] < in1[:, None]
+    front2 = np.arange(B2)[None, :] < in2[heavy][:, None]
+    stored = np.zeros(nb * B + nh * B2, dtype=bool)
+    stored[pst.blk_id_host] = True
+    np.testing.assert_array_equal(stored[: nb * B].reshape(nb, B), front1)
+    np.testing.assert_array_equal(stored[nb * B :].reshape(nh, B2), front2)
+    # ... the padding behind them points at block 0 (an empty row's slot 0
+    # at itself) and holds zero values after assembly
+    pad_cols = pst.bcols.numpy()[~front1]
+    own = np.broadcast_to(np.arange(nb)[:, None], (nb, B))[~front1]
+    assert ((pad_cols == 0) | (pad_cols == own)).all()
+    assert (pst.bcols2.numpy()[~front2] == 0).all()
+    v1, v2 = (v.numpy() for v in pvals)
+    assert not v1[~front1].any() and not v2[~front2].any()
+
+
+@pytest.mark.parametrize("max_b", MAX_BS)
+def test_padding_free_walk_matches_plain(systems, max_b):
+    """The kernel's walk, written out with NumPy: block-row r sums its
+    ``row_blocks[r]`` blocks, the first B from tier 1 and the rest from row
+    ``heavy_rank[r]`` of tier 2, and touches no other slot (the padding is
+    poisoned with NaN here)."""
+    _, pst, _, pvals = systems[max_b]
+    nb, B = pst.bcols.shape
+    counts, rank = pst.row_blocks.numpy(), pst.heavy_rank.numpy()
+    cols1, cols2 = pst.bcols.numpy(), pst.bcols2.numpy()
+    x = np.random.default_rng(3).standard_normal(pst.n_pad)
+    ref = pb._bsr_spmv_plain(
+        pst.bcols, pvals[0], torch.from_numpy(x), pst.bcols2, pvals[1], pst.heavy_rows
+    ).numpy()
+    v1, v2 = (v.numpy().copy() for v in pvals)
+    v1[np.arange(B)[None, :] >= counts[:, None]] = np.nan
+    if v2.size:
+        spilled = (counts - B)[pst.heavy_rows.numpy()]
+        v2[np.arange(v2.shape[1])[None, :] >= spilled[:, None]] = np.nan
+    x2 = x.reshape(nb, 8)
+    y = np.zeros((nb, 8))
+    for r in range(nb):
+        for t in range(counts[r]):
+            if t < B:
+                y[r] += v1[r, t] @ x2[cols1[r, t]]
+            else:
+                y[r] += v2[rank[r], t - B] @ x2[cols2[rank[r], t - B]]
+    assert np.isfinite(y).all()
+    assert _rel(y.reshape(-1), ref) <= 1e-13
+
+
 @pytest.mark.parametrize("symmetric", [True, False])
 def test_assembled_values_and_diagonal(setup, symmetric):
     jV, pV, jst, pst, jvals, pvals = setup
@@ -106,8 +217,9 @@ def test_assembled_values_and_diagonal(setup, symmetric):
     assert _rel(pb.bsr_diagonal(pst, pvals), jb.bsr_diagonal(jst, jvals)) <= 1e-10
 
 
-def test_plain_spmv_matches_jax(setup):
-    jV, pV, jst, pst, jvals, _ = setup
+@pytest.mark.parametrize("max_b", MAX_BS)
+def test_plain_spmv_matches_jax(systems, max_b):
+    jst, pst, jvals, _ = systems[max_b]
     rng = np.random.default_rng(11)
     x = rng.standard_normal(pst.n_pad)
     vals = tuple(torch.from_numpy(np.array(v)) for v in jvals)  # same inputs
@@ -184,13 +296,15 @@ def test_small_inverses_match_jax():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("max_b", MAX_BS)
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-def test_k2_kernel_matches_plain_on_card(setup, dtype, tol):
+def test_k2_kernel_matches_plain_on_card(systems, dtype, tol, max_b):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: K2 is a CUDA kernel with no CPU mode")
-    _, _, _, pst, _, pvals = setup
+    _, pst, _, pvals = systems[max_b]
     st = pst._replace(
-        bcols=pst.bcols.cuda(), bcols2=pst.bcols2.cuda(), heavy_rows=pst.heavy_rows.cuda()
+        bcols=pst.bcols.cuda(), bcols2=pst.bcols2.cuda(), heavy_rows=pst.heavy_rows.cuda(),
+        row_blocks=pst.row_blocks.cuda(), heavy_rank=pst.heavy_rank.cuda(),
     )
     vals = tuple(v.to("cuda", dtype).contiguous() for v in pvals)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(pst.n_pad)).to("cuda", dtype)
@@ -200,3 +314,6 @@ def test_k2_kernel_matches_plain_on_card(setup, dtype, tol):
     assert cuda_build.launch_counts["bsr_spmv"] == before + 1
     ref = pb._bsr_spmv_plain(st.bcols, vals[0], x, st.bcols2, vals[1], st.heavy_rows)
     assert float((y - ref).norm() / ref.norm()) <= tol
+    assert torch.equal(pb.bsr_matvec(st, vals, x), y)  # bitwise repeatable
+    with pytest.raises(ValueError, match="row_blocks"):
+        pb.bsr_matvec(st._replace(row_blocks=None), vals, x)

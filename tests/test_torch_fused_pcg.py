@@ -7,6 +7,8 @@ plain versions, on the seven-fracture DFN at h=0.25 and h=0.1:
 * K3 then K4 give ``z = M^{-1} rn`` of the JAX ``AggBlockTwoLevel`` to
   1e-12 (the port's preconditioner is made from the JAX one's arrays), ``rc``
   the aggregate sums and ``rz = rn . M^{-1} rn``;
+* the same at ``g = gs = 128``, where the coarse size (10 and 69) is no
+  multiple of 4, the shape that takes K4's one-word loads on the card;
 * ``bench.make_fused_pcg``'s ``run_stock(30)`` and ``run_fused(30)`` match
   the tool's ``stock_body``, written here with JAX functions, to 1e-10;
 * ``solve_fused`` takes the iteration count of the JAX ``pcg`` with the
@@ -129,9 +131,24 @@ def _tail_inputs(n, device="cpu", dtype=torch.float64):
     return alpha, vecs
 
 
-def test_plain_tail_matches_jax_preconditioner(setup):
-    jprec = setup["precond"]
+def _jax_precond(setup, g):
+    """The JAX aggblock preconditioner with aggregates of ``g`` (the
+    fixture's own at its g=32)."""
+    if g == setup["precond"].g:
+        return setup["precond"]
+    st, values = setup["st"], setup["values"]
+    return jp.agg_block_two_level_from_values(
+        st, values, jb.bsr_diagonal(st, values), g=g, gs=g,
+        table=jnp.asarray(jp.build_agg_block_table(st, g)),
+    )
+
+
+@pytest.mark.parametrize("g", [32, 128])
+def test_plain_tail_matches_jax_preconditioner(setup, g):
+    jprec = _jax_precond(setup, g)
     pre = _port_precond(jprec)
+    # g=128 gives a coarse size that is no multiple of 4 (10 and 69)
+    assert (pre.coarse_inv.shape[0] % 4 != 0) == (g == 128)
     ns, gs = fp.fused_shape(pre, setup["st"].n_pad)
     alpha, (x, r, p, ap) = _tail_inputs(ns * gs)
     xn, rn, s, rc = fp._agg_smooth_restrict_plain(
@@ -229,10 +246,11 @@ def _need_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g", [32, 128])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-def test_k3_k4_kernels_match_plain_on_card(setup, dtype, tol):
+def test_k3_k4_kernels_match_plain_on_card(setup, dtype, tol, g):
     _need_card()
-    pre = _port_precond(setup["precond"], device="cuda", dtype=dtype)
+    pre = _port_precond(_jax_precond(setup, g), device="cuda", dtype=dtype)
     ns, gs = fp.fused_shape(pre, setup["st"].n_pad)
     alpha, vecs = _tail_inputs(ns * gs, device="cuda", dtype=dtype)
     args = [v.view(ns, gs) for v in vecs]
@@ -246,6 +264,9 @@ def test_k3_k4_kernels_match_plain_on_card(setup, dtype, tol):
     assert cuda_build.launch_counts["coarse_prolong_dot"] == before["coarse_prolong_dot"] + 1
     for ours, ref in zip(k3 + k4, ref3 + ref4):
         assert _rel(ours.cpu(), ref.cpu()) <= tol
+    # bitwise repeatable: rz is summed in a fixed order, with no atomics
+    again = fp.coarse_prolong_dot(pre.coarse_inv, ref3[3], ref3[2], ref3[1])
+    assert all(torch.equal(a, b) for a, b in zip(again, k4))
 
 
 @pytest.mark.cuda
