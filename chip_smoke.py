@@ -13,7 +13,10 @@ Phases (any failure exits non-zero and prints no result):
 2. K1 (P1 element kernel) against its plain PyTorch version on the h=0.03
    seven-fracture DFN's 214,988 cells, in float64 (1e-12 relative) and
    float32 (1e-5 relative to each output row's max magnitude: FMA
-   contraction and operation order differ, so it cannot be bit-exact);
+   contraction and operation order differ, so it cannot be bit-exact), two
+   launches bitwise equal; the same on seeded triangles at T = 1, 255, 257
+   and 1,001 (a tail block whose words do not fill whole 16-byte pieces)
+   with the coordinates on and off a 16-byte boundary (one-word loads);
 3. K2 (BSR SpMV) against its plain version on the h=0.03 assembled values
    and a seeded x, in float64 (1e-12 relative to ||y||) and float32 (1e-5),
    two launches bitwise equal; the stored and slot counts of both tiers,
@@ -38,11 +41,16 @@ Phases (any failure exits non-zero and prints no result):
    each output's max magnitude; ``rz`` relative to |rz|), and at gs=64 on
    a seeded table (the one-block-per-row K3), and at nc = ns = 67 (no
    multiple of 4: K4's one-word loads) with gs=32 and gs=5; two launches
-   of K4 bitwise equal (z and rz); their times beside plain, library and bound, and K2,
-   K4 and ``torch.mv`` once more with the L2 flushed by a read (clean
-   lines) beside the window's own overhead; ``run_stock(30)`` against ``run_fused(30)`` as CUDA
+   of K3 (all four outputs) and of K4 (z and rz) bitwise equal; K3 on
+   seeded NON-symmetric blocks at ns = 1, 5 and 67 with ``inv_agg`` on and
+   off a 16-byte boundary; the machine code of K3's warp kernels read back
+   with cuobjdump (every global load before the fence and the products); their
+   times beside plain, library and bound;
+   ``run_stock(30)`` against ``run_fused(30)`` as CUDA
    graphs (5e-5 in f32, the tool's measure; 1e-10 in f64); the graphed
-   per-iteration time of both over 100 iterations, median of 3; and
+   per-iteration time of both over 100 iterations, median of 3; one
+   profiled replay of ``run_fused(100)``: device us per iteration of K2, K3,
+   K4, the dots, the p update and the scalar operations; and
    ``solve_fused(1e-6)``: residual <= 1e-6 in <= 80 iterations, within 1
    of phase 4's count (equal in f64), within 1e-4 of phase 4's solution,
    K2-K4 launched at least once per iteration;
@@ -66,7 +74,16 @@ Phases (any failure exits non-zero and prints no result):
 11. K6 (row gather) on the gather probe's own inputs, equal to the tool's
     NumPy answer exactly (counts reset before it: the probe is K6's path),
     then at the h=0.03 SpMV shapes (x as (n_pad/8, 8), cols the BSR column
-    table) in f32 and f64, equal to ``x[cols]``, timed beside it.
+    table) in f32 and f64, equal to ``x[cols]``, timed beside it;
+12. every kernel K1-K6, ``torch.mv``, a ``copy_`` of as many bytes as K1
+    moves and an empty window once more, each with the L2 flushed by a
+    write (dirty lines) and by a read (clean lines); then the seconds each
+    phase took.
+
+To compare two builds of a kernel, run this script from each checkout in
+turns within one boot of one machine and card (copy this file into the older
+checkout): phase 2 prints a digest of K1's float32 output at the benchmark
+shape, so equal digests mean bitwise equal results.
 
 The last three lines are the card line, the kernels JSON line and the
 ``{"ok": true, ...}`` line. Kernel times use CUDA events around single
@@ -80,8 +97,10 @@ does, and the empty window says what the two events cost by themselves.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -121,7 +140,13 @@ RVPINN_N = 64
 RVPINN_BLOCK = 10
 TWO_FRACTURE_N = 8
 
+EDGE_K1_CELLS = (1, 255, 257, 1001)
+EDGE_K3_ROWS = (1, 5, 67)
+
 failures: list[str] = []
+# name -> one launch at the benchmark shapes, registered by the phases for
+# phase 12's table of timing windows
+windows: dict = {}
 
 
 def log(*args):
@@ -172,28 +197,60 @@ def bound_ms(n_bytes: float, n_flops: float):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _digest(t) -> str:
+    """A short hash of a tensor's bytes: equal digests from two builds of a
+    kernel mean bitwise equal results."""
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _check_k1(tag, c, tol):
+    """K1 against its plain version on the (T, 3, 3) cells ``c``, two
+    launches bitwise equal; the largest absolute error."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops.kernels import _p1_plain_3d, p1_element_3d
+
+    out = p1_element_3d(c)
+    again = p1_element_3d(c)
+    ref = _p1_plain_3d(c.reshape(c.shape[0], 9).T)
+    torch.cuda.synchronize()
+    err = float(((out - ref).abs().amax(dim=1) / ref.abs().amax(dim=1)).max())
+    ok = bool(torch.isfinite(out).all()) and err <= tol and torch.equal(out, again)
+    check(ok, f"K1 {tag} vs plain: rel err {err:.3e} <= {tol:g}, two launches bitwise equal")
+    return float((out - ref).abs().max())
+
+
 def phase_k1(mesh64):
     import torch
 
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
     from pytorch_fem_solver_tpu_torch.ops.kernels import _p1_plain_3d, p1_element_3d
 
     coords64 = mesh64["cells", "coordinates_3d"].contiguous()
     T = coords64.shape[0]
     max_abs = None
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        c = coords64.to(dtype)
-        out = p1_element_3d(c)
-        ref = _p1_plain_3d(c.reshape(T, 9).T)
-        torch.cuda.synchronize()
-        err = float(((out - ref).abs().amax(dim=1) / ref.abs().amax(dim=1)).max())
-        finite = bool(torch.isfinite(out).all())
-        check(finite and err <= tol, f"K1 {dtype} vs plain: rel err {err:.3e} <= {tol:g}")
-        max_abs = float((out - ref).abs().max())
+        max_abs = _check_k1(f"{dtype} h={H}", coords64.to(dtype), tol)
+        # a tail block, words left over after the 16-byte pieces, a misaligned base
+        for cells in EDGE_K1_CELLS:
+            rng = np.random.default_rng(cells)
+            tri = rng.uniform(-1.0, 1.0, size=(cells, 3, 3))
+            tri[:, 1] += 2.0  # keep the three vertices apart
+            tri[:, 2, 1] -= 3.0
+            c = torch.as_tensor(tri, device=DEVICE).to(dtype)
+            _check_k1(f"{dtype} T={cells}", c, tol)
+            _check_k1(f"{dtype} T={cells} off a 16-byte boundary", cuda_build.misaligned_copy(c), tol)
     c32 = coords64.to(torch.float32)
+    windows["K1"] = lambda: p1_element_3d(c32)
     ms = time_ms(lambda: p1_element_3d(c32))
     plain_ms = time_ms(lambda: _p1_plain_3d(c32.reshape(T, 9).T))
     b_ms, by = bound_ms(T * (9 + 13) * 4, T * K1_FLOPS_PER_CELL)
-    log(f"K1 p1_element_3d T={T}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {by})")
+    log(f"K1 p1_element_3d T={T}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {by}); "
+        f"float32 digest {_digest(p1_element_3d(c32))}")
+    # a device copy that moves as many bytes as K1 (22 words per cell)
+    src = torch.empty(T * 11, dtype=torch.float32, device=DEVICE).normal_()
+    dst = torch.empty_like(src)
+    windows["copy of K1's bytes"] = lambda: dst.copy_(src)
     return {
         "name": "p1_element_3d",
         "route": "cuda",
@@ -486,9 +543,12 @@ def _check_tail(tag, pre_inv, coarse_inv, alpha, vecs, tol):
     k4 = fp.coarse_prolong_dot(coarse_inv, ref3[3], ref3[2], ref3[1])
     ref4 = fp._coarse_prolong_dot_plain(coarse_inv, ref3[3], ref3[2], ref3[1])
     again = fp.coarse_prolong_dot(coarse_inv, ref3[3], ref3[2], ref3[1])
+    again3 = fp.agg_smooth_restrict(alpha, *vecs, pre_inv)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(again, k4)),
           f"K4 {tag}: two launches bitwise equal (z and rz)")
+    check(all(torch.equal(a, b) for a, b in zip(again3, k3)),
+          f"K3 {tag}: two launches bitwise equal (xn, rn, s, rc)")
     out = {}
     for kernel, names, ours, refs in (
         ("K3", ("xn", "rn", "s", "rc"), k3, ref3),
@@ -502,6 +562,105 @@ def _check_tail(tag, pre_inv, coarse_inv, alpha, vecs, tol):
               + " ".join(f"{n}={e:.2e}" for n, e in errs.items()))
         out[kernel] = max(float((a - b).abs().max()) for a, b in zip(ours, refs))
     return out
+
+
+def _check_k3_edges(dtype, tol):
+    """K3's warp kernel on seeded NON-symmetric blocks at row counts that
+    are no multiple of its rows per thread block, with ``inv_agg`` on and
+    off a 16-byte boundary (the one-word loads)."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+    from pytorch_fem_solver_tpu_torch.ops import fused_pcg as fp
+
+    for ns in EDGE_K3_ROWS:
+        rng = np.random.default_rng(SEED + ns)
+        inv = torch.as_tensor(rng.standard_normal((ns, 32, 32)), device=DEVICE).to(dtype)
+        alpha, vecs = _tail_inputs(ns, 32, dtype)
+        for tag, table in (("aligned", inv), ("off a 16-byte boundary", cuda_build.misaligned_copy(inv))):
+            ours = fp.agg_smooth_restrict(alpha, *vecs, table)
+            ref = fp._agg_smooth_restrict_plain(alpha, *vecs, table)
+            again = fp.agg_smooth_restrict(alpha, *vecs, table)
+            torch.cuda.synchronize()
+            worst = max(_rel_err(a, b) for a, b in zip(ours, ref))
+            ok = (all(bool(torch.isfinite(a).all()) for a in ours) and worst <= tol
+                  and all(torch.equal(a, b) for a, b in zip(ours, again)))
+            check(ok, f"K3 {dtype} ns={ns} non-symmetric blocks, inv_agg {tag}: rel err "
+                  f"{worst:.3e} <= {tol:g}, two launches bitwise equal")
+
+
+def _check_k3_loads_first():
+    """K3's design rests on every global load being started before the warp
+    computes on the block. Read that back from the machine code of the
+    built library: in the 16-byte float32 and float64 warp kernels every
+    LDG comes before the fence, and the fence before the first product."""
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        log("K3 machine code not read: no cuobjdump beside nvcc")
+        return
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(cuda_build._lib_path("fused_pcg"))],
+        check=True, capture_output=True, text=True, timeout=120,
+    ).stdout
+    for key, tag in (("agg_smooth_restrict_32IfLi4E", "float32"),
+                     ("agg_smooth_restrict_32IdLi2E", "float64")):
+        body = next((f for f in sass.split("Function : ")[1:] if key in f.splitlines()[0]), "")
+        lines = [ln for ln in body.splitlines() if "/*" in ln]
+
+        def where(*ops):
+            return [k for k, ln in enumerate(lines) if any(op in ln for op in ops)]
+
+        loads, fence, products = where("LDG"), where("MEMBAR"), where(" FMUL", " DMUL")
+        ok = bool(loads and fence and products) and loads[-1] < fence[0] < products[0]
+        check(ok, f"K3 {tag} machine code: {len(loads)} global loads, all before the fence "
+              f"and the first of {len(products)} products")
+
+
+# buckets of one fused iteration, by kernel name (first match wins)
+FUSED_BUCKETS = (
+    ("K2 bsr_spmv", ("bsr_spmv",)),
+    ("K3 agg_smooth_restrict", ("agg_smooth_restrict",)),
+    ("K4 coarse_prolong_dot", ("coarse_prolong",)),
+    ("dots", ("dot_kernel", "reduce_1Block")),
+    ("scalar ops (alpha, beta)", ("DivFunctor",)),
+    ("p update", ("MulFunctor", "CUDAFunctor_add", "AddFunctor")),
+)
+
+
+def _fused_iteration_split(run_fused, s_per_iter: float):
+    """One replay of the graphed ``run_fused(LOOP_ITERS)`` under the
+    profiler: device us and launches per iteration, by bucket."""
+    import torch
+
+    run_fused(LOOP_ITERS)  # captured by now
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        run_fused(LOOP_ITERS)
+        torch.cuda.synchronize()
+    kernels, device_ms = _device_kernels(prof, LOOP_ITERS)
+    split = {name: [0.0, 0.0] for name, _ in FUSED_BUCKETS}
+    other = []
+    for us, count, name in kernels:
+        bucket = next((b for b, keys in FUSED_BUCKETS if any(k in name for k in keys)), None)
+        if bucket is None:
+            other.append((us, count, name))
+        else:
+            split[bucket][0] += us
+            split[bucket][1] += count
+    device_us = 1e3 * device_ms
+    log(f"one replay of run_fused({LOOP_ITERS}) under the profiler: device {device_us:.2f} us "
+        f"per iteration of the {1e6 * s_per_iter:.2f} us unprofiled "
+        f"(the rest is gaps between kernels); us / launches per iteration: "
+        + "; ".join(f"{name} {us:.2f} / {count:.2f}" for name, (us, count) in split.items())
+        + f"; other {sum(o[0] for o in other):.2f} / {sum(o[1] for o in other):.2f}")
+    for us, count, name in other[:8]:
+        log(f"  other: {us:.3f} us / {count:.2f} per iteration  {name[:100]}")
+    check(all(split[b][1] >= 1 for b in ("K2 bsr_spmv", "K3 agg_smooth_restrict",
+                                         "K4 coarse_prolong_dot")),
+          "the profiled replay shows K2, K3 and K4 once per iteration")
 
 
 def _loop_s_per_iter(run) -> float:
@@ -584,6 +743,8 @@ def phase_fused(st, V32, V64, x32, iters, iters64, card):
             ).to(dtype)
             alpha67, vecs67 = _tail_inputs(67, gs_odd, dtype)
             _check_tail(f"{dtype} nc=67 gs={gs_odd}", inv67, cinv67, alpha67, vecs67, tol)
+        _check_k3_edges(dtype, tol)
+    _check_k3_loads_first()
 
     # 2. per-kernel figures, f32 at the benchmark shapes; bounds count f32
     # words: each input read once, each output written once
@@ -609,21 +770,14 @@ def phase_fused(st, V32, V64, x32, iters, iters64, card):
         4 * (nc * nc + nc + 3 * n + 1), 2 * nc * nc + 3 * n,
         max_abs[torch.float32]["K4"],
     )
-    # K2, K4 and K4's yardstick once more behind a flush that leaves clean
-    # lines, and the window with nothing in it
     values32 = fused[torch.float32].values
     x_seed = torch.as_tensor(
         np.random.default_rng(SEED).standard_normal(st.n_pad), device=DEVICE
     ).to(torch.float32)
-    windows = {
-        "K2": lambda: bsr_matvec(st, values32, x_seed),
-        "K4": lambda: fp.coarse_prolong_dot(pre.coarse_inv, rc, s, rn),
-        "torch.mv": lambda: torch.mv(pre.coarse_inv, rc),
-        "empty window": lambda: None,
-    }
-    log("ms with the L2 flushed by a write (dirty lines) / by a read (clean lines): "
-        + "; ".join(f"{name} {time_ms(fn):.4f} / {time_ms(fn, flush='read'):.4f}"
-                    for name, fn in windows.items()))
+    windows["K2"] = lambda: bsr_matvec(st, values32, x_seed)
+    windows["K3"] = lambda: fp.agg_smooth_restrict(alpha, *vecs, pre.inv_agg)
+    windows["K4"] = lambda: fp.coarse_prolong_dot(pre.coarse_inv, rc, s, rn)
+    windows["torch.mv"] = lambda: torch.mv(pre.coarse_inv, rc)
 
     # 3. fixed-length runs as CUDA graphs
     for dtype, tol in ((torch.float64, 1e-10), (torch.float32, FUSED_VS_STOCK)):
@@ -658,6 +812,7 @@ def phase_fused(st, V32, V64, x32, iters, iters64, card):
         "speedup": s_stock2 / s_fused2,
         "card": card,
     }))
+    _fused_iteration_split(f32.run_fused, s_fused2)
 
     # 4. the fused solve to tolerance
     cuda_build.reset_launch_counts()
@@ -736,7 +891,8 @@ def phase_k5(mesh64):
                     max_abs = max(max_abs, float((out - ref).abs().max()))
     c, s = _k5_inputs(meshes[f"DFN h={H}"], scale, torch.float32)
     T = c.shape[0]
-    ms = time_ms(lambda: p1_element_2d(c, s))
+    windows["K5"] = lambda: p1_element_2d(c, s)
+    ms = time_ms(windows["K5"])
     plain_ms = time_ms(lambda: _k5_plain(c, s))
     # 6 coordinates and the scale in, 14 rows out
     b_ms, by = bound_ms(T * (7 + P1_OUT_ROWS_2D) * 4, T * K5_FLOPS_PER_CELL)
@@ -903,7 +1059,8 @@ def phase_k6(st):
         check(torch.equal(ours, ref), f"K6 {dtype} at the SpMV shapes equals x[cols] exactly")
     nbs, Bs = bcols.shape
     xs32 = xs.to(torch.float32)
-    ms = time_ms(lambda: gather_rows(xs32, bcols))
+    windows["K6"] = lambda: gather_rows(xs32, bcols)
+    ms = time_ms(windows["K6"])
     plain_ms = time_ms(lambda: _gather_rows_plain(xs32, bcols))
     library_ms = time_ms(lambda: xs32[bcols])
     # cols and x read once, the (nb, B*8) blocks written once
@@ -925,6 +1082,16 @@ def phase_k6(st):
     }
 
 
+def phase_windows():
+    """Phase 12: what the timing window itself holds, per kernel."""
+    windows["empty window"] = lambda: None
+    order = ["K1", "K2", "K3", "K4", "K5", "K6", "torch.mv", "copy of K1's bytes",
+             "empty window"]
+    log("ms with the L2 flushed by a write (dirty lines) / by a read (clean lines): "
+        + "; ".join(f"{name} {time_ms(windows[name]):.5f} / "
+                    f"{time_ms(windows[name], flush='read'):.5f}" for name in order))
+
+
 def main() -> int:
     import torch
 
@@ -940,6 +1107,7 @@ def main() -> int:
         get_bsr_structure,
     )
 
+    t_start = time.perf_counter()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     card = card_line()
     log(f"card: {card}")
@@ -968,21 +1136,42 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s host)"
     )
 
+    marks = [("build + tables", time.perf_counter())]
+
+    def done(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
     k1 = phase_k1(mesh64)
+    done("2 K1")
     values64 = bsr_values_from_local_symmetric(
         st, V64.integrate_bilinear_form_local(lambda b: b.v_grad @ b.v_grad.mT)
     )
     k2 = phase_k2(st, values64)
     del values64
     phase_k2_structures()
+    done("3 K2")
     solve32, x32, iters, iters64, launches, median = phase_main(st, V32, V64)
+    done("4 main path")
     phase_compiled(st, V32, x32)
+    done("5 compiled")
     phase_profile(solve32, median)
+    done("6 profile")
     k3, k4 = phase_fused(st, V32, V64, x32, iters, iters64, card)
+    done("7 fused tail")
     k5 = phase_k5(mesh64)
+    done("8 K5")
     rvpinn_launches = phase_rvpinn(card)
+    done("9 RVPINN")
     phase_two_fracture()
+    done("10 two-fracture")
     k6 = phase_k6(st)
+    done("11 K6")
+    phase_windows()
+    done("12 windows")
+    log("seconds by phase: " + "; ".join(
+        f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
+    ) + f"; start to tables {marks[0][1] - t_start:.1f}")
 
     if failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)

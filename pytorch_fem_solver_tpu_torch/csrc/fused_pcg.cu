@@ -25,14 +25,42 @@
 // Design. The TPU kernels' padding of rows to 128-row tiles and of the
 // coarse dimension to 128 lanes is a TPU layout and is dropped: both kernels
 // read the unpadded tables as they are.
-// - K3, gs == 32: one warp per aggregate row, lane j owning rn[i, j]; four
-//   rows per thread block. The warp stages the 4 KB block inv_agg[i]
-//   through shared memory with coalesced row loads, at a row stride of 33
-//   words so that lane j reading row j of the block hits 32 different
-//   banks. rn[i, k] reaches lane j by a shuffle. The block is not assumed
-//   symmetric (the unpivoted Gauss-Jordan inverse is symmetric only to
-//   roundoff). rc[i] is a butterfly shuffle sum, bitwise the same on every
-//   lane and every run.
+// - K3, gs == 32: a one-wave kernel (3,248 warps, about 25 per SM, all
+//   resident), so its time is that of one warp's dependent chain, and the
+//   design keeps that chain to one trip to memory: one warp per aggregate
+//   row, no shared memory, nothing staged.
+//   * A lane first starts every load it will ever wait for: its share of
+//     the 4 KB (8 KB in f64) block inv_agg[i] as 16-byte loads, 8 per lane
+//     in f32 and 16 in f64, each load of the warp covering 512 contiguous
+//     bytes; then r, ap, x, p and alpha. A block-level fence follows them:
+//     without it the compiler (nvcc 12.8) sinks each load to its first use
+//     and the warp waits for memory once per load; with it the machine
+//     code holds every load before the fence and the products, which the
+//     smoke run reads back from the built library. (In float64 the axpys'
+//     two multiplies still rise above the last two of the 21 loads, which
+//     so start one wait late.)
+//   * The loads are plain read-only loads. The table (13.3 MB) is read
+//     again by the next iteration and fits the 50 MB L2 beside the SpMV's
+//     26 MB, while K4's 42 MB are streaming loads that the L2 evicts first,
+//     so inside a solve K3 finds most of the table in L2 and takes a third
+//     of its time alone behind a flush. Streaming loads here were faster
+//     for one launch into a cold L2 and slower inside the loop, where they
+//     evict the table before its next use; an L2 evict-last policy on the
+//     loads changed nothing inside the loop and was dropped.
+//   * Load g hands lane l the piece of N = 16 / sizeof(T) words at row
+//     N g + l / P, columns N (l % P) onward, P = 32 / N pieces to a row
+//     (k3_lane_map in ops/fused_pcg.py is the same map, held by a CPU
+//     test). The lane multiplies each piece by the N values of rn under it
+//     (N shuffles, the same for every load), which leaves P partial row
+//     sums per lane, and a reduce-scatter over each group of P neighbouring
+//     lanes (P - 1 shuffles: at each halving a lane sends the half it gives
+//     up and adds the half it keeps) ends with lane l holding
+//     s[i, N (l % P) + l / P] whole. Each sum is a tree of a fixed shape,
+//     so the outputs are bitwise the same on every launch. The block is
+//     not assumed symmetric (the unpivoted Gauss-Jordan inverse is
+//     symmetric only to roundoff). rc[i] is a butterfly shuffle sum of rn.
+//   * A misaligned inv_agg base takes the same kernel with N = 1 (32
+//     one-word loads per lane, lane l ending with row l).
 // - K3, other gs (<= 1024): one thread block of gs threads per row; rn[i]
 //   is staged in shared memory, thread j reads row j of inv_agg[i] from
 //   global memory, and thread 0 sums rc[i] in index order.
@@ -70,6 +98,8 @@
 
 #include <cstdint>
 
+#include "pieces.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -89,38 +119,61 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-template <typename T>
+// N words per load of inv: 16 / sizeof(T) on the aligned path, 1 otherwise.
+template <typename T, int N>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
     agg_smooth_restrict_32(const T* __restrict__ alpha_p, const T* __restrict__ x,
                            const T* __restrict__ r, const T* __restrict__ p,
                            const T* __restrict__ ap, const T* __restrict__ inv,
                            T* __restrict__ xn, T* __restrict__ rn_out,
                            T* __restrict__ s, T* __restrict__ rc, int64_t ns) {
-  __shared__ T tile[kRowsPerBlock][kWarp * (kWarp + 1)];
+  constexpr int P = kWarp / N;  // pieces to a row of the block, loads to a lane
   const int lane = threadIdx.x % kWarp;
-  const int w = threadIdx.x / kWarp;
-  const int64_t i = blockIdx.x * static_cast<int64_t>(kRowsPerBlock) + w;
-  if (i >= ns) return;  // whole warps leave; only __syncwarp below
+  const int64_t i = blockIdx.x * static_cast<int64_t>(kRowsPerBlock) + threadIdx.x / kWarp;
+  if (i >= ns) return;  // whole warps leave; the kernel has no block barrier
+  const int sub = lane % P;  // which piece of its rows this lane holds
 
-  const T alpha = __ldg(alpha_p);
+  // every load, before anything waits: load g is row N g + lane / P,
+  // columns N sub onward
+  const T* blk = inv + i * kWarp * kWarp + lane * N;
+  Piece<T, N> m[P];
+#pragma unroll
+  for (int g = 0; g < P; ++g) m[g] = load_readonly<T, N>(blk + g * kWarp * N);
   const int64_t e = i * kWarp + lane;
-  const T rn = __ldg(r + e) - alpha * __ldg(ap + e);
-  xn[e] = __ldg(x + e) + alpha * __ldg(p + e);
+  const T r0 = __ldg(r + e), ap0 = __ldg(ap + e);
+  const T x0 = __ldg(x + e), p0 = __ldg(p + e);
+  const T alpha = __ldg(alpha_p);
+  __threadfence_block();  // no load may sink below this line
+
+  const T rn = r0 - alpha * ap0;
+  xn[e] = x0 + alpha * p0;
   rn_out[e] = rn;
 
-  const T* blk = inv + i * kWarp * kWarp;
-  T* t = tile[w];
-#pragma unroll 8
-  for (int row = 0; row < kWarp; ++row) {
-    t[row * (kWarp + 1) + lane] = __ldg(blk + row * kWarp + lane);
-  }
-  __syncwarp();
-  T acc = T(0);
+  T v[N];  // rn under this lane's pieces
 #pragma unroll
-  for (int k = 0; k < kWarp; ++k) {
-    acc += t[lane * (kWarp + 1) + k] * __shfl_sync(kFull, rn, k);
+  for (int q = 0; q < N; ++q) v[q] = __shfl_sync(kFull, rn, sub * N + q);
+  T part[P];  // part[g]: this lane's share of s[i, N g + lane / P]
+#pragma unroll
+  for (int g = 0; g < P; ++g) {
+    T a = m[g].v[0] * v[0];
+#pragma unroll
+    for (int q = 1; q < N; ++q) a += m[g].v[q] * v[q];
+    part[g] = a;
   }
-  s[e] = acc;
+  // reduce-scatter over the P lanes that share their rows: a lane whose
+  // bit `half` is set keeps the upper half of what it holds
+#pragma unroll
+  for (int step = 1; step < P; step *= 2) {
+    const int half = P / 2 / step;
+    const bool upper = (lane & half) != 0;
+#pragma unroll
+    for (int k = 0; k < half; ++k) {
+      const T give = upper ? part[k] : part[k + half];
+      const T keep = upper ? part[k + half] : part[k];
+      part[k] = keep + __shfl_xor_sync(kFull, give, half);
+    }
+  }
+  s[i * kWarp + N * sub + lane / P] = part[0];
   const T sum = warp_sum(rn);
   if (lane == 0) rc[i] = sum;
 }
@@ -155,33 +208,6 @@ __global__ void agg_smooth_restrict_any(const T* __restrict__ alpha_p,
     for (int k = 0; k < gs; ++k) sum += rn_s[k];
     rc[i] = sum;
   }
-}
-
-// One aligned piece of N words: 16 bytes for (float, 4) and (double, 2).
-template <typename T, int N>
-struct alignas(N * sizeof(T)) Piece {
-  T v[N];
-};
-
-template <typename T, int N>
-__device__ __forceinline__ Piece<T, N> load_streaming(const T* p);
-template <>
-__device__ __forceinline__ Piece<float, 4> load_streaming<float, 4>(const float* p) {
-  const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
-  return {{a.x, a.y, a.z, a.w}};
-}
-template <>
-__device__ __forceinline__ Piece<double, 2> load_streaming<double, 2>(const double* p) {
-  const double2 a = __ldcs(reinterpret_cast<const double2*>(p));
-  return {{a.x, a.y}};
-}
-template <>
-__device__ __forceinline__ Piece<float, 1> load_streaming<float, 1>(const float* p) {
-  return {{__ldcs(p)}};
-}
-template <>
-__device__ __forceinline__ Piece<double, 1> load_streaming<double, 1>(const double* p) {
-  return {{__ldcs(p)}};
 }
 
 // Sum of the n values at buf over the calling thread block, in an order
@@ -320,9 +346,16 @@ int launch_k3(const T* alpha, const T* x, const T* r, const T* p, const T* ap,
   if (gs < 1 || gs > 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (ns > 0) {
     if (gs == kWarp) {
-      const int64_t blocks = (ns + kRowsPerBlock - 1) / kRowsPerBlock;
-      agg_smooth_restrict_32<T><<<static_cast<unsigned>(blocks), kWarp * kRowsPerBlock, 0,
-                                  stream>>>(alpha, x, r, p, ap, inv, xn, rn, s, rc, ns);
+      const unsigned blocks =
+          static_cast<unsigned>((ns + kRowsPerBlock - 1) / kRowsPerBlock);
+      constexpr int kVec = 16 / sizeof(T);
+      if (reinterpret_cast<uintptr_t>(inv) % 16 == 0) {
+        agg_smooth_restrict_32<T, kVec><<<blocks, kWarp * kRowsPerBlock, 0, stream>>>(
+            alpha, x, r, p, ap, inv, xn, rn, s, rc, ns);
+      } else {
+        agg_smooth_restrict_32<T, 1><<<blocks, kWarp * kRowsPerBlock, 0, stream>>>(
+            alpha, x, r, p, ap, inv, xn, rn, s, rc, ns);
+      }
     } else {
       agg_smooth_restrict_any<T><<<static_cast<unsigned>(ns), static_cast<unsigned>(gs),
                                    gs * sizeof(T), stream>>>(alpha, x, r, p, ap, inv, xn,

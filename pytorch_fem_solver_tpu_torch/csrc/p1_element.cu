@@ -10,20 +10,43 @@
 // operations, under one operation per byte, far below the card's ratio of
 // peak f32 rate to bandwidth (about 20).
 //
-// Design: one thread per cell, no shared memory and no padding (the TPU
-// kernel's 2048-lane blocks were a VMEM tiling choice). The input is the
-// mesh's own (T, 3, 3) AoS layout, so no transpose pass runs before it: a
-// warp's 32 cells are 1152 contiguous bytes and every fetched sector is
-// used. The output is SoA (13, T), rows 0-8 the row-major 3x3 stiffness,
-// 9-11 the load, 12 the area: each store instruction of a warp writes one
-// contiguous segment, and the assembly reads the 6 canonical-pair rows and
-// the 3 load rows as contiguous vectors.
+// Design. The input is the mesh's own (T, 3, 3) AoS layout, so no transpose
+// pass runs before it, and no padding (the TPU kernel's 2048-lane blocks were
+// a VMEM tiling choice). The output is SoA (13, T), rows 0-8 the row-major
+// 3x3 stiffness, 9-11 the load, 12 the area: the assembly reads the 6
+// canonical-pair rows and the 3 load rows as contiguous vectors, and each
+// of a warp's stores writes one full 128-byte line.
+// - One thread per cell. A thread that reads its cell straight from global
+//   memory asks, with each of its 9 loads, for a word 36 bytes from its
+//   neighbour's: DRAM still delivers only sectors that are used, but L1
+//   serves 9 lines of 128 bytes to each of a warp's 9 loads where 9 lines
+//   hold all of the warp's data. So a thread block first copies its cells'
+//   coordinates, which are contiguous, into shared memory with coalesced
+//   16-byte streaming loads, all of a thread's loads in flight at once
+//   (stage_cells, templated on the words per cell so that a kernel with
+//   another cell size can take it); the last words of a block that do not
+//   fill a piece come by one-word loads, so any T is taken.
+// - After the barrier a thread reads its 9 words back at a stride of 9
+//   words, which is odd, so a warp's 32 reads hit 32 different banks: no
+//   conflict and no padding (staged_word_offsets in ops/kernels.py is the
+//   same map, held by a CPU test).
+// - A misaligned `coords` takes the same kernel with one-word loads.
+// - One cell per thread and one-word stores: 2 or 4 cells per thread with
+//   8- or 16-byte stores measure slower, the kernel wants many warps more
+//   than wide stores.
+// - The arithmetic of a cell (p1_cell_3d) is one sequence of operations, so
+//   the values do not depend on the path taken.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "pieces.cuh"
+
 namespace {
+
+constexpr int kThreads = 256;  // K5: threads (cells) per block
+constexpr int kK1Threads = 128;  // K1: threads (cells) per block
 
 template <typename T>
 __device__ __forceinline__ T dev_sqrt(T v);
@@ -32,12 +55,43 @@ __device__ __forceinline__ float dev_sqrt<float>(float v) { return sqrtf(v); }
 template <>
 __device__ __forceinline__ double dev_sqrt<double>(double v) { return sqrt(v); }
 
+// The calling block's cells, W words each and contiguous from src, through
+// shared memory into registers. `words` words are copied into tile: whole
+// pieces of L words with coalesced loads (thread t takes pieces t,
+// t + Threads, ...; all its loads are started before the first is stored;
+// L > 1 needs src on a 16-byte boundary), the words left over one by one.
+// After the barrier thread t takes the W words of its cell into mine, at a
+// stride of W words from its neighbour's: with W odd a warp's reads hit 32
+// different banks. tile holds Threads W words; every thread of the block
+// must call.
+template <typename T, int L, int W, int Threads>
+__device__ __forceinline__ void stage_cells(const T* __restrict__ src, int words, T* tile,
+                                            T (&mine)[W]) {
+  constexpr int kLoads = (W + L - 1) / L;  // per thread
+  const int tid = static_cast<int>(threadIdx.x);
+  const int pieces = words / L;
+  Piece<T, L> hold[kLoads];
+#pragma unroll
+  for (int m = 0; m < kLoads; ++m) {
+    const int q = tid + m * Threads;
+    if (q < pieces) hold[m] = load_streaming<T, L>(src + static_cast<int64_t>(q) * L);
+  }
+  const int rest = pieces * L + tid;
+  if (rest < words) tile[rest] = __ldcs(src + rest);
+#pragma unroll
+  for (int m = 0; m < kLoads; ++m) {
+    const int q = tid + m * Threads;
+    if (q < pieces) *reinterpret_cast<Piece<T, L>*>(tile + q * L) = hold[m];
+  }
+  __syncthreads();
+  if (tid * W >= words) return;
+#pragma unroll
+  for (int m = 0; m < W; ++m) mine[m] = tile[tid * W + m];
+}
+
+// One cell: p its 9 coordinates; o = s00 s01 s02 s11 s12 s22 load area.
 template <typename T>
-__global__ void p1_element_3d_kernel(const T* __restrict__ coords,
-                                     T* __restrict__ out, int64_t n) {
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (t >= n) return;
-  const T* p = coords + 9 * t;
+__device__ __forceinline__ void p1_cell_3d(const T* p, T* o) {
   const T p0x = p[0], p0y = p[1], p0z = p[2];
   const T p1x = p[3], p1y = p[4], p1z = p[5];
   const T p2x = p[6], p2y = p[7], p2z = p[8];
@@ -54,27 +108,40 @@ __global__ void p1_element_3d_kernel(const T* __restrict__ coords,
   const T area = T(0.5) * dev_sqrt<T>(cx * cx + cy * cy + cz * cz);
   const T inv4a = T(0.25) / area;
 
-  const T s00 = (e0x * e0x + e0y * e0y + e0z * e0z) * inv4a;
-  const T s01 = (e0x * e1x + e0y * e1y + e0z * e1z) * inv4a;
-  const T s02 = (e0x * e2x + e0y * e2y + e0z * e2z) * inv4a;
-  const T s11 = (e1x * e1x + e1y * e1y + e1z * e1z) * inv4a;
-  const T s12 = (e1x * e2x + e1y * e2y + e1z * e2z) * inv4a;
-  const T s22 = (e2x * e2x + e2y * e2y + e2z * e2z) * inv4a;
-  const T load = area * T(1.0 / 3.0);
+  o[0] = (e0x * e0x + e0y * e0y + e0z * e0z) * inv4a;
+  o[1] = (e0x * e1x + e0y * e1y + e0z * e1z) * inv4a;
+  o[2] = (e0x * e2x + e0y * e2y + e0z * e2z) * inv4a;
+  o[3] = (e1x * e1x + e1y * e1y + e1z * e1z) * inv4a;
+  o[4] = (e1x * e2x + e1y * e2y + e1z * e2z) * inv4a;
+  o[5] = (e2x * e2x + e2y * e2y + e2z * e2z) * inv4a;
+  o[6] = area * T(1.0 / 3.0);
+  o[7] = area;
+}
 
-  out[0 * n + t] = s00;
-  out[1 * n + t] = s01;
-  out[2 * n + t] = s02;
-  out[3 * n + t] = s01;
-  out[4 * n + t] = s11;
-  out[5 * n + t] = s12;
-  out[6 * n + t] = s02;
-  out[7 * n + t] = s12;
-  out[8 * n + t] = s22;
-  out[9 * n + t] = load;
-  out[10 * n + t] = load;
-  out[11 * n + t] = load;
-  out[12 * n + t] = area;
+// L words per load into shared memory: 16 / sizeof(T) for an aligned
+// `coords`, 1 otherwise.
+template <typename T, int L>
+__global__ void __launch_bounds__(kK1Threads)
+    p1_element_3d_kernel(const T* __restrict__ coords, T* __restrict__ out, int64_t n) {
+  constexpr int W = 9;  // words per cell
+  __shared__ __align__(16) T tile[kK1Threads * W];
+  const int64_t block_first = blockIdx.x * static_cast<int64_t>(kK1Threads);
+  const int64_t left = n - block_first;
+  const int cells = left < kK1Threads ? static_cast<int>(left) : kK1Threads;
+  T p[W];
+  // kK1Threads W words are a whole number of 16-byte pieces, so every block
+  // starts on a 16-byte boundary if coords does
+  stage_cells<T, L, W, kK1Threads>(coords + block_first * W, cells * W, tile, p);
+  if (static_cast<int>(threadIdx.x) >= cells) return;
+
+  T o[8];
+  p1_cell_3d<T>(p, o);
+  T* dst = out + block_first + threadIdx.x;
+  dst[0 * n] = o[0], dst[1 * n] = o[1], dst[2 * n] = o[2];
+  dst[3 * n] = o[1], dst[4 * n] = o[3], dst[5 * n] = o[4];
+  dst[6 * n] = o[2], dst[7 * n] = o[4], dst[8 * n] = o[5];
+  dst[9 * n] = o[6], dst[10 * n] = o[6], dst[11 * n] = o[6];
+  dst[12 * n] = o[7];
 }
 
 // K5: 2D P1 element kernel with a per-cell scale.
@@ -141,14 +208,15 @@ __global__ void p1_element_2d_kernel(const T* __restrict__ coords,
   out[13 * n + t] = det;
 }
 
-constexpr int kThreads = 256;
-
 template <typename T>
 int launch(const T* coords, T* out, int64_t n, cudaStream_t stream) {
   if (n > 0) {
-    const int64_t blocks = (n + kThreads - 1) / kThreads;
-    p1_element_3d_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        coords, out, n);
+    const unsigned blocks = static_cast<unsigned>((n + kK1Threads - 1) / kK1Threads);
+    if (reinterpret_cast<uintptr_t>(coords) % 16 == 0) {
+      p1_element_3d_kernel<T, 16 / sizeof(T)><<<blocks, kK1Threads, 0, stream>>>(coords, out, n);
+    } else {
+      p1_element_3d_kernel<T, 1><<<blocks, kK1Threads, 0, stream>>>(coords, out, n);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

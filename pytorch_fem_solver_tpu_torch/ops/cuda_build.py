@@ -1,11 +1,12 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Each ``csrc/*.cu`` source has a plain C interface and is compiled by hand
-with ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
-``_build/`` (listed in ``.gitignore``), then loaded with ctypes. Builds
-happen at first use: ``build_all`` starts one ``nvcc`` per stale source, all
-at once, and waits for them. Nothing here runs at import time, so the CPU
-tests import every module without a toolchain.
+Each ``csrc/*.cu`` source (``csrc/*.cuh`` are headers they share) has a
+plain C interface and is compiled by hand with ``nvcc`` for Hopper
+(``sm_90a``) into its own shared library under ``_build/`` (listed in
+``.gitignore``), then loaded with ctypes. Builds happen at first use:
+``build_all`` starts one ``nvcc`` per stale source, all at once, and waits
+for them. Nothing here runs at import time, so the CPU tests import every
+module without a toolchain.
 
 ``launch_counts`` holds one plain integer per kernel wrapper; a wrapper adds
 one where it launches its kernel and nowhere else.
@@ -71,8 +72,10 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Whether a library is older than its source or any shared header."""
     lib = _lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < SOURCES[name].stat().st_mtime
+    inputs = [SOURCES[name], *SOURCE_DIR.glob("*.cuh")]
+    return not lib.exists() or lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build_all(force: bool = False) -> dict[str, str]:
@@ -153,6 +156,17 @@ def check(t: torch.Tensor, name: str, shape, dtype, align: int = 0) -> None:
         raise ValueError(f"{name} must be contiguous")
     if align and t.data_ptr() % align:
         raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def misaligned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose base lies one element past a 16-byte
+    boundary: what the checks of the kernels' one-word paths feed them."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 16 == 0:
+        raise RuntimeError("misaligned_copy: the allocation was not 16-byte aligned")
+    return view
 
 
 def raise_on_error(err: int, kernel: str) -> None:

@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 from typing import Callable
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -48,6 +49,29 @@ def _agg_smooth_restrict_plain(alpha, x, r, p, ap, inv_agg):
     rn = r - alpha * ap
     s = torch.einsum("rij,rj->ri", inv_agg, rn)
     return xn, rn, s, rn.sum(dim=1)
+
+
+def k3_lane_map(words_per_piece: int):
+    """Which words of a 32x32 block each lane of K3's warp kernel takes.
+
+    With ``N = words_per_piece`` (4 in float32 and 2 in float64 on the
+    16-byte path, 1 for a misaligned ``inv_agg``) a row of the block is
+    ``P = 32 // N`` pieces and a lane makes ``P`` loads. Returns
+    ``(rows, cols, out_col)``: load ``g`` hands lane ``l`` the ``N`` words
+    of row ``rows[g, l]`` from column ``cols[g, l]`` on, and after the
+    reduce-scatter over each group of ``P`` neighbouring lanes, lane ``l``
+    holds ``s[i, out_col[l]]``. The kernel computes the same three
+    expressions; this copy is for the tests of the map.
+    """
+    n = int(words_per_piece)
+    if n not in (1, 2, 4):
+        raise ValueError(f"a piece is 1, 2 or 4 words, got {words_per_piece}")
+    per_row = 32 // n
+    lane = np.arange(32)
+    load = np.arange(per_row)[:, None]
+    rows = n * load + lane // per_row
+    cols = np.broadcast_to(n * (lane % per_row), rows.shape).copy()
+    return rows, cols, n * (lane % per_row) + lane // per_row
 
 
 def agg_smooth_restrict(alpha, x, r, p, ap, inv_agg):

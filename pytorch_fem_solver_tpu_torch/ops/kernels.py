@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -87,6 +88,20 @@ def _p1_plain_3d(soa: torch.Tensor) -> torch.Tensor:
     return torch.stack(
         [s00, s01, s02, s01, s11, s12, s02, s12, s22, load, load, load, area]
     )
+
+
+def staged_word_offsets(threads: int, words_per_cell: int = 9):
+    """Word offsets, in a thread block's shared-memory tile, that K1's
+    threads read back after staging their cells' coordinates.
+
+    The tile holds the block's cells as they lie in memory,
+    ``words_per_cell`` words each, and thread ``t`` owns cell ``t``. Returns
+    the ``(threads, words_per_cell)`` offsets; row ``t``, column ``m`` is the
+    word thread ``t`` reads at step ``m``. The kernel computes the same
+    expression; this copy is for the test that an odd ``words_per_cell``
+    keeps a warp's reads free of bank conflicts.
+    """
+    return np.arange(threads)[:, None] * words_per_cell + np.arange(words_per_cell)[None, :]
 
 
 def p1_element_3d(cell_coords3d: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,14 @@ plain versions, on the seven-fracture DFN at h=0.25 and h=0.1:
   JAX preconditioner, and its solution is within 1e-9;
 * the tool itself, its Pallas kernels run in interpret mode, keeps the
   fused loop within 5e-5 of the JAX stock loop (its own float32 check), so
-  port = JAX stock = JAX Pallas.
+  port = JAX stock = JAX Pallas;
+* K3's plain version alone, on seeded non-symmetric blocks at ns = 1, 5 and
+  67 (gs = 32) and at gs = 8, gives the JAX ``AggBlockTwoLevel`` smoother
+  and aggregate sums to 1e-12 and a NumPy ``einsum``;
+* the map of K3's warp kernel (``k3_lane_map``: which words of a 32x32 block
+  a lane loads, and which row sum it ends with) covers every word once with
+  coalesced loads, and the kernel's lane algorithm, replayed in NumPy with
+  its shuffles, gives ``inv_agg[i] @ rn[i]``.
 
 Tests that launch K3/K4 carry the ``cuda`` marker; ``chip_smoke.py`` holds
 them against their plain versions at the benchmark size.
@@ -237,6 +244,108 @@ def test_pallas_fused_tool_in_interpret_mode():
     assert result["rel_diff_30it"] < 5e-5
 
 
+# -- K3 alone: edge shapes, non-symmetric blocks, the warp kernel's map ---------
+
+K3_SHAPES = [(1, 32), (5, 32), (67, 32), (7, 8)]  # (ns, gs)
+
+
+def _k3_case(ns, gs, device="cpu", dtype=torch.float64):
+    """Seeded K3 inputs whose blocks are NOT symmetric."""
+    rng = np.random.default_rng(SEED + ns + gs)
+    inv = rng.standard_normal((ns, gs, gs))
+    assert np.abs(inv - inv.transpose(0, 2, 1)).max() > 0.1
+    vecs = [rng.standard_normal((ns, gs)) for _ in range(4)]
+    alpha = rng.uniform(0.5, 1.5)
+    to = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return to(alpha), [to(v) for v in vecs], to(inv)
+
+
+@pytest.mark.parametrize("ns,gs", K3_SHAPES)
+def test_plain_k3_matches_jax_smoother_and_aggregate_sums(ns, gs):
+    alpha, (x, r, p, ap), inv = _k3_case(ns, gs)
+    xn, rn, s, rc = fp._agg_smooth_restrict_plain(alpha, x, r, p, ap, inv)
+    a = float(alpha)
+    rn_ref = r.numpy() - a * ap.numpy()
+    # the JAX preconditioner with a zero coarse inverse is its smoother, and
+    # its coarse_apply with the identity prolongs the aggregate sums
+    smoother = jp.AggBlockTwoLevel(jnp.asarray(inv.numpy()), jnp.zeros((ns, ns)), gs, gs)
+    sums = jp.AggBlockTwoLevel(jnp.asarray(inv.numpy()), jnp.eye(ns), gs, gs)
+    s_ref = np.asarray(smoother(jnp.asarray(rn_ref.reshape(-1)))).reshape(ns, gs)
+    rc_ref = np.asarray(sums.coarse_apply(jnp.asarray(rn_ref.reshape(-1)))).reshape(ns, gs)
+    assert (rc_ref == rc_ref[:, :1]).all()  # the prolongation repeats each sum
+    assert _rel(xn, x.numpy() + a * p.numpy()) <= 1e-15
+    assert _rel(rn, rn_ref) <= 1e-15
+    assert _rel(s, s_ref) <= 1e-12
+    assert _rel(rc, rc_ref[:, 0]) <= 1e-12
+
+
+@pytest.mark.parametrize("ns,gs", K3_SHAPES)
+def test_plain_k3_with_nonsymmetric_blocks_matches_numpy_einsum(ns, gs):
+    alpha, (x, r, p, ap), inv = _k3_case(ns, gs)
+    _, rn, s, rc = fp._agg_smooth_restrict_plain(alpha, x, r, p, ap, inv)
+    rn_ref = r.numpy() - float(alpha) * ap.numpy()
+    assert _rel(s, np.einsum("rij,rj->ri", inv.numpy(), rn_ref)) <= 1e-13
+    assert _rel(rc, rn_ref.sum(axis=1)) <= 1e-13
+    # the transposed blocks give another answer: the test would see a kernel
+    # that took the blocks for symmetric
+    wrong = np.einsum("rji,rj->ri", inv.numpy(), rn_ref)
+    assert _rel(s, wrong) > 1e-3
+
+
+@pytest.mark.parametrize("words", [1, 2, 4])
+def test_k3_lane_map_covers_every_word_once_with_coalesced_loads(words):
+    rows, cols, out_col = fp.k3_lane_map(words)
+    loads = 32 // words
+    assert rows.shape == cols.shape == (loads, 32) and out_col.shape == (32,)
+    seen = np.zeros((32, 32), dtype=int)
+    for g in range(loads):
+        for lane in range(32):
+            seen[rows[g, lane], cols[g, lane]:cols[g, lane] + words] += 1
+    assert (seen == 1).all()
+    # load g of the warp is 32 pieces in address order: piece 32 g + lane
+    flat = rows * 32 + cols
+    np.testing.assert_array_equal(flat, (np.arange(loads)[:, None] * 32 + np.arange(32)) * words)
+    # a lane's pieces all lie under the same columns, so it needs `words`
+    # values of rn, whatever the load
+    assert (cols == cols[0]).all()
+    assert sorted(out_col) == list(range(32))
+    if words == 1:
+        np.testing.assert_array_equal(out_col, np.arange(32))
+
+
+@pytest.mark.parametrize("words", [1, 2, 4])
+def test_k3_lane_algorithm_replayed_in_numpy_is_the_block_product(words):
+    """The warp kernel's steps on one 32x32 block: a partial dot product per
+    load and lane, then the reduce-scatter of xor shuffles over each group
+    of 32 // words lanes; lane l must end with row ``out_col[l]`` of
+    ``block @ rn``."""
+    rows, cols, out_col = fp.k3_lane_map(words)
+    per = 32 // words
+    rng = np.random.default_rng(SEED)
+    block, rn = rng.standard_normal((32, 32)), rng.standard_normal(32)
+    lanes = np.arange(32)
+    part = np.zeros((per, 32))  # part[g, lane]
+    for g in range(per):
+        for lane in lanes:
+            c = cols[g, lane]
+            part[g, lane] = block[rows[g, lane], c:c + words] @ rn[c:c + words]
+    half = per // 2
+    while half:
+        upper = (lanes & half) != 0
+        new = part.copy()
+        for k in range(half):
+            give = np.where(upper, part[k], part[k + half])
+            keep = np.where(upper, part[k + half], part[k])
+            new[k] = keep + give[lanes ^ half]  # __shfl_xor_sync(give, half)
+        part, half = new, half // 2
+    np.testing.assert_allclose(part[0], (block @ rn)[out_col], rtol=1e-13, atol=1e-13)
+
+
+def test_k3_lane_map_rejects_other_piece_sizes():
+    with pytest.raises(ValueError, match="1, 2 or 4"):
+        fp.k3_lane_map(8)
+
+
 # -- on the card -------------------------------------------------------------
 
 
@@ -278,3 +387,22 @@ def test_graphed_fused_loop_matches_stock_on_card(setup):
     x_ref, _ = setup["fused"].run_stock(ITERS)
     assert _rel(xf.cpu(), xs.cpu()) <= 1e-10
     assert _rel(xs.cpu(), x_ref) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "off16"])
+@pytest.mark.parametrize("ns,gs", K3_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_k3_edge_cases_match_plain_on_card(dtype, tol, ns, gs, misaligned):
+    _need_card()
+    alpha, vecs, inv = _k3_case(ns, gs, device="cuda", dtype=dtype)
+    if misaligned:
+        inv = cuda_build.misaligned_copy(inv)
+    ours = fp.agg_smooth_restrict(alpha, *vecs, inv)
+    ref = fp._agg_smooth_restrict_plain(alpha, *vecs, inv)
+    again = fp.agg_smooth_restrict(alpha, *vecs, inv)
+    torch.cuda.synchronize()
+    for a, b in zip(ours, ref):
+        assert _rel(a.cpu(), b.cpu()) <= tol
+    # bitwise repeatable in all four outputs: fixed summation trees
+    assert all(torch.equal(a, b) for a, b in zip(ours, again))

@@ -2,7 +2,9 @@
 
 On the CPU the wrapper runs the plain version, which must equal the JAX
 package's XLA oracle ``_p1_xla_3d`` and its Pallas kernel run in interpret
-mode to 1e-14 on the same SoA input, padding lanes included. The kernel
+mode to 1e-14 on the same SoA input, padding lanes included, on the h=0.25
+DFN and on seeded triangles at T = 1, 255, 257 and 1,001 (sizes that leave a
+tail block whose words do not fill whole 16-byte pieces). The kernel
 itself runs only on a card (``cuda`` marker); ``chip_smoke.py`` holds it
 against the plain version at the benchmark size.
 """
@@ -60,6 +62,58 @@ def test_plain_k1_matches_jax_kernel(network, oracle):
     assert ours.shape == (pk.P1_OUT_ROWS, ref.shape[1])
     assert _rel(ours.numpy(), ref[: pk.P1_OUT_ROWS]) <= 1e-14
     assert not ref[pk.P1_OUT_ROWS :].any()  # the TPU's zero pad rows
+
+
+K1_SIZES = [1, 255, 257, 1001]
+
+
+def _seeded_cells(T, device="cpu", dtype=torch.float64):
+    """(T, 3, 3) seeded triangles in space, none degenerate."""
+    rng = np.random.default_rng(T)
+    coords = rng.uniform(-1.0, 1.0, size=(T, 3, 3))
+    coords[:, 1] += 2.0  # keep the three vertices apart
+    coords[:, 2, 1] -= 3.0
+    return torch.as_tensor(coords, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("oracle", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("T", K1_SIZES)
+def test_plain_k1_matches_jax_kernel_at_edge_sizes(T, oracle):
+    coords = _seeded_cells(T)
+    jsoa = jk.coords_to_soa_3d(jnp.asarray(coords.numpy()))
+    ref = np.asarray(
+        jk._p1_xla_3d(jsoa) if oracle == "xla" else jk._p1_pallas_3d(jsoa, interpret=True)
+    )
+    ours = pk.p1_element_3d(coords)  # the wrapper on the (T, 3, 3) layout
+    assert ours.shape == (pk.P1_OUT_ROWS, T)
+    assert bool((ours[12] > 0).all())
+    assert _rel(ours.numpy(), ref[: pk.P1_OUT_ROWS, :T]) <= 1e-14
+
+
+def _bank_conflicts(offsets, word_bytes):
+    """Largest number of words of one shared-memory phase (the threads whose
+    words add up to 128 bytes) that meet in one 4-byte bank, over all steps."""
+    per_phase = 128 // word_bytes
+    worst = 0
+    for step in range(offsets.shape[1]):
+        for first in range(0, offsets.shape[0], per_phase):
+            start = offsets[first:first + per_phase, step] * word_bytes
+            banks = (start[:, None] + np.arange(0, word_bytes, 4)[None, :]) // 4 % 32
+            worst = max(worst, np.bincount(banks.reshape(-1), minlength=32).max())
+    return worst
+
+
+@pytest.mark.parametrize("word_bytes", [4, 8], ids=["f32", "f64"])
+def test_k1_staged_reads_cover_the_tile_without_bank_conflicts(word_bytes):
+    threads, words = 128, 9
+    off = pk.staged_word_offsets(threads, words)
+    assert off.shape == (threads, words)
+    # every word of the tile is read once, by the thread whose cell holds it
+    np.testing.assert_array_equal(np.sort(off.reshape(-1)), np.arange(threads * words))
+    assert (off // words == np.arange(threads)[:, None]).all()
+    assert _bank_conflicts(off, word_bytes) == 1
+    # 9 is odd; an even cell size (the 2D kernel's 6 words) would collide
+    assert _bank_conflicts(pk.staged_word_offsets(threads, 6), word_bytes) > 1
 
 
 def test_wrapper_on_cpu_is_the_plain_version(network):
@@ -127,6 +181,25 @@ def test_k1_kernel_matches_plain_on_card(network, dtype, tol):
     ref = pk._p1_plain_3d(coords.reshape(-1, 9).T)
     err = ((out - ref).abs().amax(dim=1) / ref.abs().amax(dim=1)).max()
     assert float(err) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "off16"])
+@pytest.mark.parametrize("T", K1_SIZES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_k1_edge_sizes_match_plain_on_card(dtype, tol, T, misaligned):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: K1 is a CUDA kernel with no CPU mode")
+    coords = _seeded_cells(T, device="cuda", dtype=dtype)
+    if misaligned:
+        coords = cuda_build.misaligned_copy(coords)
+    out = pk.p1_element_3d(coords)
+    again = pk.p1_element_3d(coords)
+    torch.cuda.synchronize()
+    ref = pk._p1_plain_3d(coords.reshape(T, 9).T)
+    err = ((out - ref).abs().amax(dim=1) / ref.abs().amax(dim=1)).max()
+    assert float(err) <= tol
+    assert torch.equal(out, again)  # bitwise repeatable
 
 
 # -- K5: the 2D P1 element kernel ---------------------------------------------
