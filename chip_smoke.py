@@ -33,7 +33,9 @@ Phases (any failure exits non-zero and prints no result):
    solve, kernel launches per solve, device time by kernel and the device's
    idle share (1 - device / wall; one stream, so kernels do not overlap),
    against phase 4's unprofiled median as well, since the profiler slows
-   the host;
+   the host; then the host-to-device copies (``Memcpy HtoD`` events) per
+   solve after the first, on that path and through ``compiled_bsr_solver``:
+   none, since the structure holds its gather tables on the device;
 7. the fused PCG tail (``make_fused_pcg`` in the port's ``bench.py``, on
    phase 4's assembled values and aggblock preconditioner, f32 and f64):
    K3 (``agg_smooth_restrict``) and K4 (``coarse_prolong_dot``) against
@@ -57,7 +59,10 @@ Phases (any failure exits non-zero and prints no result):
 8. K5 (the 2D P1 element kernel) against its plain version on the RVPINN
    mesh (unit square, n=64: 8,192 cells) and on the h=0.03 DFN's 214,988
    chart cells, with and without a seeded scale, in float64 (1e-12) and
-   float32 (1e-5 relative to each row's max); its time at the DFN size;
+   float32 (1e-5 relative to each row's max); the same on seeded triangles
+   at T = 1, 255, 257 and 1,001 on and off a 16-byte boundary, two launches
+   bitwise equal; a digest of its float32 output at the DFN size with and
+   without the scale; its time there;
 9. RVPINN training on the card at the benchmark's full size
    (``make_rvpinn()`` of the port's ``bench_vpinn.py``: N=64, width 15,
    depth 4, 50 epochs, float32): counts reset before the setup, K5 launched
@@ -74,16 +79,20 @@ Phases (any failure exits non-zero and prints no result):
 11. K6 (row gather) on the gather probe's own inputs, equal to the tool's
     NumPy answer exactly (counts reset before it: the probe is K6's path),
     then at the h=0.03 SpMV shapes (x as (n_pad/8, 8), cols the BSR column
-    table) in f32 and f64, equal to ``x[cols]``, timed beside it;
+    table) in f32 and f64, and at k = 1, 3, 8 and 16 with x on and off a
+    16-byte boundary, equal to ``x[cols]``; timed beside it;
 12. every kernel K1-K6, ``torch.mv``, a ``copy_`` of as many bytes as K1
     moves and an empty window once more, each with the L2 flushed by a
-    write (dirty lines) and by a read (clean lines); then the seconds each
-    phase took.
+    write (dirty lines) and by a read (clean lines); the stream figure of
+    K1, K5, K6 and the copy (``stream_us``: the profiler's device duration
+    per launch over back-to-back launches on rotating copies of the inputs
+    that together exceed twice the L2, beside the events' figure over the
+    same run); then the seconds each phase took.
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
-checkout): phase 2 prints a digest of K1's float32 output at the benchmark
-shape, so equal digests mean bitwise equal results.
+checkout): phases 2 and 8 print digests of K1's and K5's float32 output at
+the benchmark shape, so equal digests mean bitwise equal results.
 
 The last three lines are the card line, the kernels JSON line and the
 ``{"ok": true, ...}`` line. Kernel times use CUDA events around single
@@ -93,6 +102,9 @@ launch, median of the repeats. The flush is a write of 128 MB, which leaves
 the L2 full of dirty lines that the timed kernel's loads have to evict; the
 ``flush="read"`` times of phase 7 leave clean lines instead, as the PCG loop
 does, and the empty window says what the two events cost by themselves.
+That window (about 3 us) is more than a small kernel's bound, so the
+kernels line also carries the stream figure (``stream_us``) of the element
+and gather kernels, which holds no event pair.
 """
 
 from __future__ import annotations
@@ -140,13 +152,21 @@ RVPINN_N = 64
 RVPINN_BLOCK = 10
 TWO_FRACTURE_N = 8
 
-EDGE_K1_CELLS = (1, 255, 257, 1001)
+EDGE_K1_CELLS = (1, 255, 257, 1001)  # K1's and K5's edge sizes
 EDGE_K3_ROWS = (1, 5, 67)
+EDGE_K6_K = (1, 3, 8, 16)
+L2_BYTES = 50 * 2**20
+# device cycles spun per launch queued behind the spin of a stream figure
+# (about 0.5 ms each: several times what the host takes to enqueue one)
+STREAM_SPIN_CYCLES = 1_000_000
 
 failures: list[str] = []
 # name -> one launch at the benchmark shapes, registered by the phases for
 # phase 12's table of timing windows
 windows: dict = {}
+# name -> (make_args(i), fn(*args), bytes of one set, kernel name key), for
+# phase 12's stream figures
+streams: dict = {}
 
 
 def log(*args):
@@ -189,6 +209,49 @@ def time_ms(fn, reps: int = KERNEL_REPS, flush: str = "write") -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def stream_us(make_args, fn, copies: int, keys: tuple):
+    """The stream figure of one kernel: ``copies`` launches of ``fn`` back to
+    back, each on its own set of inputs ``make_args(i)`` (and its own
+    output, held until the end), so that the sets together exceed the L2
+    and every launch finds its data cold, as a caller would. The launches
+    queue behind a device spin, so no host gap falls between them. Returns
+    the median device duration per launch that the profiler (CUPTI)
+    records for the events whose name holds one of ``keys`` (no event pair
+    in it), the median gap between one launch's end and the next one's
+    start on the device (about 1.2 us on an H100 when the launches run back
+    to back), and the us between two CUDA events around all launches over
+    ``copies``."""
+    import torch
+
+    sets = [make_args(i) for i in range(copies)]
+    outs = [fn(*a) for a in sets]  # the allocator keeps these blocks for the run
+    del outs
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(2):  # the profiler has been seen to return no device event once
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(STREAM_SPIN_CYCLES * copies)
+            start.record()
+            outs = [fn(*a) for a in sets]
+            end.record()
+            torch.cuda.synchronize()
+        del outs
+        ranges = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and any(k in e.name for k in keys))
+        if len(ranges) == copies:
+            break
+        log(f"stream figure of {keys[0]}: the profiler recorded {len(ranges)} of {copies} "
+            "launches; measuring again")
+    del sets
+    check(len(ranges) == copies,
+          f"stream figure of {keys[0]}: {len(ranges)} device events for {copies} launches")
+    gaps = [b[0] - a[1] for a, b in zip(ranges, ranges[1:])]
+    return (float(np.median([b - a for a, b in ranges])), float(np.median(gaps)),
+            1e3 * start.elapsed_time(end) / copies)
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -242,6 +305,8 @@ def phase_k1(mesh64):
             _check_k1(f"{dtype} T={cells} off a 16-byte boundary", cuda_build.misaligned_copy(c), tol)
     c32 = coords64.to(torch.float32)
     windows["K1"] = lambda: p1_element_3d(c32)
+    streams["K1"] = (lambda i: (c32.clone(),), p1_element_3d, T * (9 + 13) * 4,
+                     ("p1_element_3d",))
     ms = time_ms(lambda: p1_element_3d(c32))
     plain_ms = time_ms(lambda: _p1_plain_3d(c32.reshape(T, 9).T))
     b_ms, by = bound_ms(T * (9 + 13) * 4, T * K1_FLOPS_PER_CELL)
@@ -251,6 +316,10 @@ def phase_k1(mesh64):
     src = torch.empty(T * 11, dtype=torch.float32, device=DEVICE).normal_()
     dst = torch.empty_like(src)
     windows["copy of K1's bytes"] = lambda: dst.copy_(src)
+    streams["copy of K1's bytes"] = (
+        lambda i: (torch.empty_like(dst), src.clone()), lambda d, s: d.copy_(s),
+        2 * src.numel() * 4, ("Memcpy DtoD", "copy_kernel"),
+    )
     return {
         "name": "p1_element_3d",
         "route": "cuda",
@@ -465,7 +534,7 @@ def phase_compiled(st, V32, x32):
     check(bool(info.converged), "compiled_bsr_solver converged")
     check(diff <= 1e-4, f"compiled_bsr_solver vs main path {diff:.3e} <= 1e-4")
     check(launches["bsr_spmv"] >= info.iterations, "compiled_bsr_solver ran K2")
-    return info.iterations
+    return solve
 
 
 def _device_us(evt) -> float:
@@ -492,10 +561,21 @@ def _device_kernels(prof, per: int):
     return kernels, sum(k[0] for k in kernels) / 1e3
 
 
-def phase_profile(solve32, median_s: float):
+def _htod_per_solve(prof, per: int) -> float:
+    """Host-to-device copies per solve: the profiler's ``Memcpy HtoD``
+    events."""
     import torch
 
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "Memcpy HtoD" in e.name) / per
+
+
+def phase_profile(solve32, compiled_solve, median_s: float):
+    import torch
+
+    # device activity only: every figure here is read from device events,
+    # and recording the host's operators as well slowed a solve 1.3-2x
+    activities = [torch.profiler.ProfilerActivity.CUDA]
     walls = []
     with torch.profiler.profile(activities=activities) as prof:
         for _ in range(PROFILED_SOLVES):
@@ -513,6 +593,16 @@ def phase_profile(solve32, median_s: float):
     log("device ms/solve  launches/solve  kernel")
     for us, count, name in kernels[:25]:
         log(f"{us / 1e3:14.4f}  {count:14.1f}  {name[:110]}")
+    # host-to-device copies in a solve after the first, on both solve paths
+    with torch.profiler.profile(activities=activities) as cprof:
+        compiled_solve()
+        torch.cuda.synchronize()
+    copies = {"bench.py's path": _htod_per_solve(prof, PROFILED_SOLVES),
+              "compiled_bsr_solver": _htod_per_solve(cprof, 1)}
+    log("host-to-device copies per solve (Memcpy HtoD events): "
+        + "; ".join(f"{name} {n:.2f}" for name, n in copies.items()))
+    for name, n in copies.items():
+        check(n == 0, f"{name}: no host-to-device copy in a solve after the first ({n:.2f})")
 
 
 def _rel_err(ours, ref) -> float:
@@ -859,9 +949,48 @@ def _k5_plain(c, s):
     return _p1_plain(_soa_rows(c, s))
 
 
+def _seeded_cells_2d(T, dtype):
+    """(T, 3, 2) seeded planar triangles on the card, none degenerate, every
+    third one clockwise, and a seeded (T,) scale (as the CPU tests make)."""
+    import torch
+
+    rng = np.random.default_rng(T)
+    coords = rng.uniform(-0.4, 0.4, size=(T, 3, 2))
+    coords[:, 1, 0] += 2.0
+    coords[:, 2, 1] += 2.0
+    coords[::3] = coords[::3, [0, 2, 1]]
+    scale = rng.uniform(0.5, 1.5, size=T)
+    return (torch.as_tensor(coords, device=DEVICE).to(dtype),
+            torch.as_tensor(scale, device=DEVICE).to(dtype))
+
+
+def _check_k5_edges(dtype, tol):
+    """K5 at sizes that leave a tail block whose words do not fill whole
+    16-byte pieces, with the coordinates on and off a 16-byte boundary (the
+    one-word loads), with and without a scale; two launches bitwise equal."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+    from pytorch_fem_solver_tpu_torch.ops.kernels import p1_element_2d
+
+    for cells in EDGE_K1_CELLS:
+        coords, scale = _seeded_cells_2d(cells, dtype)
+        for tag, c in (("aligned", coords), ("off a 16-byte boundary", cuda_build.misaligned_copy(coords))):
+            for s in (None, scale):
+                out = p1_element_2d(c, s)
+                again = p1_element_2d(c, s)
+                ref = _k5_plain(c, s)
+                torch.cuda.synchronize()
+                err = float(((out - ref).abs().amax(dim=1) / ref.abs().amax(dim=1)).max())
+                ok = bool(torch.isfinite(out).all()) and err <= tol and torch.equal(out, again)
+                check(ok, f"K5 {dtype} T={cells} {tag} {'scaled' if s is not None else 'scale 1'}: "
+                      f"rel err {err:.3e} <= {tol:g}, two launches bitwise equal")
+
+
 def phase_k5(mesh64):
     """Phase 8: K5 against its plain version on the RVPINN mesh and the
-    DFN's chart cells, with and without a scale; its time at the DFN size."""
+    DFN's chart cells, with and without a scale, and at the edge sizes; the
+    digests of its float32 output at the DFN size; its time there."""
     import torch
 
     from pytorch_fem_solver_tpu_torch.mesh import MeshTri, unit_square
@@ -889,9 +1018,15 @@ def phase_k5(mesh64):
                       f"rel err {err:.3e} <= {tol:g}")
                 if dtype == torch.float32:
                     max_abs = max(max_abs, float((out - ref).abs().max()))
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        _check_k5_edges(dtype, tol)
     c, s = _k5_inputs(meshes[f"DFN h={H}"], scale, torch.float32)
     T = c.shape[0]
+    log(f"K5 float32 digests at the DFN's {T} chart cells: scale 1 "
+        f"{_digest(p1_element_2d(c, None))}, scaled {_digest(p1_element_2d(c, s))}")
     windows["K5"] = lambda: p1_element_2d(c, s)
+    streams["K5"] = (lambda i: (c.clone(), s.clone()), p1_element_2d,
+                     T * (7 + P1_OUT_ROWS_2D) * 4, ("p1_element_2d",))
     ms = time_ms(windows["K5"])
     plain_ms = time_ms(lambda: _k5_plain(c, s))
     # 6 coordinates and the scale in, 14 rows out
@@ -1057,9 +1192,22 @@ def phase_k6(st):
         ref = _gather_rows_plain(xs, bcols)
         torch.cuda.synchronize()
         check(torch.equal(ours, ref), f"K6 {dtype} at the SpMV shapes equals x[cols] exactly")
+    for k in EDGE_K6_K:
+        edge = np.random.default_rng(k)
+        x64 = edge.standard_normal((41, k))
+        cols_k = torch.as_tensor(edge.integers(0, 41, size=(37, 5)).astype(np.int32), device=DEVICE)
+        for dtype in (torch.float32, torch.float64):
+            xk = torch.as_tensor(x64, device=DEVICE).to(dtype)
+            for tag, xt in (("aligned", xk), ("off a 16-byte boundary", cuda_build.misaligned_copy(xk))):
+                ours = gather_rows(xt, cols_k)
+                torch.cuda.synchronize()
+                check(torch.equal(ours, xt[cols_k.long()].reshape(37, -1)),
+                      f"K6 {dtype} k={k} x {tag} (nb=37, B=5) equals x[cols] exactly")
     nbs, Bs = bcols.shape
     xs32 = xs.to(torch.float32)
     windows["K6"] = lambda: gather_rows(xs32, bcols)
+    streams["K6"] = (lambda i: (xs32.clone(), bcols.clone()), gather_rows,
+                     4 * (nbs * Bs + st.n_pad + nbs * Bs * 8), ("gather_rows",))
     ms = time_ms(windows["K6"])
     plain_ms = time_ms(lambda: _gather_rows_plain(xs32, bcols))
     library_ms = time_ms(lambda: xs32[bcols])
@@ -1083,13 +1231,22 @@ def phase_k6(st):
 
 
 def phase_windows():
-    """Phase 12: what the timing window itself holds, per kernel."""
+    """Phase 12: what the timing window itself holds, per kernel; then the
+    stream figures, which hold no event pair. Returns ``name -> stream us``."""
     windows["empty window"] = lambda: None
     order = ["K1", "K2", "K3", "K4", "K5", "K6", "torch.mv", "copy of K1's bytes",
              "empty window"]
     log("ms with the L2 flushed by a write (dirty lines) / by a read (clean lines): "
         + "; ".join(f"{name} {time_ms(windows[name]):.5f} / "
                     f"{time_ms(windows[name], flush='read'):.5f}" for name in order))
+    figures = {}
+    for name, (make_args, fn, n_bytes, keys) in streams.items():
+        copies = -(-2 * L2_BYTES // n_bytes)
+        figures[name], gap_us, events_us = stream_us(make_args, fn, copies, keys)
+        log(f"stream figure {name}: {figures[name]:.3f} us per launch on the device (CUPTI, "
+            f"median of {copies} back-to-back launches on {copies} sets of {n_bytes / 1e6:.2f} MB, "
+            f"median gap {gap_us:.3f} us); {events_us:.3f} us between events over the run / {copies}")
+    return figures
 
 
 def main() -> int:
@@ -1153,9 +1310,9 @@ def main() -> int:
     done("3 K2")
     solve32, x32, iters, iters64, launches, median = phase_main(st, V32, V64)
     done("4 main path")
-    phase_compiled(st, V32, x32)
+    compiled_solve = phase_compiled(st, V32, x32)
     done("5 compiled")
-    phase_profile(solve32, median)
+    phase_profile(solve32, compiled_solve, median)
     done("6 profile")
     k3, k4 = phase_fused(st, V32, V64, x32, iters, iters64, card)
     done("7 fused tail")
@@ -1167,7 +1324,7 @@ def main() -> int:
     done("10 two-fracture")
     k6 = phase_k6(st)
     done("11 K6")
-    phase_windows()
+    stream = phase_windows()
     done("12 windows")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
@@ -1179,6 +1336,8 @@ def main() -> int:
     k1["launches"] = launches["p1_element_3d"]
     k2["launches"] = launches["bsr_spmv"]
     k5["launches"] = rvpinn_launches["p1_element_2d"]
+    for fig, name in zip((k1, k2, k3, k4, k5, k6), ("K1", "K2", "K3", "K4", "K5", "K6")):
+        fig["stream_us"] = stream.get(name)  # None where no stream figure is taken
     log(f"main path median {median:.6f} s, {iters} iterations, on {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}), flush=True)

@@ -144,11 +144,16 @@ class AbstractBasis(abc.ABC):
         """Scatter element vectors (..., T, n_loc, 1) into the global load
         vector. Out-of-place ``index_add``, so training differentiates
         through it (twice, for losses built on the network's input
-        gradient)."""
+        gradient). An index tuple of another length is the JAX
+        ``.at[idx].add``: an accumulating ``index_put``."""
         values = self.reshape_for_assembly(local, "linear")
         shape = self._basis_parameters["linear_form_shape"]
-        (idx,) = self._basis_parameters["linear_form_idx"]
-        return values.new_zeros(shape).index_add(0, idx, values)
+        idx = self._basis_parameters["linear_form_idx"]
+        if len(idx) == 1:
+            return values.new_zeros(shape).index_add(0, idx[0], values)
+        return values.new_zeros(shape).index_put(
+            tuple(i.long() for i in idx), values, accumulate=True
+        )
 
     # -- reduction --------------------------------------------------------
 

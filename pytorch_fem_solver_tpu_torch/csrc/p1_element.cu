@@ -45,8 +45,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // K5: threads (cells) per block
 constexpr int kK1Threads = 128;  // K1: threads (cells) per block
+constexpr int kK5Threads = 128;  // K5: threads (cells) per block
 
 template <typename T>
 __device__ __forceinline__ T dev_sqrt(T v);
@@ -60,13 +60,16 @@ __device__ __forceinline__ double dev_sqrt<double>(double v) { return sqrt(v); }
 // pieces of L words with coalesced loads (thread t takes pieces t,
 // t + Threads, ...; all its loads are started before the first is stored;
 // L > 1 needs src on a 16-byte boundary), the words left over one by one.
-// After the barrier thread t takes the W words of its cell into mine, at a
-// stride of W words from its neighbour's: with W odd a warp's reads hit 32
-// different banks. tile holds Threads W words; every thread of the block
-// must call.
-template <typename T, int L, int W, int Threads>
+// After the barrier thread t takes the W words of its cell into mine, R
+// words at a time, at a stride of W words from its neighbour's. A warp's
+// reads are free of bank conflicts when W is odd and R = 1 (K1), and for
+// W = 6 with R = 2: 8-byte reads in f32 and 16-byte reads in f64, where each
+// phase of 16 or 8 threads covers the 32 banks once (K5). tile holds
+// Threads W words on a 16-byte boundary; every thread of the block must call.
+template <typename T, int L, int W, int Threads, int R = 1>
 __device__ __forceinline__ void stage_cells(const T* __restrict__ src, int words, T* tile,
                                             T (&mine)[W]) {
+  static_assert(W % R == 0, "a cell is a whole number of read-back pieces");
   constexpr int kLoads = (W + L - 1) / L;  // per thread
   const int tid = static_cast<int>(threadIdx.x);
   const int pieces = words / L;
@@ -86,7 +89,11 @@ __device__ __forceinline__ void stage_cells(const T* __restrict__ src, int words
   __syncthreads();
   if (tid * W >= words) return;
 #pragma unroll
-  for (int m = 0; m < W; ++m) mine[m] = tile[tid * W + m];
+  for (int m = 0; m < W; m += R) {
+    const Piece<T, R> v = *reinterpret_cast<const Piece<T, R>*>(tile + tid * W + m);
+#pragma unroll
+    for (int r = 0; r < R; ++r) mine[m + r] = v.v[r];
+  }
 }
 
 // One cell: p its 9 coordinates; o = s00 s01 s02 s11 s12 s22 load area.
@@ -159,20 +166,29 @@ __global__ void __launch_bounds__(kK1Threads)
 // and the scale and writes 14 values (21 words, 84 bytes in f32) for about
 // 40 floating-point operations.
 //
-// Design: one thread per cell reading the mesh's (T, 3, 2) AoS coordinates
-// as they are (a warp's 32 cells are 768 contiguous bytes) and writing SoA
-// (14, T) rows: 0-8 the row-major stiffness, 9-11 the load, 12 the area,
-// 13 det. This is the TPU kernel's output without its two zero rows and its
-// 2048-lane padding. A null scale pointer means a scale of 1.
+// Design: K1's. The input is the mesh's (T, 3, 2) AoS coordinates as they
+// are, the output SoA (14, T) rows: 0-8 the row-major stiffness, 9-11 the
+// load, 12 the area, 13 det (the TPU kernel's output without its two zero
+// rows and its 2048-lane padding). A null scale pointer means a scale of 1.
+// - One thread per cell. A block stages its cells' coordinates through
+//   shared memory with coalesced 16-byte streaming loads (stage_cells), so a
+//   warp's loads ask for the 768 bytes of its 32 cells once, where 6 loads
+//   of one word each at a stride of 24 bytes asked L1 for them six times.
+// - A cell is 6 words, an even stride, so one-word reads would meet two to
+//   a bank; each thread reads its cell back as 3 pieces of 2 words (8 bytes
+//   in f32, 16 in f64), which no two threads of a phase share a bank with
+//   (staged_word_offsets in ops/kernels.py is the same map, held by a CPU
+//   test for both types). No padding.
+// - The scale is one coalesced word per thread, asked for before the
+//   staging so its trip to memory overlaps it.
+// - A misaligned `coords` takes the same kernel with one-word loads.
+// - One-word stores: each of a warp's 14 stores writes one whole line.
+// - The arithmetic of a cell (p1_cell_2d) is the expression of the first
+//   version of this kernel, in the same order, so its float32 output is
+//   bitwise the same.
 template <typename T>
-__global__ void p1_element_2d_kernel(const T* __restrict__ coords,
-                                     const T* __restrict__ scale,
-                                     T* __restrict__ out, int64_t n) {
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (t >= n) return;
-  const T* p = coords + 6 * t;
+__device__ __forceinline__ void p1_cell_2d(const T* p, T s, T* o) {
   const T x0 = p[0], y0 = p[1], x1 = p[2], y1 = p[3], x2 = p[4], y2 = p[5];
-  const T s = scale ? scale[t] : T(1);
 
   const T ux1 = x1 - x0, uy1 = y1 - y0;
   const T ux2 = x2 - x0, uy2 = y2 - y0;
@@ -184,28 +200,42 @@ __global__ void p1_element_2d_kernel(const T* __restrict__ coords,
   const T g2x = uy2 * inv_det, g2y = -ux2 * inv_det;
   const T g3x = -uy1 * inv_det, g3y = ux1 * inv_det;
 
-  const T s11 = area * (g1x * g1x + g1y * g1y);
-  const T s12 = area * (g1x * g2x + g1y * g2y);
-  const T s13 = area * (g1x * g3x + g1y * g3y);
-  const T s22 = area * (g2x * g2x + g2y * g2y);
-  const T s23 = area * (g2x * g3x + g2y * g3y);
-  const T s33 = area * (g3x * g3x + g3y * g3y);
-  const T load = area * T(1.0 / 3.0);
+  o[0] = area * (g1x * g1x + g1y * g1y);  // s11
+  o[1] = area * (g1x * g2x + g1y * g2y);  // s12
+  o[2] = area * (g1x * g3x + g1y * g3y);  // s13
+  o[3] = area * (g2x * g2x + g2y * g2y);  // s22
+  o[4] = area * (g2x * g3x + g2y * g3y);  // s23
+  o[5] = area * (g3x * g3x + g3y * g3y);  // s33
+  o[6] = area * T(1.0 / 3.0);             // load
+  o[7] = area;
+  o[8] = det;
+}
 
-  out[0 * n + t] = s11;
-  out[1 * n + t] = s12;
-  out[2 * n + t] = s13;
-  out[3 * n + t] = s12;
-  out[4 * n + t] = s22;
-  out[5 * n + t] = s23;
-  out[6 * n + t] = s13;
-  out[7 * n + t] = s23;
-  out[8 * n + t] = s33;
-  out[9 * n + t] = load;
-  out[10 * n + t] = load;
-  out[11 * n + t] = load;
-  out[12 * n + t] = area;
-  out[13 * n + t] = det;
+template <typename T, int L>
+__global__ void __launch_bounds__(kK5Threads)
+    p1_element_2d_kernel(const T* __restrict__ coords, const T* __restrict__ scale,
+                         T* __restrict__ out, int64_t n) {
+  constexpr int W = 6;  // words per cell
+  __shared__ __align__(16) T tile[kK5Threads * W];
+  const int64_t block_first = blockIdx.x * static_cast<int64_t>(kK5Threads);
+  const int64_t left = n - block_first;
+  const int cells = left < kK5Threads ? static_cast<int>(left) : kK5Threads;
+  const int tid = static_cast<int>(threadIdx.x);
+  const T s = (scale && tid < cells) ? __ldcs(scale + block_first + tid) : T(1);
+  T p[W];
+  // kK5Threads W words are a whole number of 16-byte pieces, so every block
+  // starts on a 16-byte boundary if coords does
+  stage_cells<T, L, W, kK5Threads, 2>(coords + block_first * W, cells * W, tile, p);
+  if (tid >= cells) return;
+
+  T o[9];
+  p1_cell_2d<T>(p, s, o);
+  T* dst = out + block_first + tid;
+  dst[0 * n] = o[0], dst[1 * n] = o[1], dst[2 * n] = o[2];
+  dst[3 * n] = o[1], dst[4 * n] = o[3], dst[5 * n] = o[4];
+  dst[6 * n] = o[2], dst[7 * n] = o[4], dst[8 * n] = o[5];
+  dst[9 * n] = o[6], dst[10 * n] = o[6], dst[11 * n] = o[6];
+  dst[12 * n] = o[7], dst[13 * n] = o[8];
 }
 
 template <typename T>
@@ -225,9 +255,13 @@ template <typename T>
 int launch_2d(const T* coords, const T* scale, T* out, int64_t n,
               cudaStream_t stream) {
   if (n > 0) {
-    const int64_t blocks = (n + kThreads - 1) / kThreads;
-    p1_element_2d_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        coords, scale, out, n);
+    const unsigned blocks = static_cast<unsigned>((n + kK5Threads - 1) / kK5Threads);
+    if (reinterpret_cast<uintptr_t>(coords) % 16 == 0) {
+      p1_element_2d_kernel<T, 16 / sizeof(T)><<<blocks, kK5Threads, 0, stream>>>(
+          coords, scale, out, n);
+    } else {
+      p1_element_2d_kernel<T, 1><<<blocks, kK5Threads, 0, stream>>>(coords, scale, out, n);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,7 @@ from . import config
 from .mesh.fracture_network import FractureNetworkMesh
 from .mesh.mesh_tri import _freeze
 from .models.network import FeedForwardNeuralNetwork
-from .ops.bsr import BSRStructure, row_tables
+from .ops.bsr import BSRStructure, index_tables, row_tables
 from .ops.precondition import AggBlockTwoLevel
 
 _DEVICE_FIELDS = (
@@ -24,6 +24,7 @@ _DEVICE_FIELDS = (
     "row_blocks", "heavy_rank",
 )
 _HOST_FIELDS = ("perm", "inner_perm", "ubr_host", "ubc_host", "blk_id_host")
+_INDEX_FIELDS = ("inner_perm_index", "tpartner_index", "tperm")
 
 
 def mesh_from_numpy(arrays: dict, *, device=None, dtype=None) -> FractureNetworkMesh:
@@ -42,16 +43,22 @@ def mesh_from_numpy(arrays: dict, *, device=None, dtype=None) -> FractureNetwork
 def structure_from_numpy(fields: dict, *, device=None) -> BSRStructure:
     """A ``BSRStructure`` from a dict of its fields as NumPy arrays and
     Python ints (e.g. ``{k: np.asarray(v) for k, v in st._asdict().items()}``
-    of a JAX structure). Device tables become int32 tensors on ``device``;
-    host tables stay NumPy. The SpMV kernel's ``row_blocks`` and
-    ``heavy_rank``, which a JAX structure does not carry, are derived from
-    its ``ubr_host`` and ``heavy_rows``."""
+    of a JAX structure). Device tables become int32 tensors on ``device``,
+    gather tables int64 ones; host tables stay NumPy. The tables a JAX
+    structure does not carry are derived: the SpMV kernel's ``row_blocks``
+    and ``heavy_rank`` from its ``ubr_host`` and ``heavy_rows``, the gather
+    tables from ``inner_perm``, ``tpartner`` and ``block``."""
     device = config.resolve_device(device)
     if fields.get("row_blocks") is None and fields.get("ubr_host") is not None:
         row_blocks, heavy_rank = row_tables(
             fields["ubr_host"], int(fields["nb"]), fields["heavy_rows"]
         )
         fields = dict(fields, row_blocks=row_blocks, heavy_rank=heavy_rank)
+    if fields.get("tperm") is None and fields.get("tpartner") is not None:
+        fields = dict(
+            fields,
+            **index_tables(fields["inner_perm"], fields["tpartner"], int(fields["block"])),
+        )
     kwargs = {}
     for name in BSRStructure._fields:
         value = fields.get(name)
@@ -62,6 +69,10 @@ def structure_from_numpy(fields: dict, *, device=None) -> BSRStructure:
                 np.asarray(value).astype(np.int32),
                 dtype=config.index_dtype(),
                 device=device,
+            )
+        elif name in _INDEX_FIELDS:
+            kwargs[name] = torch.as_tensor(
+                np.asarray(value), dtype=torch.int64, device=device
             )
         elif name in _HOST_FIELDS:
             kwargs[name] = np.asarray(value)

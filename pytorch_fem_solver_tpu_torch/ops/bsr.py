@@ -62,6 +62,11 @@ class BSRStructure(NamedTuple):
     #   tiers: the first min(count, B) in tier 1, the rest in tier 2
     heavy_rank: torch.Tensor = None  # (nb,) the block-row's row of tier 2
     #   (its index in heavy_rows), -1 where it spills nothing
+    inner_perm_index: torch.Tensor = None  # (n_inner,) int64 device copy of
+    #   inner_perm, the gather/scatter index of bsr_reduce and bsr_expand
+    tpartner_index: torch.Tensor = None  # (S_blocks,) int64 device copy of
+    #   tpartner, the gather index of bsr_complete_symmetric
+    tperm: torch.Tensor = None  # (block^2,) int64: the in-block transpose
 
 
 def spatial_order(coords: np.ndarray, group: int = 32) -> np.ndarray:
@@ -103,6 +108,16 @@ def row_tables(ubr: np.ndarray, nb: int, heavy_rows: np.ndarray):
     heavy_rank = np.full(nb, -1, dtype=np.int64)
     heavy_rank[heavy_rows] = np.arange(heavy_rows.size)
     return row_blocks, heavy_rank
+
+
+def index_tables(inner_perm: np.ndarray, tpartner: np.ndarray, block: int) -> dict:
+    """The structure's int64 gather tables as host arrays: ``inner_perm``,
+    ``tpartner`` and the ``block`` x ``block`` transpose map ``tperm``."""
+    return {
+        "inner_perm_index": np.asarray(inner_perm, dtype=np.int64),
+        "tpartner_index": np.asarray(tpartner, dtype=np.int64),
+        "tperm": np.arange(block * block).reshape(block, block).T.reshape(-1),
+    }
 
 
 def build_bsr_structure(
@@ -271,6 +286,10 @@ def build_bsr_structure(
             device=device,
         )
 
+    gathers = {
+        name: torch.as_tensor(a, dtype=torch.int64, device=device)
+        for name, a in index_tables(inner_perm, tpartner, block).items()
+    }
     return BSRStructure(
         bcols=dev(bcols),
         entry_slot=dev(entry_slot),
@@ -290,6 +309,7 @@ def build_bsr_structure(
         blk_id_host=blk_id,
         row_blocks=dev(row_blocks),
         heavy_rank=dev(spill_row),
+        **gathers,
     )
 
 
@@ -328,14 +348,10 @@ def bsr_values_from_local_symmetric(structure: BSRStructure, local_matrices):
     (``bsr_complete_symmetric``). Only valid for symmetric local matrices.
     """
     n_loc = local_matrices.shape[-1]
-    iu, ju = np.triu_indices(n_loc)
+    iu, ju = torch.triu_indices(n_loc, n_loc, device=local_matrices.device)
     # local (i, i) pairs are exactly the global diagonal scalars, which the
     # self-partnered transpose doubles: halve them before the scatter
-    w = torch.as_tensor(
-        np.where(iu == ju, 0.5, 1.0),
-        dtype=local_matrices.dtype,
-        device=local_matrices.device,
-    )
+    w = torch.where(iu == ju, 0.5, 1.0).to(local_matrices.dtype)
     local_sym = (local_matrices[..., iu, ju] * w).reshape(-1)
     values = _scatter_drop(structure.entry_slot_sym, local_sym, structure.n_values)
     return bsr_complete_symmetric(structure, values)
@@ -351,11 +367,8 @@ def bsr_complete_symmetric(structure: BSRStructure, values):
     k = structure.block
     nb, B = structure.bcols.shape
     nh, B2 = structure.bcols2.shape
-    tperm = torch.as_tensor(
-        np.arange(k * k).reshape(k, k).T.reshape(-1), device=values.device
-    )
     flat = values.reshape(-1, k * k)
-    full = flat + flat[structure.tpartner.long()][:, tperm]
+    full = flat + flat[structure.tpartner_index][:, structure.tperm]
     v1 = full[: nb * B].reshape(nb, B, k, k)
     v2 = full[nb * B :].reshape(nh, B2, k, k)
     return v1, v2
@@ -446,7 +459,7 @@ def bsr_diagonal(structure: BSRStructure, values):
 
 def bsr_reduce(structure: BSRStructure, b):
     """Full load vector (n_dofs,...) -> permuted padded reduced rhs (n_pad,)."""
-    red = b.reshape(-1)[torch.as_tensor(structure.inner_perm, device=b.device)]
+    red = b.reshape(-1)[structure.inner_perm_index]
     return torch.nn.functional.pad(red, (0, structure.n_pad - structure.n_inner))
 
 
@@ -470,9 +483,7 @@ def inverse_inner_perm(
 def bsr_expand(structure: BSRStructure, x, n_dofs: int):
     """Permuted padded solution (n_pad,) -> full DOF vector (n_dofs, 1)."""
     full = torch.zeros((n_dofs,), dtype=x.dtype, device=x.device)
-    full[torch.as_tensor(structure.inner_perm, device=x.device)] = x[
-        : structure.n_inner
-    ]
+    full[structure.inner_perm_index] = x[: structure.n_inner]
     return full[:, None]
 
 

@@ -145,6 +145,11 @@ def compiled_bsr_solver(
     Returns:
       ``solve(b=None) -> (u, PCGInfo)``.
     """
+    if precondition not in ("auto", "jacobi"):
+        raise ValueError(
+            f"unknown precondition: {precondition!r} (expected 'auto' or "
+            "'jacobi'); use solve_iterative for the full option surface"
+        )
     if int(getattr(basis, "n_components", 1)) >= 2:
         raise NotImplementedError(
             "the vector (rigid-body-mode) branch of compiled_bsr_solver is "
@@ -193,14 +198,18 @@ def compiled_bsr_solver(
     st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=not symmetric_form)
     solve_padded = bsr_pcg(st, precondition, tol=tol, maxiter=maxiter)
 
-    # direct-to-padded rhs scatter: the load-vector targets pre-mapped
-    # through the inverse inner permutation land straight in the padded
-    # reduced vector (Dirichlet rows -> n_pad, dropped into a sink)
+    # direct-to-padded rhs scatter (flat single-index linear layouts): the
+    # load-vector targets pre-mapped through the inverse inner permutation
+    # land straight in the padded reduced vector (Dirichlet rows -> n_pad,
+    # dropped into a sink); any other layout assembles the load vector and
+    # reduces it
     rhs_pad_idx = None
-    if linear_form is not None:
+    lf_idx = basis._basis_parameters.get("linear_form_idx")
+    if linear_form is not None and lf_idx is not None and len(lf_idx) == 1:
         inv = inverse_inner_perm(st, int(basis.n_dofs))
-        lf_idx = basis._as_host_index(basis._basis_parameters["linear_form_idx"][0])
-        rhs_pad_idx = torch.as_tensor(inv[lf_idx], device=basis.device)
+        rhs_pad_idx = torch.as_tensor(
+            inv[basis._as_host_index(lf_idx[0])], device=basis.device
+        )
 
     n_dofs = basis.n_dofs
 
@@ -216,6 +225,8 @@ def compiled_bsr_solver(
             )[:, 0]
             b_pad = _scatter_drop(rhs_pad_idx, lv, st.n_pad)
         else:
+            if linear_form is not None:
+                b = basis.integrate_linear_form(linear_form)
             b_pad = bsr_reduce(st, b)
         x, info = solve_padded(values, b_pad)
         u = basis.solution_tensor() + bsr_expand(st, x, n_dofs)

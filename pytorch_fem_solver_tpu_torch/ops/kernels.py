@@ -90,18 +90,21 @@ def _p1_plain_3d(soa: torch.Tensor) -> torch.Tensor:
     )
 
 
-def staged_word_offsets(threads: int, words_per_cell: int = 9):
-    """Word offsets, in a thread block's shared-memory tile, that K1's
-    threads read back after staging their cells' coordinates.
+def staged_word_offsets(threads: int, words_per_cell: int = 9, words_per_read: int = 1):
+    """Word offsets, in a thread block's shared-memory tile, of the reads
+    with which K1's and K5's threads take back their staged coordinates.
 
     The tile holds the block's cells as they lie in memory,
-    ``words_per_cell`` words each, and thread ``t`` owns cell ``t``. Returns
-    the ``(threads, words_per_cell)`` offsets; row ``t``, column ``m`` is the
-    word thread ``t`` reads at step ``m``. The kernel computes the same
-    expression; this copy is for the test that an odd ``words_per_cell``
-    keeps a warp's reads free of bank conflicts.
+    ``words_per_cell`` words each, and thread ``t`` owns cell ``t``, which it
+    reads ``words_per_read`` words at a time (K1: 9 and 1; K5: 6 and 2, 8
+    bytes in float32 and 16 in float64). Returns the ``(threads,
+    words_per_cell // words_per_read)`` offsets of the first word of each
+    read; row ``t``, column ``m`` is the read thread ``t`` makes at step
+    ``m``. The kernels compute the same expression; this copy is for the
+    test that a warp's reads are free of bank conflicts.
     """
-    return np.arange(threads)[:, None] * words_per_cell + np.arange(words_per_cell)[None, :]
+    steps = np.arange(0, words_per_cell, words_per_read)
+    return np.arange(threads)[:, None] * words_per_cell + steps[None, :]
 
 
 def p1_element_3d(cell_coords3d: torch.Tensor) -> torch.Tensor:

@@ -260,8 +260,8 @@ def agg_block_two_level_from_values(
 
     Same Galerkin coarse level as ``block_two_level_from_values``; the fine
     smoother inverts the (gs, gs) aggregate diagonal blocks. ``gs`` defaults
-    to ``min(g, 128)``. ``table`` may be precomputed with
-    ``build_agg_block_table`` (host, value-independent).
+    to ``min(g, 128)``. ``table`` may be precomputed: the device tensor of
+    ``build_agg_block_table`` (value-independent).
     """
     base = block_two_level_from_values(structure, values, diag, g=g, fine="jacobi")
     g = base.g
@@ -285,9 +285,9 @@ def aggregate_block_inverses(structure, values, gs: int, table=None):
             f"block {structure.block} and divide n_pad {structure.n_pad}"
         )
     k = structure.block
-    if table is None:
-        table = build_agg_block_table(structure, gs)
     v1, v2 = values
+    if table is None:
+        table = torch.as_tensor(build_agg_block_table(structure, gs), device=v1.device)
     flat = torch.cat(
         [
             v1.reshape(-1, k * k),
@@ -296,7 +296,7 @@ def aggregate_block_inverses(structure, values, gs: int, table=None):
         ],
         dim=0,
     )
-    rows = flat[torch.as_tensor(table, device=v1.device)]  # (ns, bpa, bpa, k*k)
+    rows = flat[table]  # (ns, bpa, bpa, k*k)
     bpa = gs // k
     blocks = rows.reshape(-1, bpa, bpa, k, k)
     D = blocks.permute(0, 1, 3, 2, 4).reshape(-1, gs, gs)

@@ -1,12 +1,16 @@
-"""PyTorch port, kernel K1 (P1 element kernel for embedded triangles).
+"""PyTorch port, kernels K1 (P1 element kernel for embedded triangles) and
+K5 (the 2D P1 element kernel with a per-cell scale).
 
-On the CPU the wrapper runs the plain version, which must equal the JAX
-package's XLA oracle ``_p1_xla_3d`` and its Pallas kernel run in interpret
-mode to 1e-14 on the same SoA input, padding lanes included, on the h=0.25
-DFN and on seeded triangles at T = 1, 255, 257 and 1,001 (sizes that leave a
-tail block whose words do not fill whole 16-byte pieces). The kernel
-itself runs only on a card (``cuda`` marker); ``chip_smoke.py`` holds it
-against the plain version at the benchmark size.
+On the CPU the wrappers run the plain versions, which must equal the JAX
+package's XLA oracles (``_p1_xla_3d``, ``_p1_xla``) and its Pallas kernels
+run in interpret mode to 1e-14 on the same SoA input, padding lanes
+included, on the h=0.25 DFN (K1), a unit square (K5) and on seeded
+triangles at T = 1, 255, 257 and 1,001 (sizes that leave a tail block whose
+words do not fill whole 16-byte pieces), K5 with and without a scale. The
+maps by which both kernels read their staged coordinates back from shared
+memory are held free of bank conflicts in float32 and float64. The kernels
+themselves run only on a card (``cuda`` marker); ``chip_smoke.py`` holds
+them against the plain versions at the benchmark size.
 """
 
 import jax
@@ -90,15 +94,17 @@ def test_plain_k1_matches_jax_kernel_at_edge_sizes(T, oracle):
     assert _rel(ours.numpy(), ref[: pk.P1_OUT_ROWS, :T]) <= 1e-14
 
 
-def _bank_conflicts(offsets, word_bytes):
-    """Largest number of words of one shared-memory phase (the threads whose
-    words add up to 128 bytes) that meet in one 4-byte bank, over all steps."""
-    per_phase = 128 // word_bytes
+def _bank_conflicts(offsets, word_bytes, words_per_read=1):
+    """Largest number of reads of one shared-memory phase (the threads whose
+    reads of ``words_per_read`` words add up to 128 bytes) that meet in one
+    4-byte bank, over all steps."""
+    read_bytes = word_bytes * words_per_read
+    per_phase = 128 // read_bytes
     worst = 0
     for step in range(offsets.shape[1]):
         for first in range(0, offsets.shape[0], per_phase):
             start = offsets[first:first + per_phase, step] * word_bytes
-            banks = (start[:, None] + np.arange(0, word_bytes, 4)[None, :]) // 4 % 32
+            banks = (start[:, None] + np.arange(0, read_bytes, 4)[None, :]) // 4 % 32
             worst = max(worst, np.bincount(banks.reshape(-1), minlength=32).max())
     return worst
 
@@ -292,3 +298,71 @@ def test_k5_kernel_matches_plain_on_card(square, dtype, tol, with_scale):
     ref = pk._p1_plain(pk._soa_rows(c, s))
     err = ((out - ref).abs().amax(dim=1) / ref.abs().amax(dim=1)).max()
     assert float(err) <= tol
+
+
+def _seeded_cells_2d(T, device="cpu", dtype=torch.float64):
+    """(T, 3, 2) seeded planar triangles, none degenerate (|det| >= 0.8),
+    every third one clockwise, and a seeded (T,) scale."""
+    rng = np.random.default_rng(T)
+    coords = rng.uniform(-0.4, 0.4, size=(T, 3, 2))
+    coords[:, 1, 0] += 2.0
+    coords[:, 2, 1] += 2.0
+    coords[::3] = coords[::3, [0, 2, 1]]
+    scale = rng.uniform(0.5, 1.5, size=T)
+    return (
+        torch.as_tensor(coords, dtype=dtype, device=device),
+        torch.as_tensor(scale, dtype=dtype, device=device),
+    )
+
+
+@pytest.mark.parametrize("oracle", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("with_scale", [False, True], ids=["scale1", "scaled"])
+@pytest.mark.parametrize("T", K1_SIZES)
+def test_plain_k5_matches_jax_kernel_at_edge_sizes(T, with_scale, oracle):
+    coords, scale = _seeded_cells_2d(T)
+    s = scale if with_scale else None
+    jsoa = jk.coords_to_soa(
+        jnp.asarray(coords.numpy()), None if s is None else jnp.asarray(s.numpy())
+    )
+    ref = np.asarray(jk._p1_xla(jsoa) if oracle == "xla" else jk._p1_pallas(jsoa, interpret=True))
+    ours = pk.p1_element_2d(coords, s)  # the wrapper on the (T, 3, 2) layout
+    assert ours.shape == (pk.P1_OUT_ROWS_2D, T)
+    assert bool((ours[13, ::3] < 0).all()) and bool((ours[13, 1::3] > 0).all())
+    assert _rel(ours.numpy(), ref[: pk.P1_OUT_ROWS_2D, :T]) <= 1e-14
+
+
+@pytest.mark.parametrize("word_bytes", [4, 8], ids=["f32", "f64"])
+def test_k5_staged_reads_cover_the_tile_without_bank_conflicts(word_bytes):
+    threads, words, per_read = 128, 6, 2
+    off = pk.staged_word_offsets(threads, words, per_read)
+    assert off.shape == (threads, words // per_read)
+    # every word of the tile is read once, by the thread whose cell holds it
+    covered = (off[:, :, None] + np.arange(per_read)).reshape(-1)
+    np.testing.assert_array_equal(np.sort(covered), np.arange(threads * words))
+    assert (off // words == np.arange(threads)[:, None]).all()
+    # pieces of 2 words: 8 bytes in f32, 16 in f64, each on its own boundary
+    assert (off * word_bytes % (per_read * word_bytes) == 0).all()
+    assert _bank_conflicts(off, word_bytes, per_read) == 1
+    # read back one word at a time, the even stride of 6 would collide
+    assert _bank_conflicts(pk.staged_word_offsets(threads, words), word_bytes) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "off16"])
+@pytest.mark.parametrize("with_scale", [False, True], ids=["scale1", "scaled"])
+@pytest.mark.parametrize("T", K1_SIZES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_k5_edge_sizes_match_plain_on_card(dtype, tol, T, with_scale, misaligned):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: K5 is a CUDA kernel with no CPU mode")
+    coords, scale = _seeded_cells_2d(T, device="cuda", dtype=dtype)
+    if misaligned:
+        coords = cuda_build.misaligned_copy(coords)
+    s = scale if with_scale else None
+    out = pk.p1_element_2d(coords, s)
+    again = pk.p1_element_2d(coords, s)
+    torch.cuda.synchronize()
+    ref = pk._p1_plain(pk._soa_rows(coords, s))
+    err = ((out - ref).abs().amax(dim=1) / ref.abs().amax(dim=1)).max()
+    assert float(err) <= tol
+    assert torch.equal(out, again)  # bitwise repeatable
