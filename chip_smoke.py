@@ -87,7 +87,23 @@ Phases (any failure exits non-zero and prints no result):
     K1, K5, K6 and the copy (``stream_us``: the profiler's device duration
     per launch over back-to-back launches on rotating copies of the inputs
     that together exceed twice the L2, beside the events' figure over the
-    same run); then the seconds each phase took.
+    same run); then the seconds each phase took;
+13. the seven-fracture DFN RVPINN (``make_dfn_rvpinn(0.1)`` of the port's
+    ``bench_vpinn.py``: 19,680 cells, 9,795 DOFs, float32): counts reset
+    before its setup, whose FEM oracle (``solve_iterative`` on the BSR
+    operator, aggregate two-level M) must reach a relative residual <= 1e-6
+    with K2 launched at least once per PCG iteration and agree within 1e-4
+    with a float64 oracle on the card; 20 epochs each through ``train()``
+    and ``train_compiled(10)``, warm-started (the previous epoch's Gram
+    iterate through ``training_state0``) and cold: finite losses, the last
+    below the first, warm within 1e-3 relative of cold, ``train_compiled``
+    within 1e-4 of ``train()``, the first 10 within 1e-2 of float64 on the
+    card; the Gram PCG's forward and backward iteration counts (the backward
+    from its ``a x`` seed below a solve from zero); the s/epoch of the four
+    loops (``dfn_rvpinn_s_per_epoch`` line); one profiled warm block of 10
+    epochs: device ms per epoch in the ELL matvec and the two-level apply
+    (profiler ranges), the network's gemms, the scatters and Adam, launches
+    and host reads (``Memcpy DtoH``) per epoch, and the idle share.
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
@@ -151,6 +167,18 @@ K5_FLOPS_PER_CELL = 45
 RVPINN_N = 64
 RVPINN_BLOCK = 10
 TWO_FRACTURE_N = 8
+DFN_H = 0.1  # the DFN RVPINN's full size: 19,680 cells, 9,795 DOFs
+DFN_SIZE = (19_680, 9_795)
+DFN_BLOCK = 10
+# ranges put around the Gram PCG's operator and preconditioner for phase
+# 13's profiled block, and buckets of the rest of an epoch's device time by
+# kernel name (first match wins)
+DFN_RANGES = ("gram PCG: ELL matvec", "gram PCG: two-level apply")
+DFN_BUCKETS = (
+    ("network gemms", ("gemm", "gemv", "xmma", "cutlass", "cublas")),
+    ("scatters (index_add)", ("indexFunc", "index_add", "scatter")),
+    ("Adam", ("multi_tensor", "foreach", "adam", "Adam")),
+)
 
 EDGE_K1_CELLS = (1, 255, 257, 1001)  # K1's and K5's edge sizes
 EDGE_K3_ROWS = (1, 5, 67)
@@ -1138,6 +1166,162 @@ def phase_rvpinn(card):
     return launches
 
 
+def _labelled(fn, name):
+    """``fn`` inside a profiler range named ``name``."""
+    import torch
+
+    def run(*args):
+        with torch.profiler.record_function(name):
+            return fn(*args)
+
+    return run
+
+
+def _range_device_ms(prof, name: str, per: int) -> float:
+    """Device ms per run of the kernels launched inside the ranges ``name``
+    (the host-side range, whose device time sums its children's kernels)."""
+    import torch
+
+    for evt in prof.key_averages():
+        if evt.key == name and evt.device_type == torch.autograd.DeviceType.CPU:
+            for attr in ("device_time_total", "cuda_time_total"):
+                value = getattr(evt, attr, None)
+                if value:
+                    return float(value) / 1e3 / per
+    return 0.0
+
+
+def phase_dfn_rvpinn(card):
+    """Phase 13: the seven-fracture DFN RVPINN at h=0.1 on the card."""
+    import torch
+
+    import pytorch_fem_solver_tpu_torch as pt
+    from pytorch_fem_solver_tpu_torch.bench_vpinn import DFN_EPOCHS, make_dfn_rvpinn
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+
+    f32, f64 = torch.float32, torch.float64
+    marks = [("start", time.perf_counter())]
+    mesh64 = pt.build_benchmark_network(DFN_H, device=DEVICE, dtype=f64)
+    mesh32 = mesh64.to(dtype=f32)
+
+    def make(warm, epochs=DFN_EPOCHS, dtype=f32):
+        return make_dfn_rvpinn(
+            DFN_H, warm=warm, epochs=epochs, mesh=mesh32 if dtype == f32 else mesh64,
+            device=DEVICE, dtype=dtype,
+        )
+
+    warmup = make(True, epochs=2)  # library handles, allocator
+    warmup.model.train()
+    warmup.model.train_compiled(2)
+    del warmup
+    marks.append(("mesh + warm-up", time.perf_counter()))
+
+    # the path: setup, whose oracle runs K2 once per PCG iteration, then
+    # 20 warm-started epochs of train()
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs = {"warm train()": make(True)}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launches = dict(cuda_build.launch_counts)
+    warm = runs["warm train()"]
+    V, info = warm.basis, warm.oracle_info
+    b_norm = V.reduce(V.integrate_linear_form(lambda b: b.v)).norm()
+    rel = float(info.residual_norm / b_norm)
+    log(f"DFN RVPINN h={DFN_H}: cells={warm.mesh.n_cells} dofs={V.n_dofs}; setup {setup_s:.3f} s; "
+        f"oracle {info.iterations} PCG iterations to rel residual {rel:.4e}; launches {launches}")
+    check((warm.mesh.n_cells, V.n_dofs) == DFN_SIZE, f"DFN RVPINN size {DFN_SIZE}")
+    check(bool(info.converged) and rel <= 1e-6, f"oracle rel residual {rel:.3e} <= 1e-6")
+    check(launches["bsr_spmv"] >= info.iterations,
+          f"K2 launches {launches['bsr_spmv']} >= oracle iterations {info.iterations}")
+
+    seconds = {}
+    seconds["warm train()"] = _timed(warm.model.train) / DFN_EPOCHS
+    for name, is_warm, loop in (("cold train()", False, "train"),
+                                (f"warm train_compiled({DFN_BLOCK})", True, "compiled"),
+                                (f"cold train_compiled({DFN_BLOCK})", False, "compiled")):
+        run = runs[name] = make(is_warm)
+        train = run.model.train if loop == "train" else (
+            lambda m=run.model: m.train_compiled(DFN_BLOCK))
+        seconds[name] = _timed(train) / DFN_EPOCHS
+    marks.append(("four f32 models, 80 epochs", time.perf_counter()))
+    losses = {name: run.model.get_training_history()[0] for name, run in runs.items()}
+    for name, hist in losses.items():
+        check(len(hist) == DFN_EPOCHS and bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
+              f"DFN RVPINN {name}: {len(hist)} finite losses, {hist[0]:.6e} -> {hist[-1]:.6e}")
+    d_warm = _rel_curve(losses["warm train()"], losses["cold train()"])
+    check(d_warm <= 1e-3, f"DFN RVPINN warm vs cold train() losses: rel {d_warm:.3e} <= 1e-3")
+    for start in ("warm", "cold"):
+        d = _rel_curve(losses[f"{start} train_compiled({DFN_BLOCK})"], losses[f"{start} train()"])
+        check(d <= 1e-4, f"DFN RVPINN {start} train_compiled({DFN_BLOCK}) vs train(): "
+              f"rel {d:.3e} <= 1e-4")
+
+    r64 = make(True, epochs=10, dtype=f64)
+    r64.model.train()
+    u_diff = float((warm.u_fem.double() - r64.u_fem).norm() / r64.u_fem.norm())
+    check(u_diff <= 1e-4, f"oracle f32 vs f64 on the card: rel L2 {u_diff:.3e} <= 1e-4 "
+          f"(f64: {r64.oracle_info.iterations} iterations)")
+    d64 = _rel_curve(losses["warm train()"][:10], r64.model.get_training_history()[0])
+    check(d64 <= 1e-2, f"DFN RVPINN f32 vs f64 10-epoch losses on the card: rel {d64:.3e} <= 1e-2")
+    marks.append(("f64 model, 10 epochs", time.perf_counter()))
+
+    iterations = {}
+    for name in ("warm train()", "cold train()"):
+        it = runs[name].gram_solve.iterations
+        iterations[name] = (float(np.mean(it["forward"])), float(np.mean(it["backward"])))
+        log(f"Gram PCG iterations, {name}: forward {it['forward']}, backward {it['backward']}")
+    check(iterations["warm train()"][1] < iterations["cold train()"][0],
+          "the backward solve from its a x seed takes fewer iterations than a solve from zero "
+          f"({iterations['warm train()'][1]:.1f} < {iterations['cold train()'][0]:.1f})")
+    accs = warm.model.get_training_history()[2]
+    log("DFN RVPINN f32 s/epoch: " + "; ".join(f"{k} {v:.6e}" for k, v in seconds.items())
+        + f"; relative H1 to FEM {accs[0]:.4f} -> {accs[-1]:.4f}")
+    log(json.dumps({
+        "metric": "dfn_rvpinn_s_per_epoch",
+        "h": DFN_H,
+        "cells": warm.mesh.n_cells,
+        "dofs": V.n_dofs,
+        "epochs": DFN_EPOCHS,
+        "s_per_epoch": seconds,
+        "gram_iterations_forward_backward": iterations,
+        "oracle_iterations": info.iterations,
+        "oracle_k2_launches": launches["bsr_spmv"],
+        "card": card,
+    }))
+
+    # one profiled block: where a warm epoch's time goes
+    prof_run = make(True, epochs=DFN_BLOCK)
+    gram = prof_run.gram_solve
+    gram.matvec = _labelled(gram.matvec, DFN_RANGES[0])
+    gram.precond = _labelled(gram.precond, DFN_RANGES[1])
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        wall = _timed(lambda: prof_run.model.train_compiled(DFN_BLOCK))
+    kernels, device_ms = _device_kernels(prof, DFN_BLOCK)
+    wall_ms = 1e3 * wall / DFN_BLOCK
+    reads = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and "Memcpy DtoH" in e.name) / DFN_BLOCK
+    compiled_s = seconds[f"warm train_compiled({DFN_BLOCK})"]
+    log(f"profile, one warm block of {DFN_BLOCK} epochs: wall {wall_ms:.3f} ms per epoch under the "
+        f"profiler, device {device_ms:.3f} ms, idle share {1 - device_ms / wall_ms:.3f} "
+        f"({1 - device_ms / (1e3 * compiled_s):.3f} of the unprofiled train_compiled epoch), "
+        f"{sum(k[1] for k in kernels):.0f} kernel launches and {reads:.1f} host reads "
+        f"(Memcpy DtoH) per epoch; Gram PCG iterations per epoch forward "
+        f"{np.mean(gram.iterations['forward']):.1f}, backward {np.mean(gram.iterations['backward']):.1f}")
+    split = {name: _range_device_ms(prof, name, DFN_BLOCK) for name in DFN_RANGES}
+    for bucket, keys in DFN_BUCKETS:
+        split[bucket] = sum(us for us, _, kname in kernels if any(k in kname for k in keys)) / 1e3
+    log("device ms per epoch by part: " + "; ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f"; all kernels {device_ms:.4f}")
+    log("device ms/epoch  launches/epoch  kernel")
+    for us, count, name in kernels[:20]:
+        log(f"{us / 1e3:14.4f}  {count:14.1f}  {name[:110]}")
+    marks.append(("profiled block", time.perf_counter()))
+    log("phase 13 seconds: " + "; ".join(
+        f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])))
+    return launches
+
+
 def phase_two_fracture():
     """Phase 10: the two-fracture RVPINN loss and one Adam step on the card,
     against the same port in float64 on the CPU."""
@@ -1326,6 +1510,8 @@ def main() -> int:
     done("11 K6")
     stream = phase_windows()
     done("12 windows")
+    phase_dfn_rvpinn(card)
+    done("13 DFN RVPINN")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
     ) + f"; start to tables {marks[0][1] - t_start:.1f}")

@@ -1,7 +1,10 @@
 """Template-method core of the basis/assembly layer.
 
-Counterpart of ``pytorch_fem_solver_tpu/basis/abstract_basis.py``, limited to
-what the compiled BSR solve, the DFN benchmark and RVPINN training read. All
+Counterpart of ``pytorch_fem_solver_tpu/basis/abstract_basis.py``: the
+forms, the dense and iterative solves (BSR, ELL and segment operators), the
+Gram solvers of RVPINN training and the compiled BSR solve. The mixed
+bilinear forms, ``_iterate_at_quadrature`` and the batched assembly layout
+are queued in ROADMAP.md (A3). All
 quadrature-evaluated tensors (shape values, physical gradients, integration
 points, weights, DOF and scatter indices) are computed once at construction
 on the mesh's device; the integrate methods are plain functions of them, and
@@ -15,7 +18,7 @@ over trailing dims (..., n_cells, n_quad, n_loc, n_dim).
 from __future__ import annotations
 
 import abc
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -172,37 +175,277 @@ class AbstractBasis(abc.ABC):
             device=self.device,
         )
 
+    def solve(
+        self,
+        matrix: torch.Tensor,
+        solution: torch.Tensor,
+        vector: torch.Tensor,
+        only_inner_dofs: bool = True,
+    ) -> torch.Tensor:
+        """Direct (dense LU) solve. Returns a new solution vector with the
+        interior DOFs' update added; for large systems use
+        ``solve_iterative``."""
+        if only_inner_dofs:
+            matrix = self.reduce(matrix)
+            vector = self.reduce(vector)
+        update = torch.linalg.solve(matrix, vector)
+        inner = self._basis_parameters["inner_dofs"]
+        return solution.index_add(solution.dim() - 2, inner, update)
+
+    def dirichlet_lift(self, matrix, vector, boundary_values):
+        """Impose non-homogeneous Dirichlet data by lifting.
+
+        Given assembled (matrix, vector) and a DOF vector carrying the
+        boundary values (entries at interior DOFs are ignored), returns
+        ``(u_bc, rhs)`` with the boundary contribution moved to the right-
+        hand side: ``solve(matrix, u_bc, rhs)`` then holds the boundary
+        values exactly.
+        """
+        inner = self._basis_parameters["inner_dofs"].long()
+        u_bc = boundary_values.index_fill(boundary_values.dim() - 2, inner, 0.0)
+        return u_bc, vector - matrix @ u_bc
+
+    def solve_iterative(
+        self,
+        local_matrices: torch.Tensor,
+        vector: torch.Tensor,
+        solution: Optional[torch.Tensor] = None,
+        tol: float = 1e-10,
+        maxiter: Optional[int] = None,
+        only_inner_dofs: bool = True,
+        method: str = "bsr",
+        precondition: str = "jacobi",
+        symmetric_form: bool = False,
+        return_info: bool = False,
+        solver: str = "cg",
+    ):
+        """Matrix-free preconditioned Krylov solve of the reduced system.
+
+        Never materializes the global matrix. ``method="bsr"`` (default)
+        assembles into the 8x8 block-sparse operator with spatially
+        reordered DOFs, whose SpMV is the kernel K2; ``method="ell"`` uses
+        the scalar-gather hybrid-ELL operator; ``method="segment"`` keeps
+        the per-cell gather/matvec/segment-sum operator. Structures are
+        cached on the basis.
+
+        ``precondition``: ``"jacobi"``; ``"agg_block"`` (BSR: aggregate
+        blocks of the smoother plus the dense coarse level); ``"two_level"``
+        (BSR: ``auto_preconditioner``; ELL: the smoothed two-level M, its
+        tables cached on the basis). ``"mult_two_level"`` and ``"rbm"`` are
+        queued in ROADMAP.md (A7) and raise. ``symmetric_form=True`` asserts
+        symmetric local matrices and takes the canonical-pair assembly (BSR
+        only). ``solver="bicgstab"`` is for non-symmetric operators. With
+        ``return_info`` the result is ``(u, PCGInfo)``.
+        """
+        from ..ops.solvers import bicgstab, pcg
+
+        if solver == "cg":
+            krylov = pcg
+        elif solver == "bicgstab":
+            krylov = bicgstab
+        else:
+            raise ValueError(
+                f"unknown solver: {solver!r} (expected 'cg' or 'bicgstab')"
+            )
+
+        if symmetric_form and method != "bsr":
+            raise ValueError(
+                "symmetric_form=True is only implemented for method='bsr' "
+                f"(got method={method!r}); drop the flag or switch methods"
+            )
+
+        if solution is None:
+            solution = self.solution_tensor()
+
+        if method == "bsr":
+            if not only_inner_dofs:
+                raise NotImplementedError(
+                    "method='bsr' solves the reduced (interior-DOF) system"
+                )
+            if precondition not in (
+                "two_level", "agg_block", "mult_two_level", "rbm", "jacobi"
+            ):
+                raise ValueError(
+                    f"unknown precondition: {precondition!r} (expected "
+                    "'two_level', 'agg_block', 'mult_two_level', 'rbm' or "
+                    "'jacobi')"
+                )
+            if precondition in ("mult_two_level", "rbm"):
+                raise NotImplementedError(
+                    f"precondition={precondition!r} is not ported; see "
+                    "ROADMAP.md, queue A7"
+                )
+            from ..ops.bsr import (
+                bsr_diagonal,
+                bsr_expand,
+                bsr_matvec,
+                bsr_reduce,
+                bsr_values_from_local,
+                bsr_values_from_local_symmetric,
+                default_max_b,
+                get_bsr_structure,
+            )
+            from ..ops.precondition import (
+                agg_block_two_level_from_values,
+                auto_preconditioner,
+            )
+
+            structure = get_bsr_structure(
+                self, max_b=default_max_b(self), want_entry_slot=not symmetric_form
+            )
+            if symmetric_form:
+                values = bsr_values_from_local_symmetric(structure, local_matrices)
+            else:
+                values = bsr_values_from_local(structure, local_matrices)
+            diag = bsr_diagonal(structure, values)
+            precond = None
+            if precondition == "two_level":
+                precond = auto_preconditioner(self, structure, values, diag)
+            elif precondition == "agg_block":
+                precond = agg_block_two_level_from_values(structure, values, diag)
+            x, info = krylov(
+                lambda v: bsr_matvec(structure, values, v),
+                bsr_reduce(structure, vector),
+                precond_diag=diag,
+                precond=precond,
+                tol=tol,
+                maxiter=maxiter,
+            )
+            u = solution + bsr_expand(structure, x, self.n_dofs)
+            return (u, info) if return_info else u
+
+        rhs = self.reduce(vector) if only_inner_dofs else vector
+
+        if method == "segment":
+            if precondition == "two_level":
+                raise NotImplementedError(
+                    "precondition='two_level' requires method='ell'"
+                )
+            from ..ops.operators import reduced_operator_from_local
+
+            matvec, diag = reduced_operator_from_local(self, local_matrices)
+            precond = None
+        else:
+            from ..ops.sparse import (
+                ell_diagonal,
+                ell_matvec,
+                ell_values_from_local,
+                get_ell_structure,
+            )
+
+            structure = get_ell_structure(self, max_k=8)
+            values = ell_values_from_local(structure, local_matrices)
+            diag = ell_diagonal(structure, values)
+            matvec = lambda x: ell_matvec(structure, values, x)  # noqa: E731
+            precond = None
+            if precondition == "two_level":
+                from ..ops.precondition import two_level_from_values
+
+                precond = two_level_from_values(
+                    self._two_level_tables(structure), structure, values, diag
+                )
+
+        x, info = krylov(
+            matvec,
+            rhs[..., 0],
+            precond_diag=diag,
+            precond=precond,
+            tol=tol,
+            maxiter=maxiter,
+        )
+        inner = self._basis_parameters["inner_dofs"]
+        u = solution.index_add(solution.dim() - 2, inner, x[..., None])
+        return (u, info) if return_info else u
+
+    def _two_level_tables(self, structure):
+        """The ELL two-level tables (``leaf=32, kp=4``) of this basis's
+        interior DOFs, built once and cached as ``_two_level_structure``."""
+        from ..ops.precondition import build_two_level_structure
+
+        tl = getattr(self, "_two_level_structure", None)
+        if tl is None:
+            inner = self._as_host_index(self._basis_parameters["inner_dofs"])
+            coords = self._coords4global_dofs.cpu().numpy()[inner]
+            tl = build_two_level_structure(structure, coords, leaf=32, kp=4)
+            self._two_level_structure = tl
+        return tl
+
     def gram_solver(
-        self, form: Callable[..., torch.Tensor], method: str = "cholesky"
-    ) -> Callable[[torch.Tensor], torch.Tensor]:
+        self,
+        form: Callable[..., torch.Tensor],
+        method: str = "cholesky",
+        tol: Optional[float] = None,
+        maxiter: Optional[int] = None,
+        precondition: str = "two_level",
+    ) -> Callable[..., torch.Tensor]:
         """Differentiable ``r -> G^{-1} r`` on the reduced DOFs, G the Gram
         matrix of ``form`` on this basis (the RVPINN loss ``r^T G^{-1} r``).
+        The returned callable takes ``(n_inner, 1)`` or ``(n_inner,)``
+        vectors and keeps the shape.
 
-        ``method="cholesky"`` factors the dense reduced Gram once; each
-        application is a pair of triangular solves. The returned callable
-        takes ``(n_inner, 1)`` or ``(n_inner,)`` vectors and keeps the shape.
-        ``method="pcg"`` (matrix-free, with warm starts) is queued in
-        ROADMAP.md (A10).
+        * ``method="cholesky"`` factors the dense reduced Gram once; each
+          application is a pair of triangular solves.
+        * ``method="pcg"``: matrix-free PCG on the hybrid-ELL operator
+          (``max_k=8``), O(nnz) memory, so the test space scales with the
+          FEM side. It returns a :class:`GramPCG`: ``solve(r, x0=None)``,
+          whose backward is one more PCG seeded with the rescaled forward
+          solution; ``x0`` only sets the forward's starting point and
+          carries no gradient.
+
+        ``precondition`` (pcg): ``"two_level"`` builds the smoothed
+        two-level M once here (``leaf=32, kp=4``) when the system has at
+        least 256 unknowns, and point Jacobi below that; anything else
+        keeps Jacobi. ``tol`` defaults to the working precision: 1e-12 in
+        float64, 1e-6 in float32. ``maxiter`` defaults to max(10 n, 100).
         """
-        if method == "pcg":
-            raise NotImplementedError(
-                "gram_solver(method='pcg') needs the ELL operator "
-                "(ops/sparse.py) and the two-level preconditioner; see "
-                "ROADMAP.md, queue A10"
+        if tol is None:
+            tol = 1e-12 if torch.finfo(self.dtype).eps < 1e-10 else 1e-6
+        if method == "cholesky":
+            factor = torch.linalg.cholesky(
+                self.reduce(self.integrate_bilinear_form(form))
             )
-        if method != "cholesky":
+
+            def solve(r: torch.Tensor) -> torch.Tensor:
+                if r.dim() == 1:
+                    return torch.cholesky_solve(r[:, None], factor)[:, 0]
+                return torch.cholesky_solve(r, factor)
+
+            return solve
+        if method != "pcg":
             raise ValueError(
                 f"unknown gram_solver method: {method!r} "
                 "(expected 'cholesky' or 'pcg')"
             )
-        factor = torch.linalg.cholesky(self.reduce(self.integrate_bilinear_form(form)))
 
-        def solve(r: torch.Tensor) -> torch.Tensor:
-            if r.dim() == 1:
-                return torch.cholesky_solve(r[:, None], factor)[:, 0]
-            return torch.cholesky_solve(r, factor)
+        from ..ops.precondition import two_level_from_values
+        from ..ops.sparse import (
+            ell_diagonal,
+            ell_matvec,
+            ell_values_from_local,
+            get_ell_structure,
+        )
 
-        return solve
+        structure = get_ell_structure(self, max_k=8)
+        with torch.no_grad():
+            values = ell_values_from_local(
+                structure, self.integrate_bilinear_form_local(form)
+            )
+            diag = ell_diagonal(structure, values)
+            n = structure.n_inner
+            precond = None
+            if precondition == "two_level" and n >= 256:
+                # G is constant across applications: build the whole
+                # two-level M once; every later solve, forward and
+                # backward, reuses it
+                tl = self._two_level_tables(structure)
+                precond = two_level_from_values(tl, structure, values, diag)
+        return GramPCG(
+            lambda v: ell_matvec(structure, values, v),
+            diag,
+            precond,
+            tol=tol,
+            maxiter=maxiter if maxiter is not None else max(10 * n, 100),
+        )
 
     def compiled_solver(self, bilinear_form, linear_form=None, **kwargs):
         """Assemble+solve pipeline for this basis (BSR path).
@@ -302,3 +545,74 @@ class AbstractBasis(abc.ABC):
         if isinstance(array, torch.Tensor):
             return array.cpu().numpy()
         return np.asarray(array)
+
+
+class _GramPCGFunction(torch.autograd.Function):
+    """``x = G^{-1} r`` by PCG from ``x0``; the backward is one more PCG.
+
+    G is SPD and constant, so the pullback of a cotangent ``c`` is
+    ``G^{-1} c``. It starts from ``a x`` with ``a = <c, x> / <r, x>`` (0
+    when ``<r, x> = 0``): for the RVPINN loss ``r^T G^{-1} r`` the
+    cotangent is parallel to ``r``, so ``a x`` is already the answer and
+    the backward PCG exits in O(1) iterations. ``x0`` gets no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, r, x0, gram):
+        x = gram.run(r.reshape(-1), x0.reshape(-1), "forward").reshape(r.shape)
+        ctx.save_for_backward(r, x)
+        ctx.gram = gram
+        return x
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, cotangent):
+        r, x = ctx.saved_tensors
+        xf, cf = x.reshape(-1), cotangent.reshape(-1)
+        denom = torch.dot(r.reshape(-1), xf)  # x^T G x >= 0, 0 only if x == 0
+        zero = denom == 0
+        a = torch.where(
+            zero, torch.zeros_like(denom),
+            torch.dot(cf, xf) / torch.where(zero, torch.ones_like(denom), denom),
+        )
+        y = ctx.gram.run(cf, a * xf, "backward")
+        return y.reshape(cotangent.shape), None, None
+
+
+class GramPCG:
+    """``solve(r, x0=None) -> G^{-1} r`` by matrix-free PCG, differentiable
+    in ``r`` (``gram_solver(method="pcg")``).
+
+    ``iterations`` records the PCG iteration count of every forward and
+    every backward solve, in call order (``{"forward": [...], "backward":
+    [...]}``); clear the lists to start a new count.
+    """
+
+    def __init__(self, matvec, diag, precond, *, tol: float, maxiter: int):
+        self.matvec = matvec
+        self.diag = diag
+        self.precond = precond
+        self.tol = tol
+        self.maxiter = maxiter
+        self.iterations = {"forward": [], "backward": []}
+
+    def run(self, b: torch.Tensor, x0: torch.Tensor, direction: str) -> torch.Tensor:
+        """One PCG solve of ``G x = b`` from ``x0`` (no autograd)."""
+        from ..ops.solvers import pcg
+
+        x, info = pcg(
+            self.matvec,
+            b,
+            x0=x0,
+            precond=self.precond,
+            precond_diag=None if self.precond is not None else self.diag,
+            tol=self.tol,
+            maxiter=self.maxiter,
+        )
+        self.iterations[direction].append(info.iterations)
+        return x
+
+    def __call__(self, r: torch.Tensor, x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if x0 is None:
+            x0 = torch.zeros_like(r)
+        return _GramPCGFunction.apply(r, x0.detach(), self)

@@ -1,12 +1,17 @@
 """Cell-volume basis on a single triangle mesh.
 
 Counterpart of ``pytorch_fem_solver_tpu/basis/basis.py``, limited to P1
-DOFs (the vertices); P2/P3 DOF maps, point probing and interpolation are
-queued in ROADMAP.md (A12). Local entry (i, j) lands at global
-(row_i, col_j), and interior-DOF lists are computed on the host once.
+DOFs (the vertices) and to interpolation onto the basis's own quadrature
+points; P2/P3 DOF maps (ROADMAP.md, A6), point probing (A3) and
+interpolation onto edge bases (A8) are queued. Local entry (i, j) lands at
+global (row_i, col_j), and interior-DOF lists are computed on the host once.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
 
 from .abstract_basis import AbstractBasis
 
@@ -50,3 +55,38 @@ class Basis(AbstractBasis):
 
     def _compute_integration_points(self, mesh, bar_coords):
         return bar_coords.mT @ self._cell_coordinates(mesh)[..., None, :, :]
+
+    def interpolate(self, basis, tensor: Optional[torch.Tensor] = None):
+        """Evaluate a DOF vector (or nodal samples of a function) at this
+        basis's own quadrature points (``basis is self``).
+
+        With ``tensor`` (n_dofs, 1) returns ``(values (T, q, 1, 1),
+        gradients (T, q, 1, d))``; without it, the pair of callables
+        ``interpolator(f)`` and ``interpolator_grad(f)`` that do the same for
+        the nodal samples ``f(coords)`` of a function. The two-sided and
+        one-sided traces onto ``InteriorEdgesBasis`` / ``BoundaryEdgesBasis``
+        are queued in ROADMAP.md (A8).
+        """
+        if basis is not self:
+            raise NotImplementedError(
+                "interpolation onto another basis (the edge bases) is not "
+                "ported; see ROADMAP.md, queue A8"
+            )
+        dof_idx = self._global_dofs4elements[..., None, :]  # (T, 1, n_loc)
+        v, v_grad = self.v, self.v_grad
+
+        if tensor is not None:
+            values = tensor[dof_idx]  # (T, 1, n_loc, 1)
+            return (values * v).sum(-2, keepdim=True), (values * v_grad).sum(
+                -2, keepdim=True
+            )
+
+        nodes = self._coords4global_dofs
+
+        def interpolator(function: Callable[[torch.Tensor], torch.Tensor]):
+            return (function(nodes)[dof_idx] * v).sum(-2, keepdim=True)
+
+        def interpolator_grad(function: Callable[[torch.Tensor], torch.Tensor]):
+            return (function(nodes)[dof_idx] * v_grad).sum(-2, keepdim=True)
+
+        return interpolator, interpolator_grad

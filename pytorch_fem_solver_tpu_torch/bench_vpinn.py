@@ -15,6 +15,18 @@ the rows of the 2D P1 element kernel K5 (``ops.kernels.p1_local_stiffness_load``
 the port of the Pallas ``_p1_kernel``), which computes exactly that matrix on
 this mesh; ``G^{-1}`` is dense, as in the benchmark.
 
+``make_dfn_rvpinn`` is the counterpart of the repo's flagship DFN VPINN,
+``examples/example_seven_fractures_vpinn.py`` with the settings of
+``tools/exp_dfn_vpinn_epoch.py``: the seven-fracture benchmark DFN, P1
+``ElementTri(1, 2)``, a FEM oracle by ``solve_iterative`` (BSR operator, so
+every PCG iteration runs the SpMV kernel K2), a 3 -> 24x4 -> 1 MLP trained
+against the glued P1 test space through the matrix-free PCG Gram solver
+(``gram_solver(method="pcg")``), a weak boundary penalty, the H1 distance
+to the FEM solution through the fracture maps, Adam at 1e-3, and the
+previous epoch's Gram iterate warm-starting the next through
+``Model(training_state0=...)``. Its full size is h=0.1 (19,680 cells,
+9,795 DOFs).
+
 ``make_two_fracture`` is the counterpart of ``__graft_entry__.py``'s
 ``_build_problem``: two isometric fracture charts of ``rectangle(2n, n)``
 glued along their trace, ``ElementTri(1, 2)``, a 3 -> 16 MLP with 3 hidden
@@ -30,11 +42,13 @@ import numpy as np
 import torch
 
 from . import config
-from .basis import Basis, FractureBasis
+from .basis import Basis, FractureBasis, FractureNetworkBasis
 from .element import ElementTri
-from .mesh import FracturesTri, MeshTri, rectangle, unit_square
+from .mesh import FractureNetworkMesh, FracturesTri, MeshTri, rectangle, unit_square
 from .models import FeedForwardNeuralNetwork, Model
 from .ops.kernels import p1_local_stiffness_load
+from .ops.solvers import PCGInfo
+from .utils import build_benchmark_network
 
 N = 64
 WIDTH = 15
@@ -141,6 +155,152 @@ def make_rvpinn(
         progress_bar=False,
     )
     return RVPINN(mesh, V, net, gram_inv, exact_norm, training_step, model)
+
+
+# -- the seven-fracture DFN RVPINN -------------------------------------------
+
+DFN_H = 0.1
+DFN_EPOCHS = 20
+DFN_WIDTH = 24
+DFN_DEPTH = 4
+DFN_FINAL_LAYER_SCALE = 0.05
+DFN_ORACLE_TOL = 1e-6
+BC_WEIGHT = 50.0
+
+
+def _stiffness(basis):
+    return basis.v_grad @ basis.v_grad.mT
+
+
+def _unit_load(basis):
+    return basis.v
+
+
+def _dfn_residual(basis, net):
+    pts = basis.integration_points
+    return basis.v - (basis.v_grad @ net.gradient(pts).mT)
+
+
+class DFNRVPINN(NamedTuple):
+    mesh: FractureNetworkMesh
+    basis: FractureNetworkBasis
+    network: FeedForwardNeuralNetwork
+    u_fem: torch.Tensor  # (n_dofs, 1) the oracle's FEM solution
+    oracle_info: PCGInfo
+    fem_norm: torch.Tensor  # H1 norm of the FEM solution
+    gram_solve: Callable  # the Gram solver (a ``GramPCG`` for gram="pcg")
+    boundary_nodes: torch.Tensor  # (n_b, 3) boundary-marked vertices
+    training_step: Callable
+    model: Model
+
+
+def make_dfn_rvpinn(
+    h: float = DFN_H,
+    gram: str = "pcg",
+    warm: bool = True,
+    *,
+    epochs: int = DFN_EPOCHS,
+    seed: int = 0,
+    mesh: FractureNetworkMesh | None = None,
+    device=None,
+    dtype: torch.dtype | None = None,
+) -> DFNRVPINN:
+    """The seven-fracture DFN RVPINN: oracle solve, seeded network, Gram
+    solver, training step and an Adam ``Model`` at 1e-3.
+
+    ``-Δu = 1`` with homogeneous Dirichlet data imposed weakly (penalty
+    ``BC_WEIGHT`` on the network at the boundary-marked vertices). The loss
+    is ``r^T G^{-1} r + BC_WEIGHT * mean(net(boundary)^2)``, ``r`` the
+    reduced residual vector; ``training_step`` also returns the relative
+    weak norm ``sqrt(r^T G^{-1} r) / ||u_fem||`` and the relative H1
+    distance to the FEM solution, both computed without a graph. With
+    ``warm`` (``gram="pcg"`` only) the step is stateful: ``training_step(net,
+    x_prev) -> ((loss, relative, h1), x)`` and the Model threads the Gram
+    iterate from a zero ``training_state0``. ``mesh`` may pass the
+    benchmark mesh at ``h`` built already, on ``device`` in ``dtype``.
+    ``device`` defaults to the card, ``dtype`` to ``config.default_dtype()``.
+    """
+    if warm and gram != "pcg":
+        raise ValueError("the warm start seeds the PCG Gram solve: use gram='pcg'")
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_dtype()
+    if mesh is None:
+        mesh = build_benchmark_network(h, device=device, dtype=dtype)
+    V = FractureNetworkBasis(mesh, ElementTri(1, 2))
+
+    u_fem, oracle_info = V.solve_iterative(
+        V.integrate_bilinear_form_local(_stiffness),
+        V.integrate_linear_form(_unit_load),
+        tol=DFN_ORACLE_TOL,
+        precondition="two_level",
+        return_info=True,
+    )
+    I_fem, I_fem_grad = V.interpolate(V, u_fem)
+    fem_norm = torch.sqrt(
+        V.integrate_functional(
+            lambda b, u, g: u**2 + (g**2).sum(-1, keepdim=True), I_fem, I_fem_grad
+        ).sum()
+    )
+
+    net = FeedForwardNeuralNetwork(
+        input_dimension=3,
+        output_dimension=1,
+        nb_hidden_layers=DFN_DEPTH,
+        neurons_per_layers=DFN_WIDTH,
+        final_layer_scale=DFN_FINAL_LAYER_SCALE,
+        seed=seed,
+        device=device,
+        dtype=dtype,
+    )
+    markers = mesh["global", "markers"][:, 0]
+    boundary_nodes = mesh["global", "vertices_3d"][markers == 1]
+    gram_solve = V.gram_solver(_stiffness, method=gram)
+
+    cell_frac = mesh["cells", "fracture"][:, 0]
+    tangent_map = (
+        mesh["fracture_map", "jacobian"] @ mesh["fracture_map", "inv_jacobian"]
+    )[cell_frac][:, None]
+
+    def h1_error_vs_fem(basis, net):
+        pts = basis.integration_points
+        tangent = net.gradient(pts) @ tangent_map
+        return (net(pts) - I_fem) ** 2 + ((tangent - I_fem_grad) ** 2).sum(
+            -1, keepdim=True
+        )
+
+    def loss_and_metrics(net, r, x):
+        weak = (r.T @ x)[0, 0]
+        loss = weak + BC_WEIGHT * torch.mean(net(boundary_nodes) ** 2)
+        with torch.no_grad():
+            relative = torch.sqrt(weak) / fem_norm
+            h1 = torch.sqrt(V.integrate_functional(h1_error_vs_fem, net).sum())
+        return loss, relative, h1 / fem_norm
+
+    if warm:
+
+        def training_step(net, x_prev):
+            r = V.reduce(V.integrate_linear_form(_dfn_residual, net))
+            x = gram_solve(r, x_prev)
+            return loss_and_metrics(net, r, x), x.detach()
+
+        n_inner = int(V._basis_parameters["inner_dofs"].shape[0])
+        state0 = torch.zeros((n_inner, 1), dtype=dtype, device=device)
+    else:
+
+        def training_step(net):
+            r = V.reduce(V.integrate_linear_form(_dfn_residual, net))
+            return loss_and_metrics(net, r, gram_solve(r))
+
+        state0 = None
+
+    model = Model(
+        net, training_step, epochs=epochs, optimizer_kwargs={"lr": LEARNING_RATE},
+        progress_bar=False, training_state0=state0,
+    )
+    return DFNRVPINN(
+        mesh, V, net, u_fem, oracle_info, fem_norm, gram_solve, boundary_nodes,
+        training_step, model,
+    )
 
 
 # -- the two-fracture RVPINN loss -------------------------------------------

@@ -16,8 +16,15 @@ on flat copies (a few launches per epoch, no host sync).
 On a CUDA network the optimizer is built ``capturable`` where its class
 takes that option, so its step counter lives on the card: the hold then
 covers the whole optimizer state, and ``train()`` and ``train_compiled()``
-run the same arithmetic. Plateau schedulers and the stateful
-``training_state0`` protocol are queued in ROADMAP.md (A10); they raise.
+run the same arithmetic. Plateau schedulers are queued in ROADMAP.md
+(A2.4); they raise.
+
+The stateful protocol of the JAX package: with ``training_state0`` given,
+``training_step(net, state) -> ((loss, validation, accuracy), new_state)``
+and the state (a tensor, or a tuple, list or dict of them) rides the epoch
+loop, e.g. the previous epoch's Gram iterate that warm-starts the next
+epoch's PCG. The state must not change the loss's gradient. A non-finite
+epoch resets it to ``training_state0`` in both loops.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 
 def _flat(tensors) -> torch.Tensor:
@@ -79,6 +87,11 @@ class _FlatCopies:
             torch._foreach_copy_(group, scratch_views)
 
 
+def _detached(value) -> torch.Tensor:
+    """A state leaf as a tensor outside the autograd graph."""
+    return value.detach() if torch.is_tensor(value) else torch.as_tensor(value)
+
+
 def _architecture_signature(net) -> str:
     """The layer names and shapes, e.g. ``w0:(2, 15);b0:(15,);...``."""
     return ";".join(f"{n}:{tuple(p.shape)}" for n, p in net.named_parameters())
@@ -105,14 +118,14 @@ class Model:
         if learning_rate_scheduler is not None:
             raise NotImplementedError(
                 "learning-rate schedulers are not ported: plateau scheduling "
-                "differs between optax and torch.optim; see ROADMAP.md, queue A10"
-            )
-        if training_state0 is not None:
-            raise NotImplementedError(
-                "the stateful training protocol (training_state0) comes with "
-                "the PCG Gram warm start; see ROADMAP.md, queue A10"
+                "differs between optax and torch.optim; see ROADMAP.md, queue A2"
             )
         self._neural_network = neural_network
+        self._stateful = training_state0 is not None
+        self._training_state0 = (
+            pytree.tree_map(_detached, training_state0) if self._stateful else None
+        )
+        self._training_state = self._training_state0
         self._training_step = training_step
         self._epochs = int(epochs)
 
@@ -162,18 +175,25 @@ class Model:
             for n, p in self._neural_network.named_parameters():
                 p.copy_(params[n])
 
-    def _epoch(self):
-        """One forward + backward; returns (loss, validation, accuracy) as
-        detached 0-d tensors. The optimizer step is left to the caller."""
+    def _epoch(self, state=None):
+        """One forward + backward; returns ((loss, validation, accuracy) as
+        detached 0-d tensors, the detached new state). The optimizer step is
+        left to the caller."""
         self._optimizer.zero_grad(set_to_none=True)
-        loss, validation, accuracy = self._training_step(self._neural_network)
+        if self._stateful:
+            (loss, validation, accuracy), state = self._training_step(
+                self._neural_network, state
+            )
+            state = pytree.tree_map(_detached, state)
+        else:
+            loss, validation, accuracy = self._training_step(self._neural_network)
         loss = loss.reshape(())
         loss.backward()
         return (
             loss.detach(),
             torch.as_tensor(validation).detach().reshape(()).to(loss),
             torch.as_tensor(accuracy).detach().reshape(()).to(loss),
-        )
+        ), state
 
     def _held_tensors(self) -> list:
         """The parameters and the optimizer's state tensors."""
@@ -198,9 +218,11 @@ class Model:
             except ImportError:
                 pass
 
+        state = self._training_state
         for _ in iterator:
             t0 = time.perf_counter()
-            scalars = torch.stack(self._epoch())
+            scalars, state_new = self._epoch(state)
+            scalars = torch.stack(scalars)
             loss_value, validation_value, accuracy_value = scalars.tolist()
             self._epoch_times.append(time.perf_counter() - t0)
             # history first, aligned with _epoch_times: the guard and the
@@ -214,6 +236,8 @@ class Model:
             if not math.isfinite(loss_value):
                 self._load_parameters(self.optimal_parameters)
                 self._optimizer = self._make_optimizer()
+                # a non-finite epoch may have poisoned the warm-start state
+                state = self._training_state0
                 self._diverged_steps += 1
                 if self._diverged_steps > 10:
                     break
@@ -235,6 +259,7 @@ class Model:
                 self.optimal_parameters = self._snapshot()
 
             self._optimizer.step()
+            state = state_new
 
             if bar is not None:
                 bar.set_postfix(
@@ -244,6 +269,7 @@ class Model:
                         "Accuracy": f"{accuracy_value:.8f}",
                     }
                 )
+        self._training_state = state
         return self._neural_network
 
     def train_compiled(self, block_size: int = 100):
@@ -264,7 +290,9 @@ class Model:
           after a stop in mid-block the block is re-run from its saved
           start state for exactly ``stop_epoch + 1`` epochs, so nothing past
           the stopping point reaches the parameters or the snapshot, and
-          the live network is then the best snapshot.
+          the live network is then the best snapshot;
+        * with ``training_state0``, a non-finite epoch resets the state to
+          it (``torch.where`` on the device), as the eager loop does.
         """
         block_size = max(1, int(block_size))
         use_es = self._use_early_stopping
@@ -275,16 +303,26 @@ class Model:
 
         n_params = sum(p.numel() for p in params)
         best_loss = torch.tensor(self._best_loss, dtype=params[0].dtype, device=params[0].device)
-        carry = [best_loss, _flat(params).detach(), torch.zeros_like(best_loss, dtype=torch.int64)]
+        carry = [
+            best_loss,
+            _flat(params).detach(),
+            torch.zeros_like(best_loss, dtype=torch.int64),
+            self._training_state,
+        ]
+        state0 = self._training_state0
         copies = None
 
         def run_block(length, carry):
             nonlocal copies
-            best_loss, best_flat, n_bad = carry
+            best_loss, best_flat, n_bad, state = carry
             rows = []
             for _ in range(length):
-                loss, validation, accuracy = self._epoch()
+                (loss, validation, accuracy), state_new = self._epoch(state)
                 finite = torch.isfinite(loss)
+                if self._stateful:
+                    state = pytree.tree_map(
+                        lambda new, first: torch.where(finite, new, first), state_new, state0
+                    )
                 improved = finite & (loss < best_loss - margin)
                 held = self._held_tensors()
                 if copies is None or copies.ids != [id(t) for t in held]:
@@ -304,7 +342,7 @@ class Model:
                         if id(t) not in saved_ids:
                             t.copy_(torch.where(finite, t, torch.zeros_like(t)))
                 rows.append(torch.stack([loss, validation, accuracy]))
-            return torch.stack(rows), [best_loss, best_flat, n_bad]
+            return torch.stack(rows), [best_loss, best_flat, n_bad, state]
 
         done = 0
         stopped = False
@@ -313,7 +351,7 @@ class Model:
             if use_es:
                 # the block's start state, re-entered after a mid-block stop
                 start = (
-                    [t.clone() for t in carry],
+                    pytree.tree_map(lambda t: t if t is None else t.clone(), carry),
                     [p.detach().clone() for p in params],
                     copy.deepcopy(self._optimizer.state_dict()),
                 )
@@ -356,6 +394,7 @@ class Model:
             if int(carry[2]) > 10:
                 stopped = True
 
+        self._training_state = carry[3]
         best = _unflat(carry[1], params)
         self.optimal_parameters = {n: b.clone() for n, b in zip(names, best)}
         if stopped:

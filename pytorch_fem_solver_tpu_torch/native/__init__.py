@@ -20,6 +20,7 @@ import numpy as np
 
 __all__ = [
     "available",
+    "radix_argsort",
     "sort_unique",
     "bsr_pair_ranks",
     "tet_face_edge_keys",
@@ -60,6 +61,8 @@ def _build_and_load():
             tmp_path.unlink(missing_ok=True)
 
     i64, i64p = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
+    lib.fem_radix_argsort.argtypes = [i64p, i64, i64p]
+    lib.fem_radix_argsort.restype = None
     lib.fem_sort_unique.argtypes = [i64p, i64] + [i64p] * 4
     lib.fem_sort_unique.restype = i64
     lib.fem_unique_edges.argtypes = [i64p, i64, i64] + [i64p] * 4
@@ -93,6 +96,17 @@ def _ptr(a: np.ndarray):
 
 def _as_i64(a) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(a), dtype=np.int64)
+
+
+def radix_argsort(keys) -> np.ndarray | None:
+    """Stable ascending argsort of int64 keys; None if native unavailable."""
+    lib = _get_lib()
+    if lib is None:
+        return None
+    keys = _as_i64(keys)
+    order = np.empty(keys.size, dtype=np.int64)
+    lib.fem_radix_argsort(_ptr(keys), keys.size, _ptr(order))
+    return order
 
 
 def sort_unique(keys):

@@ -1,2 +1,3 @@
-"""Device operators: element kernel, BSR assembly and SpMV, the aggregate
-two-level preconditioner, PCG and the assemble+solve pipeline."""
+"""Device operators: element kernels, BSR and ELL assembly and SpMV, the
+aggregate-block and ELL two-level preconditioners, the Krylov solvers and
+the assemble+solve pipeline."""

@@ -120,13 +120,18 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
         pt.build_benchmark_network(0.5)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.MeshTri({"vertices": np.eye(3)[:, :2], "triangles": [[0, 1, 2]]})
-    from pytorch_fem_solver_tpu_torch.bench_vpinn import make_rvpinn, make_two_fracture
+    from pytorch_fem_solver_tpu_torch.bench_vpinn import (
+        make_dfn_rvpinn,
+        make_rvpinn,
+        make_two_fracture,
+    )
 
     for entry in (
         lambda: pt.FeedForwardNeuralNetwork(2, 1, 1, 4),
         lambda: pt.MeshesTri([pt.unit_square(n=2)]),
         lambda: make_rvpinn(n=2, width=2, depth=1),
         lambda: make_two_fracture(n=2),
+        lambda: make_dfn_rvpinn(0.5),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()

@@ -5,7 +5,7 @@ The port's RVPINN at ``make_rvpinn(n=8, width=8, depth=2)`` is held against
 the same workload built with the JAX package (the repo-root
 ``bench_vpinn.py`` step) from the same seeded network, in float64 on the
 CPU: the Gram assembled from K5's rows against JAX's
-``integrate_bilinear_form`` (1e-13), ``gram_solver`` (1e-10), the loss and
+``integrate_bilinear_form`` (1e-13), ``gram_solver`` (1e-10, Cholesky and PCG), the loss and
 every parameter gradient against ``jax.value_and_grad`` (1e-10), and a
 10-epoch Adam history against the JAX ``Model.train`` history (1e-8
 relative; optax and torch.optim order Adam's operations differently).
@@ -133,8 +133,9 @@ def test_gram_solver_matches_jax(jax_side):
     solve = r.basis.gram_solver(_stiffness)
     assert _rel(solve(torch.tensor(rhs)).numpy(), ref) <= 1e-10
     assert _rel(solve(torch.tensor(rhs[:, 0])).numpy(), np.asarray(ref)[:, 0]) <= 1e-10
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.basis.gram_solver(_stiffness, method="pcg")
+    pcg = r.basis.gram_solver(_stiffness, method="pcg")
+    assert _rel(pcg(torch.tensor(rhs)).numpy(), ref) <= 1e-10
+    assert _rel(pcg(torch.tensor(rhs[:, 0])).numpy(), np.asarray(ref)[:, 0]) <= 1e-10
 
 
 def test_linear_and_functional_forms_match_jax(jax_side):
@@ -291,7 +292,5 @@ def test_unported_options_raise():
     r = _port()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.Model(r.network, r.training_step, learning_rate_scheduler="reduce_on_plateau")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.Model(r.network, r.training_step, training_state0=0.0)
     m = pt.Model(r.network, r.training_step, optimizer_kwargs={"learning_rate": 0.5})
     assert m._optimizer.param_groups[0]["lr"] == 0.5
