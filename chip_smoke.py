@@ -103,7 +103,34 @@ Phases (any failure exits non-zero and prints no result):
     loops (``dfn_rvpinn_s_per_epoch`` line); one profiled warm block of 10
     epochs: device ms per epoch in the ELL matvec and the two-level apply
     (profiler ranges), the network's gemms, the scatters and Adam, launches
-    and host reads (``Memcpy DtoH``) per epoch, and the idle share.
+    and host reads (``Memcpy DtoH``) per epoch, and the idle share;
+14. the estimator RVPINN (``make_posteriori_rvpinn()`` of the port's
+    ``bench_vpinn.py``: N=64, the RVPINN loss plus the bulk residual and the
+    interior-edge gradient jumps of the network, float32): counts reset
+    before its setup, K5 launched once there (it builds the Gram); 50
+    epochs through ``train()`` and 50 through ``train_compiled(10)``:
+    finite losses, the last below the first, the loops within 1e-4
+    relative; the first 10 within 1e-2 of float64 on the card; the weak
+    and estimator shares of the first loss; the s/epoch of both loops
+    (``posteriori_s_per_epoch`` line); one profiled block of 5 epochs:
+    device ms per epoch in the network's gemms, the edge gather/scatter and
+    the rest, launches and host reads per epoch, and the idle share;
+15. the adaptive DFN loop (``adaptive_dfn`` of the port's ``bench.py``)
+    on the seven-fracture network at h=0.03 (phase 1's mesh, which keeps
+    its host triangulations): 3 levels, Dörfler marking at theta 0.5 and
+    ``FractureNetworkMesh.refined`` between them, float32, PCG to 1e-6. Per
+    level: cells, DOFs, iterations, the PCG residual (<= 1e-6), the true
+    residual ``||b - A u|| / ||b||`` in float64, A assembled as a sparse
+    COO matrix apart from the BSR layout and K2 (<= 1e-6 plus twice the
+    float32 rounding scale ``eps32 || |A| |u| || / ||b||``), K2 launches (counts reset before each level;
+    >= the iterations), the energy, ||eta|| and the marked cells, the host
+    seconds of the refinement, the tables and the estimator, and the
+    solve's wall ms (a second solve on the built tables); the cells grow at
+    every level, the trace edges of every pair of fractures are the same in
+    both on every refined level; at level 0 the energy is within 1e-4 and
+    eta within 1e-4 (max relative) of a float64 level on the card at tol
+    1e-10, and both etas give the same Dörfler marks, while a level solved
+    only to 1e-2 (the control) fails both the residual and the eta bound.
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
@@ -179,6 +206,25 @@ DFN_BUCKETS = (
     ("scatters (index_add)", ("indexFunc", "index_add", "scatter")),
     ("Adam", ("multi_tensor", "foreach", "adam", "Adam")),
 )
+
+POSTERIORI_PROFILED = 5  # epochs of phase 14's profiled block
+# buckets of phase 14's device time by kernel name (first match wins); the
+# gather/scatter bucket holds the edge traces' gather of the network's nodal
+# values (advanced indexing) and its backward (an accumulating index_put)
+POSTERIORI_BUCKETS = (
+    ("network gemms", ("gemm", "gemv", "xmma", "cutlass", "cublas")),
+    ("edge gather/scatter", ("index_elementwise", "indexing_backward", "index_put",
+                             "scatter_gather", "gather_kernel")),
+)
+ADAPTIVE_LEVELS = 3  # 2 refinements of the h=0.03 benchmark network
+ADAPTIVE_THETA = 0.5
+# ||b - A u|| / ||b|| of a float32 level is held to TOL plus this many
+# times its float32 rounding scale, eps32 || |A| |u| || / ||b||: the float64
+# solution rounded to float32 already leaves a fifth of that scale, and the
+# float32 PCG stops near 0.9 of it (PERF.md, phase 15)
+ADAPTIVE_ROUNDING = 2.0
+ADAPTIVE_ETA_TOL = 1e-4  # max |eta32 - eta64| / max eta64 at level 0
+ADAPTIVE_CONTROL_TOL = 1e-2  # a level-0 solve that both bounds must reject
 
 EDGE_K1_CELLS = (1, 255, 257, 1001)  # K1's and K5's edge sizes
 EDGE_K3_ROWS = (1, 5, 67)
@@ -1322,6 +1368,266 @@ def phase_dfn_rvpinn(card):
     return launches
 
 
+def phase_posteriori(card):
+    """Phase 14: the estimator RVPINN at the RVPINN bench size on the card."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench_vpinn import EPOCHS, make_posteriori_rvpinn
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+
+    f32 = torch.float32
+    marks = [("start", time.perf_counter())]
+    warm = make_posteriori_rvpinn(epochs=2, device=DEVICE, dtype=f32)  # handles, allocator
+    warm.model.train()
+    warm.model.train_compiled(2)
+    del warm
+    marks.append(("warm-up", time.perf_counter()))
+
+    # the path: setup (K5 builds the Gram) and 50 eager epochs
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    eager = make_posteriori_rvpinn(device=DEVICE, dtype=f32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_launches = dict(cuda_build.launch_counts)
+    terms = [float(t.detach()) for t in eager.loss_terms(eager.network)]
+    total = sum(terms)
+    eager_s = _timed(eager.model.train) / EPOCHS
+    launches = dict(cuda_build.launch_counts)
+    losses, _, accs = eager.model.get_training_history()
+    V, E = eager.basis, eager.edges
+    log(f"estimator RVPINN n={RVPINN_N} cells={eager.mesh.n_cells} interior edges="
+        f"{E.mesh.n_interior_edges} quadrature points {V.integration_points.shape[0] * V.integration_points.shape[1]} "
+        f"(cells) + {E.integration_points.shape[0] * E.integration_points.shape[1]} (edges); "
+        f"setup {setup_s:.3f} s; launches in the setup {setup_launches}, in the run {launches}")
+    check(setup_launches["p1_element_2d"] == 1,
+          f"K5 launched once in the estimator RVPINN setup ({setup_launches['p1_element_2d']})")
+    check(abs(total - losses[0]) <= 1e-5 * abs(losses[0]),
+          f"the three terms sum to the first loss ({total:.6e} vs {losses[0]:.6e})")
+    log(f"first loss {losses[0]:.6e}: weak share {terms[0] / total:.4f}, estimator share "
+        f"{(terms[1] + terms[2]) / total:.4f} (bulk {terms[1] / total:.4f}, jump {terms[2] / total:.4f})")
+    check(len(losses) == EPOCHS and bool(np.isfinite(losses).all()),
+          f"estimator RVPINN train(): {len(losses)} finite losses")
+    check(losses[-1] < losses[0],
+          f"estimator RVPINN train(): loss {losses[0]:.6e} -> {losses[-1]:.6e} decreases")
+
+    blocked = make_posteriori_rvpinn(device=DEVICE, dtype=f32)
+    blocked_s = _timed(lambda: blocked.model.train_compiled(RVPINN_BLOCK)) / EPOCHS
+    blosses = blocked.model.get_training_history()[0]
+    diff = _rel_curve(blosses, losses)
+    check(len(blosses) == EPOCHS and bool(np.isfinite(blosses).all()),
+          f"estimator RVPINN train_compiled({RVPINN_BLOCK}): {len(blosses)} finite losses")
+    check(diff <= 1e-4, f"estimator RVPINN train_compiled({RVPINN_BLOCK}) vs train() f32 losses: "
+          f"rel {diff:.3e} <= 1e-4")
+    marks.append(("two f32 models, 100 epochs", time.perf_counter()))
+
+    r64 = make_posteriori_rvpinn(epochs=10, device=DEVICE, dtype=torch.float64)
+    r64.model.train()
+    d64 = _rel_curve(losses[:10], r64.model.get_training_history()[0])
+    check(d64 <= 1e-2, f"estimator RVPINN f32 vs f64 10-epoch losses on the card: rel {d64:.3e} <= 1e-2")
+    marks.append(("f64 model, 10 epochs", time.perf_counter()))
+
+    eager_med = float(np.median(eager.model._epoch_times[1:]))
+    blocked_med = float(np.median(blocked.model._epoch_times))
+    log(f"estimator RVPINN f32 s/epoch: train() {eager_s:.6e} (median host epoch {eager_med:.6e}), "
+        f"train_compiled({RVPINN_BLOCK}) {blocked_s:.6e} (median {blocked_med:.6e}); "
+        f"loss {losses[0]:.6e} -> {losses[-1]:.6e}, relative H1 {accs[0]:.4f} -> {accs[-1]:.4f}")
+    log(json.dumps({
+        "metric": "posteriori_s_per_epoch",
+        "n": RVPINN_N,
+        "epochs": EPOCHS,
+        "train_s_per_epoch": eager_s,
+        "train_compiled_s_per_epoch": blocked_s,
+        "block_size": RVPINN_BLOCK,
+        "card": card,
+    }))
+
+    # one profiled block: where an epoch's time goes
+    prof_run = make_posteriori_rvpinn(epochs=POSTERIORI_PROFILED, device=DEVICE, dtype=f32)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        wall = _timed(lambda: prof_run.model.train_compiled(POSTERIORI_PROFILED))
+    kernels, device_ms = _device_kernels(prof, POSTERIORI_PROFILED)
+    wall_ms = 1e3 * wall / POSTERIORI_PROFILED
+    reads = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and "Memcpy DtoH" in e.name) / POSTERIORI_PROFILED
+    log(f"profile, one block of {POSTERIORI_PROFILED} epochs: wall {wall_ms:.3f} ms per epoch under "
+        f"the profiler, device {device_ms:.3f} ms, idle share {1 - device_ms / wall_ms:.3f} "
+        f"({1 - device_ms / (1e3 * blocked_s):.3f} of the unprofiled train_compiled epoch), "
+        f"{sum(k[1] for k in kernels):.0f} kernel launches and {reads:.1f} host reads "
+        f"(Memcpy DtoH) per epoch")
+    split, taken = {}, set()
+    for bucket, keys in POSTERIORI_BUCKETS:
+        hits = [k for k in kernels if k[2] not in taken and any(key in k[2] for key in keys)]
+        taken.update(k[2] for k in hits)
+        split[bucket] = sum(k[0] for k in hits) / 1e3
+        log(f"  {bucket}: " + ", ".join(f"{k[2][:60]} ({k[1]:.0f}/epoch)" for k in hits))
+    split["the rest"] = device_ms - sum(split.values())
+    log("device ms per epoch by part: " + "; ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f"; all kernels {device_ms:.4f}")
+    log("device ms/epoch  launches/epoch  kernel")
+    for us, count, name in kernels[:20]:
+        log(f"{us / 1e3:14.4f}  {count:14.1f}  {name[:110]}")
+    marks.append(("profiled block", time.perf_counter()))
+    log("phase 14 seconds: " + "; ".join(
+        f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])))
+    return launches
+
+
+def _trace_edge_sets(mesh):
+    """For every pair of fractures (f, g) that meet, the edges of f and the
+    edges of g that lie on their intersection, as sets of sorted global
+    vertex pairs (``tests/test_dfn.py``'s invariant, for any network): the
+    two sets are equal where the traces conform. Host float64, from the
+    mesh's source triangulations."""
+    from pytorch_fem_solver_tpu_torch.mesh import fit_affine_maps
+
+    src = mesh._sources
+    jac, trans, _, inv_jac = fit_affine_maps(src["anchors_2d"], src["corners_3d"])
+    normals = np.cross(jac[..., 0], jac[..., 1])
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    gids = mesh["global", "ids"].cpu().numpy().reshape(-1)
+    parts, offset = [], 0
+    for f, t in enumerate(src["triangulations"]):
+        v2 = np.asarray(t["vertices"], dtype=np.float64)
+        tri = np.asarray(t["triangles"])
+        p3 = v2 @ jac[f].T + trans[f, :, 0]
+        edges = np.unique(np.sort(tri[:, [[0, 1], [1, 2], [2, 0]]].reshape(-1, 2), axis=1), axis=0)
+        parts.append((p3, edges, gids[offset:offset + v2.shape[0]], v2.min(0), v2.max(0)))
+        offset += v2.shape[0]
+    scale = max(1.0, max(float(np.abs(p[0]).max()) for p in parts))
+    tol = 1e-9 * scale
+    sets = {}
+    for f, (p3, edges, g_ids, _, _) in enumerate(parts):
+        for g, (_, _, _, lo, hi) in enumerate(parts):
+            if g == f:
+                continue
+            d = (p3 - trans[g, :, 0]) @ normals[g]
+            x2 = (p3 - trans[g, :, 0]) @ inv_jac[g].T
+            on = (np.abs(d) < tol) & (x2 >= lo - tol).all(1) & (x2 <= hi + tol).all(1)
+            sel = on[edges].all(1)
+            if sel.any():
+                sets[(f, g)] = set(map(tuple, np.sort(g_ids[edges[sel]], axis=1)))
+    return sets
+
+
+def _true_residual(V, u, b):
+    """||b - A u|| / ||b|| over the inner DOFs in float64, and its float32
+    rounding scale eps32 || |A| |u| || / ||b||. A is the level's operator
+    from its float32 element matrices, assembled as a sparse COO matrix
+    through the basis's own DOF map: neither the BSR layout nor K2."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import _stiffness
+
+    local = V.integrate_bilinear_form_local(_stiffness)
+    vals = V.reshape_for_assembly(local, "bilinear").double()
+    rows, cols = (i.long() for i in V._basis_parameters["bilinear_form_idx"])
+    a = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (V.n_dofs, V.n_dofs)).coalesce()
+    a_abs = torch.sparse_coo_tensor(a.indices(), a.values().abs(), a.shape)
+    u64 = u.double().reshape(-1, 1)
+    r = V.reduce(b.double() - torch.sparse.mm(a, u64))
+    au = V.reduce(torch.sparse.mm(a_abs, u64.abs()))
+    b_in = V.reduce(b.double())
+    eps = torch.finfo(torch.float32).eps
+    return float(r.norm() / b_in.norm()), float(eps * au.norm() / b_in.norm())
+
+
+def phase_adaptive(card, mesh32, mesh64):
+    """Phase 15: the adaptive DFN loop on the h=0.03 benchmark network,
+    driven through ``bench.adaptive_dfn``."""
+    from pytorch_fem_solver_tpu_torch.bench import (
+        _stiffness,
+        _unit_load,
+        adaptive_dfn,
+        adaptive_dfn_level,
+    )
+    from pytorch_fem_solver_tpu_torch.mesh import dorfler_mark
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+
+    check(getattr(mesh32, "_sources", None) is not None,
+          "phase 1's mesh carries its host triangulations (_sources)")
+    k2_total, rows, cells_before = 0, [], None
+    cuda_build.reset_launch_counts()
+    levels = adaptive_dfn(mesh32, ADAPTIVE_LEVELS, ADAPTIVE_THETA, tol=TOL)
+    for level, lv in enumerate(levels):
+        # the count of this level's solve and estimate, read before any
+        # launch of the checks below
+        k2 = cuda_build.launch_counts["bsr_spmv"]
+        k2_total += k2
+        mesh, V, info = lv.mesh, lv.basis, lv.info
+        b = V.integrate_linear_form(_unit_load)
+        rel = float(info.residual_norm / V.reduce(b).norm())
+        true_rel, rounding = _true_residual(V, lv.u, b)
+        local = V.integrate_bilinear_form_local(_stiffness)
+        solve_ms = 1e3 * _timed(lambda: V.solve_iterative(
+            local, b, tol=TOL, precondition="two_level", symmetric_form=True))
+        eta_norm = float(np.linalg.norm(lv.eta))
+        marked = int(dorfler_mark(lv.eta, ADAPTIVE_THETA).sum())
+        row = {"level": level, "cells": mesh.n_cells, "dofs": lv.n_dofs,
+               "iterations": info.iterations, "rel_residual": rel, "true_residual": true_rel,
+               "rounding_scale": rounding, "k2_launches": k2, "energy": lv.energy,
+               "eta_norm": eta_norm, "marked": marked, "refine_s": lv.seconds["refine"],
+               "tables_s": lv.seconds["tables"], "first_solve_s": lv.seconds["solve"],
+               "estimator_s": lv.seconds["estimator"], "solve_wall_ms": solve_ms}
+        rows.append(row)
+        log(f"adaptive level {level}: cells={mesh.n_cells} dofs={lv.n_dofs} iterations={info.iterations} "
+            f"rel residual {rel:.4e} (true {true_rel:.4e}, f32 rounding scale {rounding:.4e}) "
+            f"K2 launches {k2} energy {lv.energy:.8e} ||eta|| {eta_norm:.6e} marked {marked}; "
+            f"host s: refinement {lv.seconds['refine']:.3f}, tables {lv.seconds['tables']:.3f}, "
+            f"estimator {lv.seconds['estimator']:.3f}; first solve {lv.seconds['solve']:.3f} s (with "
+            f"the preconditioner's tables), solve wall {solve_ms:.2f} ms")
+        check(bool(info.converged) and rel <= TOL, f"adaptive level {level}: rel residual {rel:.3e} <= {TOL}")
+        bound = TOL + ADAPTIVE_ROUNDING * rounding
+        check(true_rel <= bound, f"adaptive level {level}: true residual ||b - A u|| / ||b|| (COO "
+              f"operator) {true_rel:.3e} <= {TOL:g} + {ADAPTIVE_ROUNDING:g} x rounding scale "
+              f"{rounding:.3e}")
+        check(k2 >= info.iterations, f"adaptive level {level}: K2 launches {k2} >= iterations {info.iterations}")
+        check(bool(np.isfinite(lv.eta).all()) and lv.eta.shape == (mesh.n_cells,),
+              f"adaptive level {level}: eta finite, one per cell")
+        if level == 0:
+            lv64 = adaptive_dfn_level(mesh64, tol=1e-10)
+            d = abs(lv.energy - lv64.energy) / abs(lv64.energy)
+            check(d <= 1e-4, f"adaptive level 0 energy f32 vs f64 (tol 1e-10, {lv64.info.iterations} "
+                  f"iterations) on the card: rel {d:.3e} <= 1e-4")
+            gap = float(np.abs(lv.eta - lv64.eta).max() / np.abs(lv64.eta).max())
+            check(gap <= ADAPTIVE_ETA_TOL, f"adaptive level 0 eta f32 vs f64 on the card: "
+                  f"max rel {gap:.3e} <= {ADAPTIVE_ETA_TOL:g}")
+            m32, m64 = dorfler_mark(lv.eta, ADAPTIVE_THETA), dorfler_mark(lv64.eta, ADAPTIVE_THETA)
+            differ = np.flatnonzero(m32 != m64)
+            check(differ.size == 0, f"adaptive level 0 Dörfler marks of the f32 and the f64 eta: "
+                  f"{int(m64.sum())} marked, {differ.size} differ (cells {differ[:20].tolist()})")
+            floor, _ = _true_residual(V, lv64.u.float(), b)
+            log(f"adaptive level 0: true residual of the f64 solution rounded to f32 {floor:.4e}")
+            row["true_residual_f64_rounded"] = floor
+            # the control: a level solved only to ADAPTIVE_CONTROL_TOL must
+            # fail both bounds above
+            ctl = adaptive_dfn_level(mesh, tol=ADAPTIVE_CONTROL_TOL)
+            ctl_rel, _ = _true_residual(V, ctl.u, b)
+            ctl_gap = float(np.abs(ctl.eta - lv64.eta).max() / np.abs(lv64.eta).max())
+            row["control"] = {"tol": ADAPTIVE_CONTROL_TOL, "iterations": ctl.info.iterations,
+                              "true_residual": ctl_rel, "eta_gap": ctl_gap}
+            check(ctl_rel > bound and ctl_gap > ADAPTIVE_ETA_TOL, f"adaptive level 0 control "
+                  f"(tol {ADAPTIVE_CONTROL_TOL:g}, {ctl.info.iterations} iterations) fails both: true "
+                  f"residual {ctl_rel:.3e} > {bound:.3e}, eta gap {ctl_gap:.3e} > {ADAPTIVE_ETA_TOL:g}")
+            del lv64, ctl
+        else:
+            check(mesh.n_cells > cells_before, f"adaptive level {level}: cells grow "
+                  f"{cells_before} -> {mesh.n_cells} ({rows[-2]['marked']} cells marked, "
+                  f"theta {ADAPTIVE_THETA})")
+            sets = _trace_edge_sets(mesh)
+            bad = [pair for pair in sets if sets[pair] != sets.get(pair[::-1])]
+            check(bool(sets) and not bad, f"adaptive level {level}: the trace edges of "
+                  f"{len(sets) // 2} fracture pairs ({sum(map(len, sets.values())) // 2} edges) are "
+                  f"the same in both fractures (mismatched: {bad})")
+        cells_before = mesh.n_cells
+        # the next level's count starts here: the loop refines, then solves
+        cuda_build.reset_launch_counts()
+    log(json.dumps({"metric": "adaptive_dfn_levels", "h": H, "theta": ADAPTIVE_THETA, "tol": TOL,
+                    "levels": rows, "card": card}))
+    return k2_total
+
+
 def phase_two_fracture():
     """Phase 10: the two-fracture RVPINN loss and one Adam step on the card,
     against the same port in float64 on the CPU."""
@@ -1510,8 +1816,12 @@ def main() -> int:
     done("11 K6")
     stream = phase_windows()
     done("12 windows")
-    phase_dfn_rvpinn(card)
+    dfn_launches = phase_dfn_rvpinn(card)
     done("13 DFN RVPINN")
+    posteriori_launches = phase_posteriori(card)
+    done("14 estimator RVPINN")
+    adaptive_k2 = phase_adaptive(card, mesh32, mesh64)
+    done("15 adaptive DFN")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
     ) + f"; start to tables {marks[0][1] - t_start:.1f}")
@@ -1519,9 +1829,17 @@ def main() -> int:
     if failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
+    # each kernel's count on its own path, read just after it ran: K2 on
+    # the main path's solve, K5 in the RVPINN setup; the counts of every
+    # path that launches them beside it
     k1["launches"] = launches["p1_element_3d"]
     k2["launches"] = launches["bsr_spmv"]
+    k2["launches_by_path"] = {"main": launches["bsr_spmv"], "dfn_rvpinn": dfn_launches["bsr_spmv"],
+                              "adaptive_dfn": adaptive_k2}
     k5["launches"] = rvpinn_launches["p1_element_2d"]
+    k5["launches_by_path"] = {"rvpinn": rvpinn_launches["p1_element_2d"],
+                              "posteriori_rvpinn": posteriori_launches["p1_element_2d"]}
+    log(f"K2 launches by path: {k2['launches_by_path']}; K5: {k5['launches_by_path']}")
     for fig, name in zip((k1, k2, k3, k4, k5, k6), ("K1", "K2", "K3", "K4", "K5", "K6")):
         fig["stream_us"] = stream.get(name)  # None where no stream figure is taken
     log(f"main path median {median:.6f} s, {iters} iterations, on {card}")

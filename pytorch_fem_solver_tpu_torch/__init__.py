@@ -11,15 +11,27 @@ This package imports neither ``jax`` nor ``pytorch_fem_solver_tpu``.
 """
 
 from . import config
-from .basis import AbstractBasis, Basis, FractureBasis, FractureNetworkBasis
-from .element import ElementTri
+from .basis import (
+    AbstractBasis,
+    Basis,
+    BoundaryEdgesBasis,
+    FractureBasis,
+    FractureNetworkBasis,
+    InteriorEdgesBasis,
+    InteriorEdgesFractureBasis,
+    InteriorEdgesNetworkBasis,
+)
+from .element import ElementLine, ElementTri
 from .mesh import (
     FractureNetworkMesh,
     FracturesTri,
     MeshesTri,
     MeshTri,
     build_fracture_network,
+    dorfler_mark,
     rectangle,
+    refine_adaptive,
+    refine_network_adaptive,
     refine_uniform,
     triangulation_max_area,
     unit_square,
@@ -33,13 +45,21 @@ __all__ = [
     "Basis",
     "FractureBasis",
     "FractureNetworkBasis",
+    "InteriorEdgesNetworkBasis",
+    "BoundaryEdgesBasis",
+    "InteriorEdgesBasis",
+    "InteriorEdgesFractureBasis",
+    "ElementLine",
     "ElementTri",
     "FractureNetworkMesh",
     "FracturesTri",
     "MeshesTri",
     "MeshTri",
     "build_fracture_network",
+    "dorfler_mark",
     "rectangle",
+    "refine_adaptive",
+    "refine_network_adaptive",
     "refine_uniform",
     "triangulation_max_area",
     "unit_square",

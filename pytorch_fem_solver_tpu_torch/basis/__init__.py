@@ -1,14 +1,21 @@
-"""Basis layer: P1 assembly on triangle meshes and fracture networks."""
+"""Basis layer: P1 assembly on triangle meshes and fracture networks, and
+the edge bases of the jump and flux terms."""
 
 from .abstract_basis import AbstractBasis
 from .basis import Basis
 from .fracture_basis import FractureBasis, build_global_triangulation
-from .fracture_network_basis import FractureNetworkBasis
+from .fracture_network_basis import FractureNetworkBasis, InteriorEdgesNetworkBasis
+from .interior_edges_basis import BoundaryEdgesBasis, InteriorEdgesBasis
+from .interior_edges_fracture_basis import InteriorEdgesFractureBasis
 
 __all__ = [
     "AbstractBasis",
     "Basis",
+    "BoundaryEdgesBasis",
     "FractureBasis",
     "FractureNetworkBasis",
+    "InteriorEdgesBasis",
+    "InteriorEdgesFractureBasis",
+    "InteriorEdgesNetworkBasis",
     "build_global_triangulation",
 ]

@@ -3,8 +3,8 @@
 Counterpart of ``pytorch_fem_solver_tpu/basis/abstract_basis.py``: the
 forms, the dense and iterative solves (BSR, ELL and segment operators), the
 Gram solvers of RVPINN training and the compiled BSR solve. The mixed
-bilinear forms, ``_iterate_at_quadrature`` and the batched assembly layout
-are queued in ROADMAP.md (A3). All
+bilinear forms and ``_iterate_at_quadrature`` are queued in ROADMAP.md
+(queue A, item 3). All
 quadrature-evaluated tensors (shape values, physical gradients, integration
 points, weights, DOF and scatter indices) are computed once at construction
 on the mesh's device; the integrate methods are plain functions of them, and
@@ -126,10 +126,17 @@ class AbstractBasis(abc.ABC):
 
     def _assemble_bilinear_from_local(self, local: torch.Tensor) -> torch.Tensor:
         """Scatter element matrices (..., T, n_loc, n_loc) into the dense
-        global matrix: local entry (i, j) of a cell adds at (row_i, col_j)."""
+        global matrix: local entry (i, j) of a cell adds at (row_i, col_j)
+        (of batch entry b, in the batched layout)."""
         values = self.reshape_for_assembly(local, "bilinear")
-        n_rows, n_cols = self._basis_parameters["bilinear_form_shape"]
-        rows, cols = self._basis_parameters["bilinear_form_idx"]
+        shape = self._basis_parameters["bilinear_form_shape"]
+        idx = self._basis_parameters["bilinear_form_idx"]
+        if len(idx) == 3:  # the batched layout: the JAX ``.at[b, r, c].add``
+            return values.new_zeros(shape).index_put(
+                tuple(i.long() for i in idx), values, accumulate=True
+            )
+        n_rows, n_cols = shape
+        rows, cols = idx
         flat = rows.long() * n_cols + cols.long()
         return values.new_zeros(n_rows * n_cols).index_add(0, flat, values).reshape(
             n_rows, n_cols
@@ -488,27 +495,56 @@ class AbstractBasis(abc.ABC):
         nb_global_dofs: int,
         global_dofs4elements,
         nodes4boundary_dofs,
+        batch_size: Optional[int] = None,
     ) -> dict:
         """Shared scatter-index / interior-DOF construction.
 
-        The JAX package's batched layout (patch and fracture-edge bases,
-        ``batch_size``) is not ported yet (ROADMAP.md, A9d).
+        With ``batch_size`` set, shapes gain a leading batch axis and the
+        scatter tuple a batch index (the fracture-edge basis); boundary
+        markers must then be identical across the batch, since ``reduce``
+        applies one interior-DOF list to every entry.
         """
         nb_local_dofs = int(global_dofs4elements.shape[-1])
-        markers = self._as_host_index(nodes4boundary_dofs).reshape(-1)
+        markers_all = self._as_host_index(nodes4boundary_dofs)
+        if batch_size is not None:
+            if not (markers_all == markers_all[:1]).all():
+                raise NotImplementedError(
+                    "batched bases require identical boundary markers across "
+                    "the batch (reduce() applies one interior-DOF list)"
+                )
+            markers = markers_all[0].reshape(-1)
+        else:
+            markers = markers_all.reshape(-1)
+        device = global_dofs4elements.device
         inner_dofs = torch.as_tensor(
             np.nonzero(markers != 1)[0].astype(np.int32),
             dtype=config.index_dtype(),
-            device=global_dofs4elements.device,
+            device=device,
         )
         dofs = global_dofs4elements
-        rows_idx = torch.repeat_interleave(dofs, nb_local_dofs, dim=-1).reshape(-1)
-        cols_idx = dofs.repeat(1, nb_local_dofs).reshape(-1)
+        if batch_size is None:
+            rows_idx = torch.repeat_interleave(dofs, nb_local_dofs, dim=-1).reshape(-1)
+            cols_idx = dofs.repeat(1, nb_local_dofs).reshape(-1)
+            return {
+                "bilinear_form_shape": (nb_global_dofs, nb_global_dofs),
+                "bilinear_form_idx": (rows_idx, cols_idx),
+                "linear_form_shape": (nb_global_dofs, 1),
+                "linear_form_idx": (dofs.reshape(-1),),
+                "inner_dofs": inner_dofs,
+                "nb_dofs": nb_global_dofs,
+            }
+        batch_idx = torch.arange(
+            batch_size, dtype=config.index_dtype(), device=device
+        )[:, None]
+        rows_idx = torch.repeat_interleave(dofs, nb_local_dofs, dim=-1).reshape(
+            batch_size, -1
+        )
+        cols_idx = dofs.repeat(1, 1, nb_local_dofs).reshape(batch_size, -1)
         return {
-            "bilinear_form_shape": (nb_global_dofs, nb_global_dofs),
-            "bilinear_form_idx": (rows_idx, cols_idx),
-            "linear_form_shape": (nb_global_dofs, 1),
-            "linear_form_idx": (dofs.reshape(-1),),
+            "bilinear_form_shape": (batch_size, nb_global_dofs, nb_global_dofs),
+            "bilinear_form_idx": (batch_idx, rows_idx, cols_idx),
+            "linear_form_shape": (batch_size, nb_global_dofs, 1),
+            "linear_form_idx": (batch_idx, dofs.reshape(batch_size, -1)),
             "inner_dofs": inner_dofs,
             "nb_dofs": nb_global_dofs,
         }

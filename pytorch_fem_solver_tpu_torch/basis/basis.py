@@ -1,10 +1,11 @@
 """Cell-volume basis on a single triangle mesh.
 
 Counterpart of ``pytorch_fem_solver_tpu/basis/basis.py``, limited to P1
-DOFs (the vertices) and to interpolation onto the basis's own quadrature
-points; P2/P3 DOF maps (ROADMAP.md, A6), point probing (A3) and
-interpolation onto edge bases (A8) are queued. Local entry (i, j) lands at
-global (row_i, col_j), and interior-DOF lists are computed on the host once.
+DOFs (the vertices); P2/P3 DOF maps (ROADMAP.md, queue A item 6) and point
+probing (item 3) are queued. ``interpolate`` evaluates on the basis's own
+quadrature points and takes the two-sided and one-sided traces onto the
+edge bases. Local entry (i, j) lands at global (row_i, col_j), and
+interior-DOF lists are computed on the host once.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Callable, Optional
 import torch
 
 from .abstract_basis import AbstractBasis
+from .interior_edges_basis import InteriorEdgesBasis
 
 
 class Basis(AbstractBasis):
@@ -22,7 +24,8 @@ class Basis(AbstractBasis):
     def _compute_dofs(self, mesh, element):
         if element.polynomial_order != 1:
             raise NotImplementedError(
-                "the port has P1 DOF maps only; see ROADMAP.md, queue A12"
+                "the port has P1 DOF maps only; P2/P3 are queued in "
+                "ROADMAP.md (queue A, item 6)"
             )
         coords_4_global_dofs = mesh["vertices", "coordinates"]
         global_dofs_4_elements = mesh["cells", "vertices"]
@@ -53,30 +56,62 @@ class Basis(AbstractBasis):
     def _cell_coordinates(self, mesh):
         return mesh["cells", "coordinates"]
 
+    def _interp_cell_coordinates(self):
+        """Cell coordinates in the space the traces' points live in
+        (3D for the embedded network basis)."""
+        return self.mesh["cells", "coordinates"]
+
     def _compute_integration_points(self, mesh, bar_coords):
         return bar_coords.mT @ self._cell_coordinates(mesh)[..., None, :, :]
 
     def interpolate(self, basis, tensor: Optional[torch.Tensor] = None):
-        """Evaluate a DOF vector (or nodal samples of a function) at this
-        basis's own quadrature points (``basis is self``).
+        """Evaluate a DOF vector (or nodal samples of a function) on another
+        basis's quadrature points.
 
-        With ``tensor`` (n_dofs, 1) returns ``(values (T, q, 1, 1),
-        gradients (T, q, 1, d))``; without it, the pair of callables
-        ``interpolator(f)`` and ``interpolator_grad(f)`` that do the same for
-        the nodal samples ``f(coords)`` of a function. The two-sided and
-        one-sided traces onto ``InteriorEdgesBasis`` / ``BoundaryEdgesBasis``
-        are queued in ROADMAP.md (A8).
+        * ``basis is self``: per-cell values and gradients at this basis's
+          own quadrature points, ``(T, q, 1, 1)`` and ``(T, 1, 1, d)``.
+        * ``basis`` an :class:`InteriorEdgesBasis`: two-sided traces. The
+          edge quadrature points are pulled back into each adjacent cell's
+          reference coordinates and the shape functions evaluated there,
+          with a cell-pair axis at dim -4: ``(E, 2, q, 1, 1)`` and
+          ``(E, 2, 1, 1, d)`` (jump terms).
+        * ``basis`` a :class:`BoundaryEdgesBasis`: one-sided traces, the
+          same with a side axis of size 1 (boundary fluxes).
+
+        With ``tensor`` (n_dofs, 1) returns ``(values, gradients)``; without
+        it, the pair of callables ``interpolator(f)`` and
+        ``interpolator_grad(f)`` that do the same for the nodal samples
+        ``f(coords)`` of a function (a network: autograd flows through the
+        gather into its parameters).
         """
-        if basis is not self:
-            raise NotImplementedError(
-                "interpolation onto another basis (the edge bases) is not "
-                "ported; see ROADMAP.md, queue A8"
+        if basis is self:
+            dof_idx = self._global_dofs4elements[..., None, :]  # (T, 1, n_loc)
+            v, v_grad = self.v, self.v_grad
+        elif isinstance(basis, InteriorEdgesBasis):
+            cells = basis._adjacent_cells()  # (E, n_sides) int64
+            # (E, n_sides, 1, n_loc): DOF ids of the adjacent cells
+            dof_idx = self._global_dofs4elements.long()[cells][..., None, :]
+            # (E, n_sides, 1, 1, d): first vertex of each adjacent cell
+            first_vertex = self._interp_cell_coordinates()[..., [0], :][cells][
+                ..., None, :, :
+            ]
+            inv_map_jacobian = self._inv_map_jacobian[cells]  # (E, s, 1, d_ref, d)
+            # edge quadrature points with an inserted side axis (E, 1, q, 1, d)
+            pts = basis.integration_points[..., None, :, :, :]
+            ref_pts = self._element.compute_inverse_map(
+                first_vertex, pts, inv_map_jacobian
+            )  # (E, s, q, 1, d_ref)
+            bar_coords = self._element.compute_barycentric_coordinates(
+                ref_pts.squeeze(-2)
+            )  # (E, s, q, n_loc, 1)
+            v, v_grad = self._element.compute_shape_functions(
+                bar_coords, inv_map_jacobian
             )
-        dof_idx = self._global_dofs4elements[..., None, :]  # (T, 1, n_loc)
-        v, v_grad = self.v, self.v_grad
+        else:
+            raise NotImplementedError("Interpolation for this basis not implemented")
 
         if tensor is not None:
-            values = tensor[dof_idx]  # (T, 1, n_loc, 1)
+            values = tensor[dof_idx]  # (..., 1, n_loc, 1)
             return (values * v).sum(-2, keepdim=True), (values * v_grad).sum(
                 -2, keepdim=True
             )

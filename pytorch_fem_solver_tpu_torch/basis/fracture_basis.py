@@ -8,11 +8,14 @@ triangulation, and assembly scatters into its vertices. The shape-function
 gradients are the tangential 3D gradients (2D gradients times the chart's
 pseudo-inverse) and the weights carry the chart's area scale.
 
-P2/P3 DOF maps and ``interpolate`` (with the interior-edge fracture basis)
-are queued in ROADMAP.md (A12).
+``interpolate`` evaluates a global DOF vector on the basis itself and takes
+the two-sided traces onto ``InteriorEdgesFractureBasis``. P2/P3 DOF maps are
+queued in ROADMAP.md (queue A, item 6).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -20,6 +23,7 @@ import torch
 from .. import config
 from ..mesh.dedup import tolerant_group
 from .abstract_basis import AbstractBasis
+from .interior_edges_fracture_basis import InteriorEdgesFractureBasis
 
 
 def _group_rows(coords: np.ndarray, tol: float):
@@ -163,7 +167,7 @@ class FractureBasis(AbstractBasis):
         if element.polynomial_order != 1:
             raise NotImplementedError(
                 "the port's FractureBasis has P1 DOF maps only; P2/P3 are "
-                "queued in ROADMAP.md (A12)"
+                "queued in ROADMAP.md (queue A, item 6)"
             )
         g = self.global_triangulation
         coords_4_global_dofs = g["vertices_3D"]
@@ -202,8 +206,67 @@ class FractureBasis(AbstractBasis):
         weights = element.gaussian_weights.to(det_map_jacobian)
         return element.reference_element_area * weights * det_map_jacobian * scale
 
-    def interpolate(self, basis, tensor=None):
-        raise NotImplementedError(
-            "FractureBasis.interpolate (with the interior-edge fracture "
-            "basis) is queued in ROADMAP.md (A12)"
-        )
+    def interpolate(self, basis, tensor: Optional[torch.Tensor] = None):
+        """Evaluate a *global* DOF vector on this basis, ``(B, T, q, 1, 1)``
+        and ``(B, T, 1, 1, 3)``, or on the fracture interior-edge basis:
+        two-sided traces ``(B, Ei, 2, q, 1, 1)`` and ``(B, Ei, 2, 1, 1, 3)``
+        for flux jumps. Without ``tensor``, the callables
+        ``interpolator(f)`` / ``interpolator_grad(f)`` of a function's
+        samples at the global DOF coordinates."""
+        B = self.nb_fractures
+        n_loc = self._global_dofs4elements.shape[-1]
+
+        if basis is self:
+            dof_idx = self._global_dofs4elements.long().reshape(B, -1, 1, n_loc)
+            v, v_grad = self.v, self.v_grad
+        elif isinstance(basis, InteriorEdgesFractureBasis):
+            cells = basis.mesh["interior_edges", "cells"].long()  # (B, Ei, 2)
+            triangles = self._global_dofs4elements.long().reshape(B, -1, n_loc)
+            # (B, Ei, 2, 1, n_loc)
+            dof_idx = _batched_take(triangles, cells)[..., None, :]
+            first_vertex = _batched_take(
+                self.mesh["cells", "coordinates_3d"][..., :1, :], cells
+            )[..., None, :, :]  # (B, Ei, 2, 1, 1, 3)
+            inv_map = _batched_take(self._inv_map_jacobian, cells)  # (B, Ei, 2, 1, 2, 3)
+            pts = basis.integration_points[:, :, None]  # (B, Ei, 1, q, 1, 3)
+            ref_pts = self._element.compute_inverse_map(
+                first_vertex, pts, inv_map
+            )  # (B, Ei, 2, q, 1, 2)
+            bar_coords = self._element.compute_barycentric_coordinates(
+                ref_pts.squeeze(-2)
+            )  # (B, Ei, 2, q, n_loc, 1)
+            v, v_grad = self._element.compute_shape_functions(bar_coords, inv_map)
+        else:
+            raise NotImplementedError(
+                f"Interpolation to {type(basis).__name__} not implemented"
+            )
+
+        if tensor is not None:
+            values = tensor[dof_idx]
+            return (values * v).sum(-2, keepdim=True), (values * v_grad).sum(
+                -2, keepdim=True
+            )
+
+        def _global_nodal_values(function):
+            # samples at the global DOF coordinates, with a trailing
+            # component axis forced: a scalar function returning (N,) would
+            # otherwise broadcast against the trailing 1 of v / v_grad
+            vals = function(self._coords4global_dofs)
+            return vals.reshape(vals.shape[0], -1)
+
+        def interpolator(function):
+            return (_global_nodal_values(function)[dof_idx] * v).sum(-2, keepdim=True)
+
+        def interpolator_grad(function):
+            return (_global_nodal_values(function)[dof_idx] * v_grad).sum(
+                -2, keepdim=True
+            )
+
+        return interpolator, interpolator_grad
+
+
+def _batched_take(array: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[b, ...] = array[b][idx[b, ...]]`` (the JAX package's
+    ``vmap(lambda arr, i: arr[i])``)."""
+    batch = torch.arange(idx.shape[0], device=idx.device)
+    return array[batch.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]

@@ -17,22 +17,35 @@ TPU. The per-iteration SpMV is kernel K2 (``ops.bsr.bsr_spmv``).
 on the same assembled system: the stock iteration and the one whose tail
 runs through kernels K3/K4 (``ops.fused_pcg``), each as a fixed-length loop
 captured as a CUDA graph, and the fused iteration to tolerance.
+
+``adaptive_dfn_level`` is the counterpart of
+``examples/example_adaptive_dfn.py:solve_and_estimate``, one level of the
+estimator-driven refinement loop on a fracture network: the P1 solve of
+``-Δu = 1`` by ``solve_iterative`` (canonical-pair BSR operator, whose SpMV
+is K2 on every PCG iteration, and the aggregate two-level M), then the
+residual estimator per cell, ``h_T^2 ||f||^2`` plus half of each adjacent
+interior edge's flux jump ``h_E ||[du_h/dn]||^2`` from the two-sided traces
+onto ``InteriorEdgesNetworkBasis``. ``adaptive_dfn`` runs the loop:
+Dörfler marking and ``FractureNetworkMesh.refined`` between the levels.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import time
+from typing import Callable, Iterator, NamedTuple
 
 import numpy as np
 import torch
 
-from .basis import FractureNetworkBasis
-from .element import ElementTri
+from .basis import FractureNetworkBasis, InteriorEdgesNetworkBasis
+from .element import ElementLine, ElementTri
+from .mesh.refinement import dorfler_mark
 from .ops.bsr import (
     BSRStructure,
     _scatter_drop,
     bsr_complete_symmetric,
     bsr_matvec,
+    default_max_b,
     get_bsr_structure,
     inverse_inner_perm,
 )
@@ -40,7 +53,7 @@ from .ops.compiled import aggblock_setup, bsr_pcg
 from .ops.fused_pcg import fused_pcg, fused_pcg_steps, fused_shape
 from .ops.kernels import p1_element_3d
 from .ops.precondition import AggBlockTwoLevel
-from .ops.solvers import pcg_steps
+from .ops.solvers import PCGInfo, pcg_steps
 
 #: K1 rows of the canonical pairs (0,0) (0,1) (0,2) (1,1) (1,2) (2,2)
 SYM_ROWS = (0, 1, 2, 4, 5, 8)
@@ -198,3 +211,103 @@ def make_fused_pcg(basis, *, max_b: int = 8) -> FusedPCG:
         run_fused=_fixed_length(fused_pcg_steps, matvec, precond, b_pad),
         solve_fused=solve_fused,
     )
+
+
+# -- one level of the adaptive DFN loop ----------------------------------------
+
+
+class AdaptiveLevel(NamedTuple):
+    """One level of ``adaptive_dfn``: what ``solve_and_estimate`` returns
+    (``n_dofs``, ``energy`` ``u . b``, ``eta`` per cell as float64 NumPy),
+    the solution ``u`` (n_dofs, 1), the PCG record, the level's mesh and
+    basis, and the host seconds of its parts: ``tables`` (the bases and the
+    BSR structure), ``solve`` (assembly, preconditioner set-up and PCG),
+    ``estimator``, and in ``adaptive_dfn`` also ``refine`` (the marking and
+    refinement that made this level's mesh, 0 at the first level)."""
+
+    n_dofs: int
+    energy: float
+    eta: np.ndarray
+    u: torch.Tensor
+    info: PCGInfo
+    mesh: object
+    basis: FractureNetworkBasis
+    seconds: dict
+
+
+def _now(device) -> float:
+    """Host clock after the device's queued work has finished."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def _stiffness(basis):
+    return basis.v_grad @ basis.v_grad.mT
+
+
+def _unit_load(basis):
+    return basis.v
+
+
+def adaptive_dfn_level(mesh, *, tol: float = 1e-10) -> AdaptiveLevel:
+    """Solve ``-Δu = 1`` on the network ``mesh`` (P1, ``ElementTri(1, 2)``)
+    to the relative residual ``tol`` and estimate the error per cell.
+
+    The indicator of cell T is ``eta_T^2 = 3 h_T^2 |T| + sum_E h_E / 2
+    ||[du_h/dn]||^2_E`` over its interior edges E, as the example computes
+    it (its bulk term sums the three shape functions' weights); ``h_E`` is
+    the lifted 3D edge length and ``n`` the lifted unit normal.
+    """
+    t0 = _now(mesh.device)
+    V = FractureNetworkBasis(mesh, ElementTri(1, 2))
+    V_edges = InteriorEdgesNetworkBasis(mesh, ElementLine(1, 2))
+    get_bsr_structure(V, max_b=default_max_b(V), want_entry_slot=False)  # cached on V
+    t1 = _now(mesh.device)
+    b = V.integrate_linear_form(_unit_load)
+    u, info = V.solve_iterative(
+        V.integrate_bilinear_form_local(_stiffness), b, tol=tol,
+        precondition="two_level", symmetric_form=True, return_info=True,
+    )
+    t2 = _now(mesh.device)
+    h_T = mesh["cells", "length"]
+    bulk = V.integrate_functional(lambda basis: h_T**2 * 1.0**2 * basis.v**0).reshape(-1)
+    _, ug_edges = V.interpolate(V_edges, u)
+    n_E = mesh["interior_edges", "normals_3d"][..., None, :, :]
+    ec = mesh["interior_edges", "coordinates_3d"]
+    h_E = torch.linalg.vector_norm(ec[:, 1] - ec[:, 0], dim=-1)[:, None, None, None]
+
+    def edge_term(basis):
+        jump = (ug_edges[:, 0] * n_E).sum(-1, keepdim=True) + (
+            ug_edges[:, 1] * -n_E
+        ).sum(-1, keepdim=True)
+        return h_E * jump**2
+
+    half = 0.5 * V_edges.integrate_functional(edge_term).reshape(-1)
+    cells = V_edges._adjacent_cells()
+    eta2 = bulk.index_add(0, cells[:, 0], half).index_add(0, cells[:, 1], half)
+    eta = torch.sqrt(eta2).to(torch.float64).cpu().numpy()
+    energy = float(torch.dot(u[:, 0], b[:, 0]))
+    t3 = _now(mesh.device)
+    return AdaptiveLevel(
+        V.n_dofs, energy, eta, u, info, mesh, V,
+        {"tables": t1 - t0, "solve": t2 - t1, "estimator": t3 - t2},
+    )
+
+
+def adaptive_dfn(
+    mesh, levels: int = 3, theta: float = 0.5, *, tol: float = 1e-10
+) -> Iterator[AdaptiveLevel]:
+    """Yield ``levels`` levels of the estimator-driven loop from ``mesh``:
+    solve and estimate, then refine the Dörfler set of ``theta``
+    (``dorfler_mark``, ``FractureNetworkMesh.refined``) before the next
+    level. Each level is yielded before the next mesh is made."""
+    refine = 0.0
+    for level in range(levels):
+        lv = adaptive_dfn_level(mesh, tol=tol)
+        lv.seconds["refine"] = refine
+        yield lv
+        if level + 1 < levels:
+            t0 = _now(mesh.device)
+            mesh = mesh.refined(dorfler_mark(lv.eta, theta))
+            refine = _now(mesh.device) - t0

@@ -27,6 +27,16 @@ previous epoch's Gram iterate warm-starting the next through
 ``Model(training_state0=...)``. Its full size is h=0.1 (19,680 cells,
 9,795 DOFs).
 
+``make_posteriori_rvpinn`` is the counterpart of
+``examples/example_weak_plus_posterri.py`` at ``make_rvpinn``'s size: the
+same RVPINN loss plus the a-posteriori estimator of the network,
+``r^T G^{-1} r + sum_T h_T^2 (f + Δu_θ)^2 + sum_E h_E [grad u_θ . n]^2``,
+the jump taken from the two-sided traces of the network's nodal
+interpolant onto ``InteriorEdgesBasis(ElementLine(1, 2))``
+(``examples/common.py:make_edge_jump``). The Gram is K5's, as in
+``make_rvpinn``; ``weak=False`` drops the weak term, which is the loss of
+``examples/example_jump.py``.
+
 ``make_two_fracture`` is the counterpart of ``__graft_entry__.py``'s
 ``_build_problem``: two isometric fracture charts of ``rectangle(2n, n)``
 glued along their trace, ``ElementTri(1, 2)``, a 3 -> 16 MLP with 3 hidden
@@ -42,8 +52,8 @@ import numpy as np
 import torch
 
 from . import config
-from .basis import Basis, FractureBasis, FractureNetworkBasis
-from .element import ElementTri
+from .basis import Basis, FractureBasis, FractureNetworkBasis, InteriorEdgesBasis
+from .element import ElementLine, ElementTri
 from .mesh import FractureNetworkMesh, FracturesTri, MeshTri, rectangle, unit_square
 from .models import FeedForwardNeuralNetwork, Model
 from .ops.kernels import p1_local_stiffness_load
@@ -155,6 +165,103 @@ def make_rvpinn(
         progress_bar=False,
     )
     return RVPINN(mesh, V, net, gram_inv, exact_norm, training_step, model)
+
+
+# -- the RVPINN with the a-posteriori estimator --------------------------------
+
+
+def _rhs(x, y):
+    return 2.0 * math.pi**2 * torch.sin(math.pi * x) * torch.sin(math.pi * y)
+
+
+class PosterioriRVPINN(NamedTuple):
+    mesh: MeshTri
+    basis: Basis
+    edges: InteriorEdgesBasis
+    network: FeedForwardNeuralNetwork
+    gram_inv: torch.Tensor
+    exact_norm: torch.Tensor
+    loss_terms: Callable  # net -> (weak, bulk, jump), each a scalar tensor
+    training_step: Callable
+    model: Model
+
+
+def make_posteriori_rvpinn(
+    n: int = N,
+    width: int = WIDTH,
+    depth: int = DEPTH,
+    weak: bool = True,
+    *,
+    epochs: int = EPOCHS,
+    seed: int = 0,
+    device=None,
+    dtype: torch.dtype | None = None,
+) -> PosterioriRVPINN:
+    """The estimator RVPINN: ``make_rvpinn``'s mesh, basis, seeded network
+    and K5-built Gram inverse, the interior-edge basis, and an Adam
+    ``Model`` at 1e-3 on the loss ``weak + bulk + jump`` (``bulk + jump``
+    with ``weak=False``).
+
+    ``loss_terms(net)`` returns the three terms; ``training_step(net)``
+    returns ``(loss, relative, h1_error)`` with the two metrics (``sqrt(loss)
+    / ||u||^2`` and the relative H1 error, as the examples report them)
+    computed under ``torch.no_grad()``. ``device`` defaults to the card,
+    ``dtype`` to ``config.default_dtype()``.
+    """
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_dtype()
+    mesh = MeshTri(unit_square(n=n), device=device, dtype=dtype)
+    V = Basis(mesh, ElementTri(1, 4))
+    V_edges = InteriorEdgesBasis(mesh, ElementLine(1, 2))
+    net = FeedForwardNeuralNetwork(
+        2, 1, depth, width, boundary_condition_modifier=_unit_square_bc, seed=seed,
+        device=device, dtype=dtype,
+    )
+    gram_inv = rvpinn_gram_inverse(V) if weak else None
+    exact_norm = torch.sqrt(V.integrate_functional(_h1_exact).sum())
+
+    _, interp_to_edges_grad = V.interpolate(V_edges)
+    h_T = mesh["cells", "length"]
+    h_E = mesh["interior_edges", "length"][..., None, :, :]
+    n_E = mesh["interior_edges", "normals"][..., None, :, :]
+
+    def jump(_, normals, edge_size, net):
+        grad = interp_to_edges_grad(net)
+        return edge_size * (
+            (grad[:, 0] * normals).sum(-1, keepdim=True)
+            + (grad[:, 1] * -normals).sum(-1, keepdim=True)
+        ) ** 2
+
+    def bulk(basis, triangle_size, net):
+        pts = basis.integration_points
+        x, y = pts[..., 0:1], pts[..., 1:2]
+        return triangle_size**2 * (_rhs(x, y) + net.laplacian(pts)) ** 2
+
+    def loss_terms(net):
+        if weak:
+            r = V.reduce(V.integrate_linear_form(_residual, net.gradient))
+            weak_term = (r.T @ (gram_inv @ r))[0, 0]
+        else:
+            weak_term = torch.zeros((), dtype=dtype, device=device)
+        jump_term = V_edges.integrate_functional(jump, n_E, h_E, net).sum()
+        bulk_term = V.integrate_functional(bulk, h_T, net).sum()
+        return weak_term, bulk_term, jump_term
+
+    def training_step(net):
+        weak_term, bulk_term, jump_term = loss_terms(net)
+        loss = weak_term + (jump_term + bulk_term) if weak else jump_term + bulk_term
+        with torch.no_grad():
+            relative = torch.sqrt(loss) / exact_norm**2
+            h1_err = torch.sqrt(V.integrate_functional(_h1_norm, net, net.gradient).sum())
+        return loss, relative, h1_err / exact_norm
+
+    model = Model(
+        net, training_step, epochs=epochs, optimizer_kwargs={"lr": LEARNING_RATE},
+        progress_bar=False,
+    )
+    return PosterioriRVPINN(
+        mesh, V, V_edges, net, gram_inv, exact_norm, loss_terms, training_step, model
+    )
 
 
 # -- the seven-fracture DFN RVPINN -------------------------------------------

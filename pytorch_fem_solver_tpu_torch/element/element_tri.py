@@ -2,7 +2,7 @@
 
 Counterpart of ``pytorch_fem_solver_tpu/element/element_tri.py``, limited to
 the P1 shape functions the DFN main path uses; P2/P3 raise (ROADMAP.md,
-queue A12). Symmetric Gauss rules of degree 1-5 come from
+queue A item 6). Symmetric Gauss rules of degree 1-5 come from
 ``element.quadrature``; the 2x2 determinant and inverse of the affine map
 are analytic.
 """
@@ -22,7 +22,7 @@ class ElementTri(AbstractElement):
         if int(polynomial_order) != 1:
             raise NotImplementedError(
                 "the port has P1 triangles only; P2/P3 are queued in "
-                "ROADMAP.md (A12)"
+                "ROADMAP.md (queue A, item 6)"
             )
         super().__init__(polynomial_order, integration_order)
 

@@ -8,6 +8,7 @@ from .mesh_tri import MeshTri
 from .meshes_tri import MeshesTri
 from .pslg import triangulate_pslg
 from .quality import triangle_min_angles
+from .refinement import dorfler_mark, refine_adaptive, refine_network_adaptive
 
 __all__ = [
     "FractureNetworkMesh",
@@ -15,8 +16,11 @@ __all__ = [
     "MeshTri",
     "MeshesTri",
     "build_fracture_network",
+    "dorfler_mark",
     "fit_affine_maps",
     "rectangle",
+    "refine_adaptive",
+    "refine_network_adaptive",
     "refine_uniform",
     "triangle_min_angles",
     "triangulate_pslg",

@@ -4,7 +4,8 @@ Counterpart of ``pytorch_fem_solver_tpu/mesh/fracture_network.py``.
 Fractures of different sizes are concatenated along one flat cell axis with
 per-cell fracture ids; the cross-fracture glue (3D vertex dedup -> global
 DOF ids) happens here at construction, on the host, and the result is moved
-to the device once.
+to the device once. The host triangulations stay on the mesh (``_sources``)
+for ``refined``.
 """
 
 from __future__ import annotations
@@ -236,12 +237,40 @@ class FractureNetworkMesh(MeshTri):
             },
         }
         self._t = _freeze(groups, device, dtype or config.default_dtype())
+        # host-side rebuild sources for adaptive refinement, kept as NumPy
+        # wherever the tensors live (a mesh built from its groups alone,
+        # as ``interop.mesh_from_numpy`` does, has none and cannot be
+        # refined)
+        self._sources = {
+            "triangulations": [
+                {"vertices": v, "triangles": tr, "vertex_labels": lab}
+                for v, tr, lab in zip(verts_list, tris_list, labels_list)
+            ],
+            "corners_3d": corners_3d,
+            "anchors_2d": anchors,
+            "tol": tol,
+        }
 
     def refined(self, marked) -> "FractureNetworkMesh":
-        raise NotImplementedError(
-            "adaptive DFN refinement (mesh/refinement.py:"
-            "refine_network_adaptive) is not ported yet; see ROADMAP.md, "
-            "queue A12"
+        """Adaptively refined copy on the same device and dtype: bisect the
+        marked cells (flat cell axis), conforming across fractures (see
+        ``mesh.refinement``), rebuilt from the host triangulations."""
+        sources = getattr(self, "_sources", None)
+        if sources is None:
+            raise ValueError(
+                "this mesh was built from its tables alone; adaptive "
+                "refinement needs the original host-side triangulations"
+            )
+        from .refinement import refine_network_adaptive
+
+        tris = refine_network_adaptive(sources["triangulations"], self, marked)
+        return FractureNetworkMesh(
+            tris,
+            sources["corners_3d"],
+            anchor_vertices_2d=sources["anchors_2d"],
+            tol=sources["tol"],
+            device=self.device,
+            dtype=self.dtype,
         )
 
     @property

@@ -140,9 +140,26 @@ class MeshTri:
             self._t[key] = value
 
     def refined(self, marked):
-        raise NotImplementedError(
-            "adaptive refinement (mesh/refinement.py) is not ported yet; "
-            "see ROADMAP.md, queue A12"
+        """Adaptively refined copy on the same device and dtype: conforming
+        longest-edge bisection of the marked cells (``mesh.refinement``),
+        built from the host copies of this mesh's tables. Mirrors
+        ``FractureNetworkMesh.refined`` so estimator-driven loops read the
+        same on every mesh family."""
+        from .refinement import _host, refine_adaptive
+
+        cells = _host(self["cells", "vertices"])
+        if cells.shape[-1] == 4:
+            raise NotImplementedError(
+                "adaptive refinement of tetrahedra (refine_adaptive_tet) is "
+                "queued in ROADMAP.md (queue A, item 6)"
+            )
+        tri = {
+            "vertices": _host(self["vertices", "coordinates"]),
+            "vertex_markers": _host(self["vertices", "markers"]),
+            "triangles": cells,
+        }
+        return type(self)(
+            refine_adaptive(tri, marked), device=self.device, dtype=self.dtype
         )
 
     # -- sizes ------------------------------------------------------------

@@ -129,8 +129,13 @@ def test_collinear_anchors_raise():
 
 
 def test_unported_parts_raise(problems):
-    _, port = problems
-    with pytest.raises(NotImplementedError, match="A12"):
-        port.basis.interpolate(port.basis)
-    with pytest.raises(NotImplementedError, match="A12"):
+    (_, jV, _, _), port = problems
+    # FractureBasis.interpolate onto itself is ported: values and gradients
+    # of a global DOF vector equal JAX's
+    u = np.random.default_rng(2).standard_normal((port.basis.n_dofs, 1))
+    vals, grads = port.basis.interpolate(port.basis, torch.tensor(u))
+    ref_vals, ref_grads = jV.interpolate(jV, jax.numpy.asarray(u))
+    assert _rel(vals.numpy(), ref_vals) <= 1e-13
+    assert _rel(grads.numpy(), ref_grads) <= 1e-13
+    with pytest.raises(NotImplementedError, match="item 6"):
         pt.ElementTri(2, 2)

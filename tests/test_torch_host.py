@@ -219,8 +219,15 @@ def test_mesh_from_numpy_and_dtype_move(meshes):
 
 
 def test_unported_refinement_raises(meshes):
-    _, pm = meshes
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pm.refined(np.zeros(pm.n_cells, dtype=bool))
+    jm, pm = meshes
+    # adaptive refinement is ported: the refined benchmark network is JAX's,
+    # every table byte-identical, on the same device and dtype
+    marked = np.zeros(pm.n_cells, dtype=bool)
+    marked[::7] = True
+    fine, ref = pm.refined(marked), jm.refined(marked)
+    assert fine.n_cells == ref.n_cells > pm.n_cells and fine.dtype == torch.float64
+    ours = dict(_flatten(fine._t))
+    for key, value in _flatten(ref._t):
+        np.testing.assert_array_equal(ours[key].numpy(), np.asarray(value), err_msg=str(key))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.ElementTri(2, 4)
