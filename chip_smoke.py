@@ -130,7 +130,37 @@ Phases (any failure exits non-zero and prints no result):
     both on every refined level; at level 0 the energy is within 1e-4 and
     eta within 1e-4 (max relative) of a float64 level on the card at tol
     1e-10, and both etas give the same Dörfler marks, while a level solved
-    only to 1e-2 (the control) fails both the residual and the eta bound.
+    only to 1e-2 (the control) fails both the residual and the eta bound;
+16. the higher-order compiled solves (``p3_poisson`` and ``dfn_p2_solve``
+    of the port's ``bench.py``): P3 on ``rectangle(105, 105)`` (22,050
+    cells, 99,856 DOFs; ``tools/exp_solver_tier.py``'s "p3" phase, the sine
+    problem) and P2 on phase 13's h=0.1 network (the DFN stiffness and unit
+    load), each in float32 with a float64 twin on the card, PCG to 1e-6:
+    counts reset before the solve, K2 launched once per iteration and once
+    for the start; the PCG residual; the true residual in float64 against a
+    COO operator (phase 15's bound); f32 within 1e-4 of f64 beyond twice
+    the float32 floor (the float32 element matrices solved in float64 to
+    1e-12: 8.7e-4 at P3, so no float32 solve gets within 1e-4 there), a
+    float32 solve to 1e-2 rejected by that bound where the floor is below
+    1e-4 (at P3 it lies at the floor too: reported, with the float32 solves
+    at 1e-3, 1e-4 and 1e-5 beside it), the f32 iterations at
+    most 3 above the f64 count and within 1 of the same solve with the
+    plain SpMV; K2 against its plain version on each structure (most
+    block-rows of the P3 structure spill into tier 2), two launches bitwise
+    equal; the median wall of 5 solves, one profiled solve (device ms by
+    kernel, K2's us per launch beside its byte bound for the structure, the
+    idle share) and the host seconds of the basis and the tables; on the
+    network every trace edge keeps a single midpoint DOF;
+17. the patch RVPINN (``make_patches_rvpinn`` of the port's
+    ``bench_vpinn.py``, ``examples/example_patches.py``) at the example's
+    64 patches and at 4,096 (``levels=6``), float32, 50 epochs through
+    ``train()`` and ``train_compiled(10)``: K5 launched in the setup (the
+    two batched Grams) and never per epoch, finite decreasing losses, the
+    loops within 1e-4, the first 10 epochs within 1e-2 of float64 (64
+    patches), the K5 Grams against ``integrate_bilinear_form`` +
+    ``reduce`` in float64 (1e-12), K5 against its plain version on the
+    patch cells; s/epoch, launches per epoch and the idle share at both
+    sizes (``patch_rvpinn_s_per_epoch`` line).
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
@@ -233,6 +263,15 @@ L2_BYTES = 50 * 2**20
 # device cycles spun per launch queued behind the spin of a stream figure
 # (about 0.5 ms each: several times what the host takes to enqueue one)
 STREAM_SPIN_CYCLES = 1_000_000
+P3_N = 105  # tools/exp_solver_tier.py's "p3" phase: rectangle(105, 105), ElementTri(3, 5)
+P3_SIZE = (22_050, 99_856)  # its cells and DOFs
+P2_DFN_SIZE = (19_680, 39_267)  # cells and P2 DOFs of the h=0.1 benchmark network
+HIGHER_ORDER_REPEATS = 5
+ITER_GAP = 3  # the f32 iteration count at most this many above the f64 count
+F32_VS_F64 = 1e-4  # f32 vs f64 solution, beyond twice the float32 operator floor
+LADDER_TOLS = (1e-2, 1e-3, 1e-4, 1e-5)  # looser f32 solves; the first is the control
+PATCH_LEVELS_DEEP = 6  # 4,096 patches, 16,384 cells
+PATCH_BLOCK = 10
 
 failures: list[str] = []
 # name -> one launch at the benchmark shapes, registered by the phases for
@@ -435,6 +474,14 @@ def _csr_of(st, values):
     return a.coalesce().to_sparse_csr()
 
 
+def _k2_bytes_flops(st):
+    """Bytes and operations of one float32 SpMV on ``st``: every stored
+    block and its column, the two per-row tables (row_blocks, heavy_rank),
+    x read and y written; 2 x 64 operations per stored block."""
+    n_stored = int(st.blk_id_host.size)
+    return n_stored * (64 * 4 + 4) + 2 * st.nb * 4 + 2 * st.n_pad * 4, 2 * 64 * n_stored
+
+
 def _check_k2(tag, st, values64, x64):
     """K2 against its plain version in f64 and f32, two launches bitwise
     equal, one launch counted per product; the f32 max absolute error."""
@@ -515,10 +562,8 @@ def phase_k2(st, values64):
     stored1 = int((st.blk_id_host < nb * B).sum())
     log(f"K2 tiers: tier 1 (nb={nb}, B={B}) {stored1} of {nb * B} slots stored; "
         f"tier 2 (nh={nh}, B2={B2}) {n_stored - stored1} of {nh * B2} slots stored")
-    # every stored block and its column, the two per-row tables (row_blocks,
-    # heavy_rank) and the two vectors, in f32 words
-    n_bytes = n_stored * (64 * 4 + 4) + 2 * nb * 4 + 2 * st.n_pad * 4
-    b_ms, by = bound_ms(n_bytes, 2 * 64 * n_stored)
+    n_bytes, n_flops = _k2_bytes_flops(st)
+    b_ms, by = bound_ms(n_bytes, n_flops)
     # what the kernel's loads ask of memory: the same, but the column tables
     # come in 32-byte sectors, so a row's last sector brings padded slots
     counts = st.row_blocks.cpu().numpy().astype(np.int64)
@@ -1628,6 +1673,325 @@ def phase_adaptive(card, mesh32, mesh64):
     return k2_total
 
 
+# -- phase 16: the higher-order compiled solves ----------------------------------
+
+
+def _single_trace_dofs(V):
+    """(trace edges, trace edges with a single P2 midpoint DOF): the global
+    edges of the glued network that cells of two or more fractures hold,
+    and how many of them carry one midpoint DOF id in all those cells.
+    Host NumPy."""
+    gids = V.mesh["global", "ids"].cpu().numpy()[:, 0]
+    cells = gids[V.mesh["cells", "vertices"].cpu().numpy()]
+    pairs = np.sort(cells[:, [[0, 1], [1, 2], [0, 2]]], axis=-1).reshape(-1, 2)
+    frac = np.repeat(V.mesh["cells", "fracture"].cpu().numpy()[:, 0], 3)
+    mids = V._global_dofs4elements.cpu().numpy()[:, 3:6].reshape(-1)
+    _, edge = np.unique(pairs, axis=0, return_inverse=True)
+    edge = edge.reshape(-1)
+
+    def distinct_per_edge(values):
+        return np.bincount(np.unique(np.stack([edge, values], 1), axis=0)[:, 0])
+
+    trace = distinct_per_edge(frac) >= 2
+    return int(trace.sum()), int((trace & (distinct_per_edge(mids) == 1)).sum())
+
+
+def _higher_order_case(tag, make, load, size, card):
+    """One higher-order compiled solve of phase 16: ``make(dtype, tol)``
+    builds the basis and its tables and solves once
+    (``bench.HigherOrderSolve``) on the card. Returns the case's figures
+    and the float32 solve."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import _stiffness
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+    from pytorch_fem_solver_tpu_torch.ops.bsr import (
+        _bsr_spmv_plain,
+        bsr_diagonal,
+        bsr_expand,
+        bsr_matvec,
+        bsr_reduce,
+        bsr_values_from_local_symmetric,
+        default_max_b,
+        get_bsr_structure,
+    )
+    from pytorch_fem_solver_tpu_torch.ops.compiled import aggblock_setup, bsr_pcg
+    from pytorch_fem_solver_tpu_torch.ops.solvers import pcg
+
+    cuda_build.reset_launch_counts()
+    r = make(torch.float32, TOL)
+    torch.cuda.synchronize()
+    k2 = cuda_build.launch_counts["bsr_spmv"]
+    V, info = r.basis, r.info
+    st = get_bsr_structure(V, max_b=default_max_b(V), want_entry_slot=False)  # the solve's
+    (nb, B), (nh, B2) = st.bcols.shape, st.bcols2.shape
+    n_stored = int(st.blk_id_host.size)
+    cells = int(V._global_dofs4elements.shape[0])
+    log(f"{tag}: cells={cells} dofs={V.n_dofs} n_pad={st.n_pad} tier 1 (nb={nb}, B={B}), "
+        f"tier 2 (nh={nh}, B2={B2}): {nh} of {nb} block-rows spill; {n_stored} stored blocks")
+    check((cells, V.n_dofs) == size, f"{tag}: cells and DOFs {(cells, V.n_dofs)} == {size}")
+    b = V.integrate_linear_form(load)
+    rel = float(info.residual_norm / V.reduce(b).norm())
+    check(bool(info.converged) and rel <= TOL, f"{tag}: PCG residual {rel:.3e} <= {TOL:g} "
+          f"in {info.iterations} iterations")
+    check(k2 == info.iterations + 1, f"{tag}: K2 launches {k2} == iterations {info.iterations} "
+          "+ 1 (one per iteration and one for the start)")
+    check(bool(torch.isfinite(r.u).all()) and r.u.shape == (V.n_dofs, 1),
+          f"{tag}: solution finite, shape {tuple(r.u.shape)}")
+    true_rel, rounding = _true_residual(V, r.u, b)
+    bound = TOL + ADAPTIVE_ROUNDING * rounding
+    check(true_rel <= bound, f"{tag}: true residual ||b - A u|| / ||b|| (COO operator, float64) "
+          f"{true_rel:.3e} <= {TOL:g} + {ADAPTIVE_ROUNDING:g} x rounding scale {rounding:.3e}")
+
+    r64 = make(torch.float64, TOL)
+    iters64 = r64.info.iterations
+
+    def rel64(u):
+        return float((u.double() - r64.u).norm() / r64.u.norm())
+
+    # the float32 floor: this basis's float32 element matrices and load,
+    # solved in float64 to 1e-12 on the same structure. No float32 solve
+    # comes closer to the float64 solution than this operator's own.
+    values_op = bsr_values_from_local_symmetric(st, V.integrate_bilinear_form_local(_stiffness).double())
+    x_op, info_op = bsr_pcg(st, "auto", tol=1e-12)(values_op, bsr_reduce(st, b.double()))
+    floor = rel64(bsr_expand(st, x_op, V.n_dofs))
+    del values_op, x_op
+    diff = rel64(r.u)
+    bound = F32_VS_F64 + 2 * floor
+    check(diff <= bound, f"{tag}: f32 vs f64 solution on the card, rel L2 {diff:.3e} <= "
+          f"{F32_VS_F64:g} + 2 x the float32 operator floor {floor:.3e} (its float32 element "
+          f"matrices solved in float64 to 1e-12, {info_op.iterations} iterations)")
+    # the same f32 solve with the plain SpMV in place of K2: the kernel
+    # neither costs nor saves iterations
+    values32 = bsr_values_from_local_symmetric(st, V.integrate_bilinear_form_local(_stiffness))
+    diag32 = bsr_diagonal(st, values32)
+    _, info_plain = pcg(
+        lambda v: _bsr_spmv_plain(st.bcols, values32[0], v, st.bcols2, values32[1], st.heavy_rows),
+        bsr_reduce(st, b), precond_diag=diag32, precond=aggblock_setup(st)(values32, diag32), tol=TOL,
+    )
+    del values32
+    check(abs(info.iterations - info_plain.iterations) <= 1, f"{tag}: f32 iterations with K2 "
+          f"{info.iterations}, with the plain SpMV {info_plain.iterations} (within 1)")
+    check(info.iterations <= iters64 + ITER_GAP, f"{tag}: f32 iterations {info.iterations} at "
+          f"most {ITER_GAP} above f64's {iters64} (gap {info.iterations - iters64:+d})")
+    # the float32 solve at looser tolerances: where it reaches the floor;
+    # the loosest is the control
+    ladder = []
+    for tol in LADDER_TOLS:
+        rt = make(torch.float32, tol)
+        ladder.append({"tol": tol, "iterations": rt.info.iterations, "f32_vs_f64": rel64(rt.u),
+                       "true_residual": _true_residual(V, rt.u, b)[0]})
+    log(f"{tag}: f32 tolerance ladder (tol, iterations, f32 vs f64, true residual): "
+        + "; ".join(f"{e['tol']:g} {e['iterations']} {e['f32_vs_f64']:.3e} {e['true_residual']:.3e}"
+                    for e in ladder))
+    ctl_diff = ladder[0]["f32_vs_f64"]
+    what = (f"{tag}: control solved to {ladder[0]['tol']:g} ({ladder[0]['iterations']} "
+            f"iterations) against the f32-vs-f64 bound: {ctl_diff:.3e} vs {bound:.3e}")
+    if floor <= F32_VS_F64:
+        check(ctl_diff > bound, what + " (must fail it)")
+    else:
+        # every float32 solve from the control's tolerance on already lies
+        # at the float32 floor, in every solution norm: nothing separates
+        # them, so the control is reported, not held
+        log(what + f"; the float32 floor {floor:.3e} exceeds {F32_VS_F64:g}, so no solution "
+            "norm separates the control from the solve: reported, not held")
+
+    # K2 against its plain version on this structure
+    local64 = r64.basis.integrate_bilinear_form_local(_stiffness)
+    values64 = bsr_values_from_local_symmetric(st, local64)
+    x64 = torch.as_tensor(np.random.default_rng(SEED + 16).standard_normal(st.n_pad), device=DEVICE)
+    max_abs = _check_k2(tag, st, values64, x64)
+    vals32 = tuple(v.to(torch.float32).contiguous() for v in values64)
+    x32 = x64.to(torch.float32)
+    del r64, local64, values64
+    ms = time_ms(lambda: bsr_matvec(st, vals32, x32))
+    plain_ms = time_ms(
+        lambda: _bsr_spmv_plain(st.bcols, vals32[0], x32, st.bcols2, vals32[1], st.heavy_rows)
+    )
+    n_bytes, n_flops = _k2_bytes_flops(st)
+    b_ms, by = bound_ms(n_bytes, n_flops)
+
+    walls = [_timed(r.solve) for _ in range(HIGHER_ORDER_REPEATS)]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall = _timed(r.solve)
+    kernels, device_ms = _device_kernels(prof, 1)
+    k2_rows = [(us, count) for us, count, name in kernels if "bsr_spmv" in name]
+    k2_us = k2_rows[0][0] / k2_rows[0][1] if k2_rows else float("nan")
+    check(bool(k2_rows), f"{tag}: the profiled solve shows K2 on the device")
+    figures = {
+        "case": tag, "cells": cells, "dofs": V.n_dofs, "n_pad": st.n_pad, "nb": nb, "B": B,
+        "nh": nh, "B2": B2, "stored_blocks": n_stored, "iterations": info.iterations,
+        "iterations_f64": iters64, "iterations_plain_spmv": info_plain.iterations,
+        "rel_residual": rel, "true_residual": true_rel, "rounding_scale": rounding,
+        "f32_vs_f64": diff, "f32_operator_floor": floor, "tolerance_ladder": ladder,
+        "k2_launches": k2, "median_wall_ms": 1e3 * float(np.median(walls)),
+        "walls_ms": [1e3 * w for w in walls], "profiled_wall_ms": 1e3 * wall,
+        "device_ms": device_ms, "idle_share": 1 - device_ms / (1e3 * wall),
+        "k2_us_per_launch_in_solve": k2_us, "k2_ms": ms, "k2_plain_ms": plain_ms,
+        "k2_bound_ms": b_ms, "k2_bound_by": by, "k2_max_abs_err": max_abs,
+        "host_s": r.seconds, "card": card,
+    }
+    log(f"{tag}: median wall {figures['median_wall_ms']:.3f} ms over {HIGHER_ORDER_REPEATS} solves "
+        f"{['%.3f' % w for w in figures['walls_ms']]}, {info.iterations} iterations, K2 launches {k2}; "
+        f"profiled solve: wall {1e3 * wall:.3f} ms, device {device_ms:.3f} ms, idle share "
+        f"{figures['idle_share']:.3f}, {sum(k[1] for k in kernels):.0f} launches; K2 in the solve "
+        f"{k2_us:.3f} us per launch, alone {1e3 * ms:.3f} us (plain {1e3 * plain_ms:.3f} us), bound "
+        f"{1e3 * b_ms:.3f} us by {by}; host s: basis {r.seconds['basis']:.3f}, tables "
+        f"{r.seconds['tables']:.3f}, first solve {r.seconds['solve']:.3f}")
+    log("device ms/solve  launches/solve  kernel")
+    for us, count, name in kernels[:12]:
+        log(f"{us / 1e3:14.4f}  {count:14.1f}  {name[:110]}")
+    return figures, r
+
+
+def phase_higher_order(card):
+    """Phase 16: the P3 compiled solve at full size and the P2 DFN solve."""
+    import torch
+
+    import pytorch_fem_solver_tpu_torch as pt
+    from pytorch_fem_solver_tpu_torch.bench import _sine_load, _unit_load, dfn_p2_solve, p3_poisson
+
+    p3, _ = _higher_order_case(
+        f"P3 rectangle({P3_N}, {P3_N})",
+        lambda dtype, tol: p3_poisson(P3_N, tol=tol, device=DEVICE, dtype=dtype),
+        _sine_load, P3_SIZE, card,
+    )
+    meshes = {torch.float64: pt.build_benchmark_network(DFN_H, device=DEVICE, dtype=torch.float64)}
+    meshes[torch.float32] = meshes[torch.float64].to(dtype=torch.float32)
+    dfn, r = _higher_order_case(
+        f"P2 DFN h={DFN_H}", lambda dtype, tol: dfn_p2_solve(meshes[dtype], tol=tol),
+        _unit_load, P2_DFN_SIZE, card,
+    )
+    n_trace, n_single = _single_trace_dofs(r.basis)
+    check(n_trace > 0 and n_single == n_trace, f"P2 DFN: {n_single} of {n_trace} trace edges have "
+          "a single midpoint DOF")
+    dofs = r.basis._global_dofs4elements
+    check(int(dofs.max()) + 1 == r.basis.n_dofs, f"P2 DFN: every DOF id is used "
+          f"({int(dofs.max()) + 1} == {r.basis.n_dofs})")
+    log(json.dumps({"metric": "higher_order_solves", "tol": TOL, "cases": [p3, dfn]}))
+    return p3["k2_launches"], dfn["k2_launches"]
+
+
+# -- phase 17: the patch RVPINN --------------------------------------------------
+
+
+def _check_k5_patches(tag, coords64):
+    """K5 against its plain version on the (T, 3, 2) patch cells, float64
+    (1e-12) and float32 (1e-5), relative to each output row's max; a row
+    that is zero in every cell (a patch's right angles sit at the same
+    local vertices, so some stiffness entries vanish everywhere) relative
+    to the largest row's. Returns the float32 max absolute error."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops.kernels import p1_element_2d
+
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        c = coords64.to(dtype).contiguous()
+        out = p1_element_2d(c, None)
+        ref = _k5_plain(c, None)
+        torch.cuda.synchronize()
+        row_max = ref.abs().amax(dim=1)
+        scale = torch.where(row_max > 0, row_max, row_max.max())
+        err = float(((out - ref).abs().amax(dim=1) / scale).max())
+        check(bool(torch.isfinite(out).all()) and err <= tol,
+              f"K5 {tag} {dtype} vs plain: rel err {err:.3e} <= {tol:g}")
+    return float((out - ref).abs().max())
+
+
+def phase_patches(card):
+    """Phase 17: the patch RVPINN at the example's size and deeper."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench_vpinn import (
+        EPOCHS,
+        PATCH_LEVELS,
+        make_patches_rvpinn,
+        patch_gram,
+    )
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+
+    f32 = torch.float32
+    warm = make_patches_rvpinn(epochs=2, device=DEVICE, dtype=f32)
+    warm.model.train()
+    warm.model.train_compiled(2)
+
+    setup_launches, rows = None, []
+    for levels in (PATCH_LEVELS, PATCH_LEVELS_DEEP):
+        tag = f"patch RVPINN levels={levels}"
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        eager = make_patches_rvpinn(levels, device=DEVICE, dtype=f32)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        setup = dict(cuda_build.launch_counts)
+        setup_launches = setup_launches or setup
+        cuda_build.reset_launch_counts()
+        eager_s = _timed(eager.model.train) / EPOCHS
+        k5_eager = cuda_build.launch_counts["p1_element_2d"]
+        losses = eager.model.get_training_history()[0]
+        blocked = make_patches_rvpinn(levels, device=DEVICE, dtype=f32)
+        cuda_build.reset_launch_counts()
+        blocked_s = _timed(lambda: blocked.model.train_compiled(PATCH_BLOCK)) / EPOCHS
+        k5_blocked = cuda_build.launch_counts["p1_element_2d"]
+        blosses = blocked.model.get_training_history()[0]
+        B, T = eager.patches.batch_size()[0], eager.patches.n_cells
+        log(f"{tag}: {B} patches, {B * T} cells, error mesh {eager.error_basis.mesh.n_cells} "
+            f"cells; setup {setup_s:.3f} s, launches {setup}")
+        check(setup["p1_element_2d"] >= 1, f"{tag}: K5 launched in the setup "
+              f"({setup['p1_element_2d']}, one per Gram)")
+        check(k5_eager == 0 and k5_blocked == 0, f"{tag}: K5 never launched per epoch "
+              f"(train() {k5_eager}, train_compiled {k5_blocked})")
+        for name, hist in (("train()", losses), (f"train_compiled({PATCH_BLOCK})", blosses)):
+            check(len(hist) == EPOCHS and bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
+                  f"{tag} {name}: {len(hist)} finite losses, {hist[0]:.6e} -> {hist[-1]:.6e}")
+        diff = _rel_curve(blosses, losses)
+        check(diff <= 1e-4, f"{tag}: train_compiled({PATCH_BLOCK}) vs train() f32 loss history: "
+              f"rel {diff:.3e} <= 1e-4")
+
+        r64 = make_patches_rvpinn(levels, epochs=10, device=DEVICE, dtype=torch.float64)
+        for basis in (r64.basis, r64.validation_basis):
+            gram = patch_gram(basis)
+            ref = basis.reduce(basis.integrate_bilinear_form(lambda b: b.v_grad @ b.v_grad.mT))
+            err = float((gram - ref).abs().max() / ref.abs().max())
+            check(gram.shape == (B, 1, 1) and err <= 1e-12, f"{tag}: K5 Gram vs "
+                  f"integrate_bilinear_form + reduce, float64, {basis.element.integration_order}-"
+                  f"point rule: rel {err:.3e} <= 1e-12")
+        _check_k5_patches(f"{tag} patch cells", r64.patches["cells", "coordinates"].reshape(-1, 3, 2))
+        if levels == PATCH_LEVELS:
+            r64.model.train()
+            d64 = _rel_curve(losses[:10], r64.model.get_training_history()[0])
+            check(d64 <= 1e-2, f"{tag}: f32 vs f64 10-epoch loss history on the card: "
+                  f"rel {d64:.3e} <= 1e-2")
+        del r64
+
+        prof_model = make_patches_rvpinn(levels, epochs=PATCH_BLOCK, device=DEVICE, dtype=f32)
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            wall = _timed(lambda: prof_model.model.train_compiled(PATCH_BLOCK))
+        kernels, device_ms = _device_kernels(prof, PATCH_BLOCK)
+        wall_ms = 1e3 * wall / PATCH_BLOCK
+        launches = sum(k[1] for k in kernels)
+        row = {"levels": levels, "patches": B, "cells": B * T, "setup_s": setup_s,
+               "train_s_per_epoch": eager_s, "train_compiled_s_per_epoch": blocked_s,
+               "block_size": PATCH_BLOCK, "launches_per_epoch": launches,
+               "device_ms_per_epoch": device_ms, "profiled_wall_ms_per_epoch": wall_ms,
+               "idle_share": 1 - device_ms / wall_ms,
+               "idle_share_unprofiled": 1 - device_ms / (1e3 * blocked_s),
+               "loss_first": losses[0], "loss_last": losses[-1]}
+        rows.append(row)
+        log(f"{tag} f32 s/epoch: train() {eager_s:.6e}, train_compiled({PATCH_BLOCK}) "
+            f"{blocked_s:.6e}; profiled block: wall {wall_ms:.3f} ms per epoch, device "
+            f"{device_ms:.3f} ms, idle share {row['idle_share']:.3f} "
+            f"({row['idle_share_unprofiled']:.3f} of the unprofiled epoch), {launches:.0f} "
+            "launches per epoch")
+        log("device ms/epoch  launches/epoch  kernel")
+        for us, count, name in kernels[:10]:
+            log(f"{us / 1e3:14.4f}  {count:14.1f}  {name[:110]}")
+    log(json.dumps({"metric": "patch_rvpinn_s_per_epoch", "epochs": EPOCHS, "sizes": rows,
+                    "card": card}))
+    return setup_launches
+
+
 def phase_two_fracture():
     """Phase 10: the two-fracture RVPINN loss and one Adam step on the card,
     against the same port in float64 on the CPU."""
@@ -1822,6 +2186,10 @@ def main() -> int:
     done("14 estimator RVPINN")
     adaptive_k2 = phase_adaptive(card, mesh32, mesh64)
     done("15 adaptive DFN")
+    p3_k2, dfn_p2_k2 = phase_higher_order(card)
+    done("16 higher order")
+    patch_launches = phase_patches(card)
+    done("17 patch RVPINN")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
     ) + f"; start to tables {marks[0][1] - t_start:.1f}")
@@ -1835,10 +2203,11 @@ def main() -> int:
     k1["launches"] = launches["p1_element_3d"]
     k2["launches"] = launches["bsr_spmv"]
     k2["launches_by_path"] = {"main": launches["bsr_spmv"], "dfn_rvpinn": dfn_launches["bsr_spmv"],
-                              "adaptive_dfn": adaptive_k2}
+                              "adaptive_dfn": adaptive_k2, "p3": p3_k2, "dfn_p2": dfn_p2_k2}
     k5["launches"] = rvpinn_launches["p1_element_2d"]
     k5["launches_by_path"] = {"rvpinn": rvpinn_launches["p1_element_2d"],
-                              "posteriori_rvpinn": posteriori_launches["p1_element_2d"]}
+                              "posteriori_rvpinn": posteriori_launches["p1_element_2d"],
+                              "patches": patch_launches["p1_element_2d"]}
     log(f"K2 launches by path: {k2['launches_by_path']}; K5: {k5['launches_by_path']}")
     for fig, name in zip((k1, k2, k3, k4, k5, k6), ("K1", "K2", "K3", "K4", "K5", "K6")):
         fig["stream_us"] = stream.get(name)  # None where no stream figure is taken

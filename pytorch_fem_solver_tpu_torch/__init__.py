@@ -20,6 +20,7 @@ from .basis import (
     InteriorEdgesBasis,
     InteriorEdgesFractureBasis,
     InteriorEdgesNetworkBasis,
+    PatchesBasis,
 )
 from .element import ElementLine, ElementTri
 from .mesh import (
@@ -27,6 +28,7 @@ from .mesh import (
     FracturesTri,
     MeshesTri,
     MeshTri,
+    Patches,
     build_fracture_network,
     dorfler_mark,
     rectangle,
@@ -49,12 +51,14 @@ __all__ = [
     "BoundaryEdgesBasis",
     "InteriorEdgesBasis",
     "InteriorEdgesFractureBasis",
+    "PatchesBasis",
     "ElementLine",
     "ElementTri",
     "FractureNetworkMesh",
     "FracturesTri",
     "MeshesTri",
     "MeshTri",
+    "Patches",
     "build_fracture_network",
     "dorfler_mark",
     "rectangle",

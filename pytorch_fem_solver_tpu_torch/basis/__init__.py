@@ -1,5 +1,5 @@
-"""Basis layer: P1 assembly on triangle meshes and fracture networks, and
-the edge bases of the jump and flux terms."""
+"""Basis layer: P1-P3 assembly on triangle meshes, fracture networks and
+batched patches, and the edge bases of the jump and flux terms."""
 
 from .abstract_basis import AbstractBasis
 from .basis import Basis
@@ -7,6 +7,7 @@ from .fracture_basis import FractureBasis, build_global_triangulation
 from .fracture_network_basis import FractureNetworkBasis, InteriorEdgesNetworkBasis
 from .interior_edges_basis import BoundaryEdgesBasis, InteriorEdgesBasis
 from .interior_edges_fracture_basis import InteriorEdgesFractureBasis
+from .patches_basis import PatchesBasis
 
 __all__ = [
     "AbstractBasis",
@@ -17,5 +18,6 @@ __all__ = [
     "InteriorEdgesBasis",
     "InteriorEdgesFractureBasis",
     "InteriorEdgesNetworkBasis",
+    "PatchesBasis",
     "build_global_triangulation",
 ]

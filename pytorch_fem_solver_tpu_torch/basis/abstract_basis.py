@@ -26,6 +26,24 @@ import torch
 from .. import config
 
 
+def host(t) -> np.ndarray:
+    """Host NumPy copy of a tensor (or array)."""
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def dof_tables(coords, dofs, markers, like: torch.Tensor):
+    """Host-built P2/P3 DOF tables as ``(coords4global_dofs,
+    global_dofs4elements, nodes4boundary_dofs)`` on ``like``'s device:
+    coordinates in its dtype, DOF ids and ``(..., n, 1)`` markers int32."""
+    index = config.index_dtype()
+    markers = np.asarray(markers).astype(np.int32)
+    return (
+        torch.tensor(np.asarray(coords), dtype=like.dtype, device=like.device),
+        torch.tensor(np.asarray(dofs).astype(np.int32), dtype=index, device=like.device),
+        torch.tensor(markers.reshape(markers.shape + (1,)), dtype=index, device=like.device),
+    )
+
+
 class AbstractBasis(abc.ABC):
     """Couples a mesh and a reference element into an integration op set."""
 

@@ -1,35 +1,84 @@
 """Cell-volume basis on a single triangle mesh.
 
-Counterpart of ``pytorch_fem_solver_tpu/basis/basis.py``, limited to P1
-DOFs (the vertices); P2/P3 DOF maps (ROADMAP.md, queue A item 6) and point
-probing (item 3) are queued. ``interpolate`` evaluates on the basis's own
-quadrature points and takes the two-sided and one-sided traces onto the
-edge bases. Local entry (i, j) lands at global (row_i, col_j), and
-interior-DOF lists are computed on the host once.
+Counterpart of ``pytorch_fem_solver_tpu/basis/basis.py``: the P1, P2 and
+P3 DOF maps of triangles (the tetrahedral P3 branch raises: ROADMAP.md,
+queue A item 6), with point probing queued (item 3). ``interpolate``
+evaluates on the basis's own quadrature points and takes the two-sided and
+one-sided traces onto the edge bases. Local entry (i, j) lands at global
+(row_i, col_j); the DOF tables and interior-DOF lists are computed on the
+host once (NumPy, float64) and move to the mesh's device.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from .abstract_basis import AbstractBasis
+from ..mesh.topology import (
+    TRI_DIRECTED_EDGES,
+    edge_thirds,
+    p2_edge_dirichlet_markers,
+    p3_edge_dofs,
+    unique_edge_ids,
+)
+from .abstract_basis import AbstractBasis, dof_tables, host
 from .interior_edges_basis import InteriorEdgesBasis
 
 
 class Basis(AbstractBasis):
-    """Lagrange P1 basis over mesh cells."""
+    """Lagrange basis over mesh cells: P1 (vertices), P2 (vertices + edge
+    midpoints) or P3 (vertices + two oriented edge nodes + a barycenter
+    bubble per cell)."""
 
     def _compute_dofs(self, mesh, element):
-        if element.polynomial_order != 1:
-            raise NotImplementedError(
-                "the port has P1 DOF maps only; P2/P3 are queued in "
-                "ROADMAP.md (queue A, item 6)"
+        order = element.polynomial_order
+        if order == 1:
+            coords_4_global_dofs = mesh["vertices", "coordinates"]
+            global_dofs_4_elements = mesh["cells", "vertices"]
+            nodes_4_boundary_dofs = mesh["vertices", "markers"]
+        elif order in (2, 3):
+            like = mesh["vertices", "coordinates"]
+            verts = host(like).astype(np.float64)
+            cells = host(mesh["cells", "vertices"]).astype(np.int64)
+            if cells.shape[-1] == 4:
+                raise NotImplementedError(
+                    "P2/P3 DOF maps of tetrahedra wait for the tets: ROADMAP.md, "
+                    "queue A item 6"
+                )
+            edges = host(mesh["edges", "vertices"]).astype(np.int64)
+            vert_markers = host(mesh["vertices", "markers"]).reshape(-1)
+            edge_markers = p2_edge_dirichlet_markers(
+                edges, host(mesh["edges", "markers"]), vert_markers
             )
-        coords_4_global_dofs = mesh["vertices", "coordinates"]
-        global_dofs_4_elements = mesh["cells", "vertices"]
-        nodes_4_boundary_dofs = mesh["vertices", "markers"]
+            n_vertices = verts.shape[0]
+            cell_edges = unique_edge_ids(cells, edges, n_vertices)
+            if order == 2:
+                # one DOF per unique edge, at its midpoint
+                coords = np.concatenate([verts, verts[edges].mean(axis=1)], axis=0)
+                dofs = np.concatenate([cells, cell_edges + n_vertices], axis=1)
+                markers = np.concatenate([vert_markers, edge_markers], axis=0)
+            else:
+                # two oriented DOFs per unique edge and the cell's bubble
+                n_edges, n_cells = edges.shape[0], cells.shape[0]
+                directed = cells[:, TRI_DIRECTED_EDGES]
+                bubble = n_vertices + 2 * n_edges + np.arange(n_cells)
+                coords = np.concatenate(
+                    [verts, edge_thirds(verts, edges), verts[cells].mean(axis=1)], axis=0
+                )
+                dofs = np.concatenate(
+                    [cells, p3_edge_dofs(directed, cell_edges, n_vertices), bubble[:, None]],
+                    axis=1,
+                )
+                markers = np.concatenate(
+                    [vert_markers, np.repeat(edge_markers, 2), np.zeros(n_cells, np.int64)]
+                )
+            coords_4_global_dofs, global_dofs_4_elements, nodes_4_boundary_dofs = (
+                dof_tables(coords, dofs, markers, like)
+            )
+        else:
+            raise NotImplementedError("Polynomial order not implemented")
         coords_4_elements = mesh.compute_coordinates_4_cells(
             coords_4_global_dofs, global_dofs_4_elements
         )
@@ -69,12 +118,14 @@ class Basis(AbstractBasis):
         basis's quadrature points.
 
         * ``basis is self``: per-cell values and gradients at this basis's
-          own quadrature points, ``(T, q, 1, 1)`` and ``(T, 1, 1, d)``.
+          own quadrature points, ``(T, q, 1, 1)`` and ``(T, 1|q, 1, d)``
+          (a quadrature axis of 1 for P1, whose gradients are constant per
+          cell).
         * ``basis`` an :class:`InteriorEdgesBasis`: two-sided traces. The
           edge quadrature points are pulled back into each adjacent cell's
           reference coordinates and the shape functions evaluated there,
           with a cell-pair axis at dim -4: ``(E, 2, q, 1, 1)`` and
-          ``(E, 2, 1, 1, d)`` (jump terms).
+          ``(E, 2, 1|q, 1, d)`` (jump terms).
         * ``basis`` a :class:`BoundaryEdgesBasis`: one-sided traces, the
           same with a side axis of size 1 (boundary fluxes).
 

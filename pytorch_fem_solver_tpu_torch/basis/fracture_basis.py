@@ -1,16 +1,16 @@
-"""P1 basis over a glued discrete fracture network of ``FracturesTri``.
+"""P1/P2/P3 basis over a glued discrete fracture network of ``FracturesTri``.
 
-Counterpart of ``pytorch_fem_solver_tpu/basis/fracture_basis.py``, P1 only.
+Counterpart of ``pytorch_fem_solver_tpu/basis/fracture_basis.py``.
 Pressure continuity across fracture intersections (traces) is enforced by
 DOF identification: the 3D vertex coordinates of all fractures are grouped
 with a tolerance on the host (NumPy float64, ``mesh.dedup``) into one global
-triangulation, and assembly scatters into its vertices. The shape-function
+triangulation, and assembly scatters into its DOFs (P2/P3: the edge DOFs
+of the global edges, shared across the traces). The shape-function
 gradients are the tangential 3D gradients (2D gradients times the chart's
 pseudo-inverse) and the weights carry the chart's area scale.
 
 ``interpolate`` evaluates a global DOF vector on the basis itself and takes
-the two-sided traces onto ``InteriorEdgesFractureBasis``. P2/P3 DOF maps are
-queued in ROADMAP.md (queue A, item 6).
+the two-sided traces onto ``InteriorEdgesFractureBasis``.
 """
 
 from __future__ import annotations
@@ -22,7 +22,9 @@ import torch
 
 from .. import config
 from ..mesh.dedup import tolerant_group
-from .abstract_basis import AbstractBasis
+from ..mesh.meshes_tri import batched_take
+from ..mesh.topology import TRI_DIRECTED_EDGES, edge_thirds, p3_edge_dofs, unique_edge_ids
+from .abstract_basis import AbstractBasis, dof_tables, host
 from .interior_edges_fracture_basis import InteriorEdgesFractureBasis
 
 
@@ -31,10 +33,6 @@ def _group_rows(coords: np.ndarray, tol: float):
     scale = max(1.0, float(np.abs(coords).max()))
     ids = tolerant_group(coords, tol * scale)
     return ids, np.bincount(ids)
-
-
-def _host(t) -> np.ndarray:
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
 def build_global_triangulation(mesh, tol: float = 1e-9) -> dict:
@@ -48,11 +46,11 @@ def build_global_triangulation(mesh, tol: float = 1e-9) -> dict:
       traces_global_vertices_idx, traces_global_edges_idx,
       traces_local_edges_idx (B, K), traces_interior_edges_idx (B, K).
     """
-    coords3d = _host(mesh["vertices", "coordinates_3d"]).astype(np.float64)
-    coords2d = _host(mesh["vertices", "coordinates"]).astype(np.float64)
-    markers = _host(mesh["vertices", "markers"]).reshape(coords3d.shape[0], -1)
-    cells = _host(mesh["cells", "vertices"]).astype(np.int64)
-    edges = _host(mesh["edges", "vertices"]).astype(np.int64)
+    coords3d = host(mesh["vertices", "coordinates_3d"]).astype(np.float64)
+    coords2d = host(mesh["vertices", "coordinates"]).astype(np.float64)
+    markers = host(mesh["vertices", "markers"]).reshape(coords3d.shape[0], -1)
+    cells = host(mesh["cells", "vertices"]).astype(np.int64)
+    edges = host(mesh["edges", "vertices"]).astype(np.int64)
 
     nb_fractures, nb_vertices, _ = coords3d.shape
     nb_edges = edges.shape[-2]
@@ -102,7 +100,7 @@ def build_global_triangulation(mesh, tol: float = 1e-9) -> dict:
     # positions of trace edges inside each fracture's interior-edge list
     # (the axis jump tensors live on); -1 where a trace edge is a boundary
     # edge of that fracture
-    interior_vertices = _host(mesh["interior_edges", "vertices"])
+    interior_vertices = host(mesh["interior_edges", "vertices"])
     traces_interior_edges_idx = np.full((nb_fractures, k_max), -1, dtype=np.int64)
     for b in range(nb_fractures):
         lookup = {
@@ -120,7 +118,7 @@ def build_global_triangulation(mesh, tol: float = 1e-9) -> dict:
         local2global_edges_idx, global2local_edges_idx, np.arange(nb_fractures * nb_edges)
     )
 
-    edge_markers_flat = _host(mesh["edges", "markers"]).reshape(-1)
+    edge_markers_flat = host(mesh["edges", "markers"]).reshape(-1)
     global_edge_markers = np.zeros(nb_global_edges, dtype=np.int64)
     np.maximum.at(global_edge_markers, global2local_edges_idx, edge_markers_flat)
 
@@ -149,7 +147,8 @@ def build_global_triangulation(mesh, tol: float = 1e-9) -> dict:
 
 
 class FractureBasis(AbstractBasis):
-    """P1 basis on the glued global DFN triangulation of a ``FracturesTri``."""
+    """P1/P2/P3 basis on the glued global DFN triangulation of a
+    ``FracturesTri``."""
 
     def __init__(self, mesh, element, tol: float = 1e-9):
         self.global_triangulation = build_global_triangulation(mesh, tol)
@@ -158,21 +157,61 @@ class FractureBasis(AbstractBasis):
         super().__init__(mesh, element)
 
         # correct 2D reference gradients to tangential 3D gradients:
-        # (B, T, 1, n_loc, 2) @ (B, 1, 1, 2, 3) -> (B, T, 1, n_loc, 3)
+        # (B, T, 1|q, n_loc, 2) @ (B, 1, 1, 2, 3) -> (B, T, 1|q, n_loc, 3)
         inv_frac = mesh["inv_jacobian_fracture_map"][:, None, None]
         self.v_grad = self.v_grad @ inv_frac
         self._inv_map_jacobian = self._inv_map_jacobian @ inv_frac
 
     def _compute_dofs(self, mesh, element):
-        if element.polynomial_order != 1:
-            raise NotImplementedError(
-                "the port's FractureBasis has P1 DOF maps only; P2/P3 are "
-                "queued in ROADMAP.md (queue A, item 6)"
-            )
         g = self.global_triangulation
-        coords_4_global_dofs = g["vertices_3D"]
-        global_dofs_4_elements = g["triangles"]  # (B*T, 3)
-        nodes_4_boundary_dofs = g["vertex_markers"][:, None]
+        order = element.polynomial_order
+        if order == 1:
+            coords_4_global_dofs = g["vertices_3D"]
+            global_dofs_4_elements = g["triangles"]  # (B*T, 3)
+            nodes_4_boundary_dofs = g["vertex_markers"][:, None]
+        elif order in (2, 3):
+            # the glued triangulation, as FractureNetworkBasis on the flat
+            # layout: trace edges carry the same global vertex pair in every
+            # incident fracture, so the edge DOFs are shared; the P3 bubble
+            # is per (fracture, cell)
+            like = g["vertices_3D"]
+            gverts = host(like).astype(np.float64)
+            gcells = host(g["triangles"]).astype(np.int64)
+            gedges = host(g["edges"]).astype(np.int64)  # sorted rows
+            edge_markers = host(g["edge_markers"]).reshape(-1)
+            vmark = host(g["vertex_markers"]).reshape(-1)
+            n_gverts, n_cells = gverts.shape[0], gcells.shape[0]
+            # an edge DOF is Dirichlet iff its edge is a boundary edge of at
+            # least one incident fracture (edge_markers is the OR over
+            # fractures) and both endpoints are marked
+            edge_dirichlet = (
+                (edge_markers != 0)
+                & (vmark[gedges[:, 0]] != 0)
+                & (vmark[gedges[:, 1]] != 0)
+            ).astype(np.int64)
+            cell_edges = unique_edge_ids(gcells, gedges, n_gverts)
+            if order == 2:
+                coords = np.concatenate([gverts, gverts[gedges].mean(axis=1)], axis=0)
+                dofs = np.concatenate([gcells, cell_edges + n_gverts], axis=1)
+                markers = np.concatenate([vmark, edge_dirichlet], axis=0)
+            else:
+                directed = gcells[:, TRI_DIRECTED_EDGES]
+                bubble = n_gverts + 2 * gedges.shape[0] + np.arange(n_cells)
+                coords = np.concatenate(
+                    [gverts, edge_thirds(gverts, gedges), gverts[gcells].mean(axis=1)], axis=0
+                )
+                dofs = np.concatenate(
+                    [gcells, p3_edge_dofs(directed, cell_edges, n_gverts), bubble[:, None]],
+                    axis=1,
+                )
+                markers = np.concatenate(
+                    [vmark, np.repeat(edge_dirichlet, 2), np.zeros(n_cells, dtype=np.int64)]
+                )
+            coords_4_global_dofs, global_dofs_4_elements, nodes_4_boundary_dofs = (
+                dof_tables(coords, dofs, markers, like)
+            )
+        else:
+            raise NotImplementedError("Polynomial order not implemented")
         coords_4_elements = coords_4_global_dofs[global_dofs_4_elements.long()]
         return (
             coords_4_global_dofs,
@@ -208,9 +247,10 @@ class FractureBasis(AbstractBasis):
 
     def interpolate(self, basis, tensor: Optional[torch.Tensor] = None):
         """Evaluate a *global* DOF vector on this basis, ``(B, T, q, 1, 1)``
-        and ``(B, T, 1, 1, 3)``, or on the fracture interior-edge basis:
-        two-sided traces ``(B, Ei, 2, q, 1, 1)`` and ``(B, Ei, 2, 1, 1, 3)``
-        for flux jumps. Without ``tensor``, the callables
+        and ``(B, T, 1|q, 1, 3)`` (a quadrature axis of 1 for P1, whose
+        gradients are constant per cell), or on the fracture interior-edge
+        basis: two-sided traces ``(B, Ei, 2, q, 1, 1)`` and ``(B, Ei, 2,
+        1|q, 1, 3)`` for flux jumps. Without ``tensor``, the callables
         ``interpolator(f)`` / ``interpolator_grad(f)`` of a function's
         samples at the global DOF coordinates."""
         B = self.nb_fractures
@@ -223,11 +263,11 @@ class FractureBasis(AbstractBasis):
             cells = basis.mesh["interior_edges", "cells"].long()  # (B, Ei, 2)
             triangles = self._global_dofs4elements.long().reshape(B, -1, n_loc)
             # (B, Ei, 2, 1, n_loc)
-            dof_idx = _batched_take(triangles, cells)[..., None, :]
-            first_vertex = _batched_take(
+            dof_idx = batched_take(triangles, cells)[..., None, :]
+            first_vertex = batched_take(
                 self.mesh["cells", "coordinates_3d"][..., :1, :], cells
             )[..., None, :, :]  # (B, Ei, 2, 1, 1, 3)
-            inv_map = _batched_take(self._inv_map_jacobian, cells)  # (B, Ei, 2, 1, 2, 3)
+            inv_map = batched_take(self._inv_map_jacobian, cells)  # (B, Ei, 2, 1, 2, 3)
             pts = basis.integration_points[:, :, None]  # (B, Ei, 1, q, 1, 3)
             ref_pts = self._element.compute_inverse_map(
                 first_vertex, pts, inv_map
@@ -264,9 +304,3 @@ class FractureBasis(AbstractBasis):
 
         return interpolator, interpolator_grad
 
-
-def _batched_take(array: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``out[b, ...] = array[b][idx[b, ...]]`` (the JAX package's
-    ``vmap(lambda arr, i: arr[i])``)."""
-    batch = torch.arange(idx.shape[0], device=idx.device)
-    return array[batch.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]

@@ -1,34 +1,90 @@
 """1D quadrature bases over the interior and the boundary edges of a 2D mesh.
 
-Counterpart of ``pytorch_fem_solver_tpu/basis/interior_edges_basis.py``,
-limited to the P1 DOF map (each facet's local DOFs are its vertex ids, the
-global vertex numbering); the P2/P3 facet maps are queued in ROADMAP.md
-(queue A, item 6). Used for jump and flux functionals: ``integrate_functional``
-over edges with the weights ``2 * w_q * |edge| / 2``, and as the target of the
-two-sided (interior) and one-sided (boundary) traces of
-``Basis.interpolate``.
+Counterpart of ``pytorch_fem_solver_tpu/basis/interior_edges_basis.py``
+for the edges of triangle meshes (the face branch of the P2/P3 maps waits
+for the tets: ROADMAP.md, queue A item 6). P1 puts one DOF per facet
+endpoint (the global vertex ids); P2/P3 add the facet's own edge DOFs with
+the numbering of the cell ``Basis``. Used for jump and flux functionals:
+``integrate_functional`` over edges with the weights ``2 * w_q * |edge| / 2``,
+and as the target of the two-sided (interior) and one-sided (boundary)
+traces of ``Basis.interpolate``.
 """
 
 from __future__ import annotations
 
-from .abstract_basis import AbstractBasis
+import numpy as np
+
+from ..mesh.topology import (
+    edge_thirds,
+    encode_edge_pairs,
+    p2_edge_dirichlet_markers,
+    p3_edge_dofs,
+)
+from .abstract_basis import AbstractBasis, dof_tables, host
 
 
 class InteriorEdgesBasis(AbstractBasis):
-    """P1 basis on interior edges (line elements embedded in the mesh)."""
+    """P1/P2/P3 basis on interior edges (line elements embedded in the mesh)."""
 
     #: mesh group the facet quadrature lives on; subclasses re-target it
     facet_group = "interior_edges"
 
     def _compute_dofs(self, mesh, element):
-        if element.polynomial_order != 1:
-            raise NotImplementedError(
-                "the port has P1 facet DOF maps only; P2/P3 are queued in "
-                "ROADMAP.md (queue A, item 6)"
+        order = element.polynomial_order
+        if order == 1:
+            coords_4_global_dofs = mesh["vertices", "coordinates"]
+            global_dofs_4_elements = mesh[self.facet_group, "vertices"]
+            nodes_4_boundary_dofs = mesh["vertices", "markers"]
+        elif order in (2, 3):
+            # the facet's vertices and its own edge DOFs, numbered as the
+            # cell Basis numbers them (n_v + unique-edge id for P2; the two
+            # oriented DOFs n_v + 2e, n_v + 2e + 1 for P3, whose bubble
+            # block is the cells' barycenters, none on a facet), so
+            # facet-assembled forms land in the cell basis's global space
+            like = mesh["vertices", "coordinates"]
+            verts = host(like).astype(np.float64)
+            edges_all = host(mesh["edges", "vertices"]).astype(np.int64)
+            vert_markers = host(mesh["vertices", "markers"]).reshape(-1)
+            edge_markers = p2_edge_dirichlet_markers(
+                edges_all, host(mesh["edges", "markers"]), vert_markers
             )
-        coords_4_global_dofs = mesh["vertices", "coordinates"]
-        global_dofs_4_elements = mesh[self.facet_group, "vertices"]
-        nodes_4_boundary_dofs = mesh["vertices", "markers"]
+            fv = host(mesh[self.facet_group, "vertices"]).astype(np.int64)
+            if fv.shape[1] != 2:
+                raise NotImplementedError(
+                    "P2/P3 DOF maps of faces wait for the tets: ROADMAP.md, "
+                    "queue A item 6"
+                )
+            n_v = verts.shape[0]
+            directed = fv[:, None, :]  # (E, 1, 2): the facet itself
+            codes_all = encode_edge_pairs(np.sort(edges_all, axis=-1), n_v)
+            edge_order = np.argsort(codes_all)
+            pc = encode_edge_pairs(np.sort(directed.reshape(-1, 2), axis=-1), n_v)
+            pos = np.searchsorted(codes_all[edge_order], pc)
+            if (codes_all[edge_order][pos] != pc).any():
+                raise ValueError("facet edge missing from the mesh's unique-edge table")
+            facet_edges = edge_order[pos].reshape(directed.shape[:2])
+            if order == 2:
+                coords = np.concatenate([verts, verts[edges_all].mean(axis=1)], axis=0)
+                dofs = np.concatenate([fv, facet_edges + n_v], axis=1)
+                markers = np.concatenate([vert_markers, edge_markers], axis=0)
+            else:
+                cells = host(mesh["cells", "vertices"]).astype(np.int64)
+                coords = np.concatenate(
+                    [verts, edge_thirds(verts, edges_all), verts[cells].mean(axis=1)], axis=0
+                )
+                dofs = np.concatenate([fv, p3_edge_dofs(directed, facet_edges, n_v)], axis=1)
+                markers = np.concatenate(
+                    [
+                        vert_markers,
+                        np.repeat(edge_markers, 2),
+                        np.zeros(cells.shape[0], dtype=np.int64),
+                    ]
+                )
+            coords_4_global_dofs, global_dofs_4_elements, nodes_4_boundary_dofs = (
+                dof_tables(coords, dofs, markers, like)
+            )
+        else:
+            raise NotImplementedError("Polynomial order not implemented")
         coords_4_elements = mesh.compute_coordinates_4_cells(
             coords_4_global_dofs, global_dofs_4_elements
         )
@@ -71,8 +127,8 @@ class InteriorEdgesBasis(AbstractBasis):
 
 
 class BoundaryEdgesBasis(InteriorEdgesBasis):
-    """P1 quadrature basis over the boundary edges of a 2D mesh: linear
-    forms over it assemble Neumann/Robin terms into the global vertex DOF
-    vector, and ``integrate_functional`` gives boundary-flux functionals."""
+    """Quadrature basis over the boundary edges of a 2D mesh: linear forms
+    over it assemble Neumann/Robin terms into the global DOF vector, and
+    ``integrate_functional`` gives boundary-flux functionals."""
 
     facet_group = "boundary_edges"

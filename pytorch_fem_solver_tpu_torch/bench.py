@@ -27,6 +27,14 @@ residual estimator per cell, ``h_T^2 ||f||^2`` plus half of each adjacent
 interior edge's flux jump ``h_E ||[du_h/dn]||^2`` from the two-sided traces
 onto ``InteriorEdgesNetworkBasis``. ``adaptive_dfn`` runs the loop:
 Dörfler marking and ``FractureNetworkMesh.refined`` between the levels.
+
+``p3_poisson`` is the counterpart of the "p3" phase of
+``tools/exp_solver_tier.py``: ``Basis(MeshTri(rectangle(n, n)),
+ElementTri(3, 5)).compiled_solver`` on the sine Poisson problem, 99,856
+DOFs at its n=105. ``dfn_p2_solve`` is the same compiled solve at P2 on a
+fracture network (``ElementTri(2, 4)``, the DFN stiffness and unit load of
+``adaptive_dfn_level``). Both run K2 on every PCG iteration, on structures
+whose block-rows mostly spill into the second tier.
 """
 
 from __future__ import annotations
@@ -37,8 +45,10 @@ from typing import Callable, Iterator, NamedTuple
 import numpy as np
 import torch
 
-from .basis import FractureNetworkBasis, InteriorEdgesNetworkBasis
+from . import config
+from .basis import Basis, FractureNetworkBasis, InteriorEdgesNetworkBasis
 from .element import ElementLine, ElementTri
+from .mesh import MeshTri, rectangle
 from .mesh.refinement import dorfler_mark
 from .ops.bsr import (
     BSRStructure,
@@ -311,3 +321,65 @@ def adaptive_dfn(
             t0 = _now(mesh.device)
             mesh = mesh.refined(dorfler_mark(lv.eta, theta))
             refine = _now(mesh.device) - t0
+
+
+# -- the higher-order compiled solves ------------------------------------------
+
+
+class HigherOrderSolve(NamedTuple):
+    """A compiled higher-order solve: the solution ``u`` (n_dofs, 1), the
+    PCG record, the host seconds of its parts (``basis``, ``tables``: the
+    BSR structure and the aggregate table that ``compiled_solver`` builds,
+    ``solve``: the first solve), the basis and ``solve() -> (u, info)`` for
+    further solves on the built tables."""
+
+    u: torch.Tensor
+    info: PCGInfo
+    seconds: dict
+    basis: object
+    solve: Callable
+
+
+def _compiled(make_basis, a_form, l_form, device, tol) -> HigherOrderSolve:
+    t0 = _now(device)
+    V = make_basis()
+    t1 = _now(device)
+    solve = V.compiled_solver(a_form, l_form, tol=tol)
+    t2 = _now(device)
+    u, info = solve()
+    t3 = _now(device)
+    return HigherOrderSolve(
+        u, info, {"basis": t1 - t0, "tables": t2 - t1, "solve": t3 - t2}, V, solve
+    )
+
+
+def _sine_load(basis):
+    x, y = basis.integration_points[..., 0:1], basis.integration_points[..., 1:2]
+    return 2 * np.pi**2 * torch.sin(np.pi * x) * torch.sin(np.pi * y) * basis.v
+
+
+def p3_poisson(
+    n: int = 105, *, tol: float = 1e-6, device=None, dtype: torch.dtype | None = None
+) -> HigherOrderSolve:
+    """``-Δu = 2 π^2 sin(π x) sin(π y)`` on ``rectangle(n, n)`` with zero
+    Dirichlet data, P3 (``ElementTri(3, 5)``), through
+    ``Basis.compiled_solver`` (canonical-pair BSR assembly, aggregate-block
+    two-level M, PCG to the relative residual ``tol``). ``device``
+    defaults to the card, ``dtype`` to ``config.default_dtype()``."""
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_dtype()
+
+    def make_basis():
+        return Basis(MeshTri(rectangle(n, n), device=device, dtype=dtype), ElementTri(3, 5))
+
+    return _compiled(make_basis, _stiffness, _sine_load, device, tol)
+
+
+def dfn_p2_solve(mesh, *, tol: float = 1e-6) -> HigherOrderSolve:
+    """``-Δu = 1`` on the fracture network ``mesh`` at P2
+    (``FractureNetworkBasis(mesh, ElementTri(2, 4))``) through
+    ``compiled_solver``, on the mesh's device and in its dtype."""
+    return _compiled(
+        lambda: FractureNetworkBasis(mesh, ElementTri(2, 4)),
+        _stiffness, _unit_load, mesh.device, tol,
+    )

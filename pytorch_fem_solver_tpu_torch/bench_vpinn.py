@@ -37,6 +37,16 @@ interpolant onto ``InteriorEdgesBasis(ElementLine(1, 2))``
 ``make_rvpinn``; ``weak=False`` drops the weak term, which is the loss of
 ``examples/example_jump.py``.
 
+``make_patches_rvpinn`` is the counterpart of ``examples/example_patches.py``:
+the RVPINN whose test spaces are B criss-cross patches of a quadtree
+hierarchy over the unit square (``generate_patches_info``; 64 patches at
+the example's ``levels=3``), P1 ``PatchesBasis`` with ``ElementTri(1, 2)``
+for training and ``ElementTri(1, 4)`` for validation, the batched (B, k, k)
+Gram inverses, an H1 error basis on ``unit_square(max_area=0.5**8)``, a
+2 -> 15x4 -> 1 MLP with Xavier initialisation and the boundary modifier,
+and Adam at 1e-3. Both Grams are the reduced P1 stiffness of the patch
+cells, assembled per patch from K5's rows.
+
 ``make_two_fracture`` is the counterpart of ``__graft_entry__.py``'s
 ``_build_problem``: two isometric fracture charts of ``rectangle(2n, n)``
 glued along their trace, ``ElementTri(1, 2)``, a 3 -> 16 MLP with 3 hidden
@@ -52,9 +62,22 @@ import numpy as np
 import torch
 
 from . import config
-from .basis import Basis, FractureBasis, FractureNetworkBasis, InteriorEdgesBasis
+from .basis import (
+    Basis,
+    FractureBasis,
+    FractureNetworkBasis,
+    InteriorEdgesBasis,
+    PatchesBasis,
+)
 from .element import ElementLine, ElementTri
-from .mesh import FractureNetworkMesh, FracturesTri, MeshTri, rectangle, unit_square
+from .mesh import (
+    FractureNetworkMesh,
+    FracturesTri,
+    MeshTri,
+    Patches,
+    rectangle,
+    unit_square,
+)
 from .models import FeedForwardNeuralNetwork, Model
 from .ops.kernels import p1_local_stiffness_load
 from .ops.solvers import PCGInfo
@@ -406,6 +429,111 @@ def make_dfn_rvpinn(
     )
     return DFNRVPINN(
         mesh, V, net, u_fem, oracle_info, fem_norm, gram_solve, boundary_nodes,
+        training_step, model,
+    )
+
+
+# -- the patch RVPINN --------------------------------------------------------
+
+PATCH_LEVELS = 3
+PATCH_ERROR_MAX_AREA = 0.5**8
+
+
+def generate_patches_info(n: int):
+    """Centers (4^n, 2) and radii (4^n, 1) of the quadtree patch hierarchy
+    over the unit square after ``n`` splits of the single patch of radius
+    1/2 (``examples/example_patches.py``)."""
+    centers = [(0.5, 0.5)]
+    radius = [0.5]
+    for _ in range(n):
+        new_centers, new_radius = [], []
+        for (cx, cy), r in zip(centers, radius):
+            nr = r / 2
+            new_centers.extend(
+                [(cx - nr, cy - nr), (cx - nr, cy + nr), (cx + nr, cy - nr), (cx + nr, cy + nr)]
+            )
+            new_radius.extend([nr] * 4)
+        centers, radius = new_centers, new_radius
+    return np.asarray(centers), np.asarray(radius)[:, None]
+
+
+def patch_gram(basis: PatchesBasis) -> torch.Tensor:
+    """Batched ``reduce(K)`` (B, k, k), K the P1 stiffness of each patch,
+    assembled per patch from K5's rows of the patch cells."""
+    coords = basis.mesh["cells", "coordinates"]  # (B, T, 3, 2)
+    stiff, _, _ = p1_local_stiffness_load(coords.reshape(-1, 3, 2))
+    local = stiff.reshape(coords.shape[:2] + (3, 3))
+    return basis.reduce(basis._assemble_bilinear_from_local(local))
+
+
+class PatchRVPINN(NamedTuple):
+    patches: Patches
+    basis: PatchesBasis  # training test spaces, ElementTri(1, 2)
+    validation_basis: PatchesBasis  # ElementTri(1, 4)
+    error_basis: Basis
+    network: FeedForwardNeuralNetwork
+    gram_inv: torch.Tensor  # (B, k, k)
+    validation_gram_inv: torch.Tensor  # (B, k, k)
+    exact_norm: torch.Tensor
+    training_step: Callable
+    model: Model
+
+
+def make_patches_rvpinn(
+    levels: int = PATCH_LEVELS,
+    width: int = WIDTH,
+    depth: int = DEPTH,
+    *,
+    epochs: int = EPOCHS,
+    seed: int = 0,
+    device=None,
+    dtype: torch.dtype | None = None,
+) -> PatchRVPINN:
+    """The patch RVPINN of ``examples/example_patches.py`` with 4^levels
+    patches: the patch meshes and bases, the error basis, the seeded
+    network, the two K5-built batched Gram inverses, the training step and
+    an Adam ``Model`` at 1e-3.
+
+    ``training_step(net)`` returns the example's ``(loss, val_loss,
+    h1_error)``: ``sum_B r_B^T G_B^{-1} r_B`` on the training spaces, the
+    same on the validation spaces as ``sqrt(.) / ||u||^2``, and the
+    relative H1 error on the error basis; the two metrics are computed
+    under ``torch.no_grad()``. ``device`` defaults to the card, ``dtype``
+    to ``config.default_dtype()``.
+    """
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_dtype()
+    net = FeedForwardNeuralNetwork(
+        2, 1, depth, width, use_xavier_initialization=True,
+        boundary_condition_modifier=_unit_square_bc, seed=seed, device=device, dtype=dtype,
+    )
+    centers, radius = generate_patches_info(levels)
+    patches = Patches(centers, radius, device=device, dtype=dtype)
+    mesh = MeshTri(unit_square(max_area=PATCH_ERROR_MAX_AREA), device=device, dtype=dtype)
+    V = PatchesBasis(patches, ElementTri(1, 2))
+    V_val = PatchesBasis(patches, ElementTri(1, 4))
+    V_err = Basis(mesh, ElementTri(1, 2))
+    gram_inv = torch.linalg.inv(patch_gram(V))
+    val_gram_inv = torch.linalg.inv(patch_gram(V_val))
+    exact_norm = torch.sqrt(V_err.integrate_functional(_h1_exact).sum())
+
+    def weak(basis, inv, net):
+        r = basis.reduce(basis.integrate_linear_form(_residual, net.gradient))  # (B, k, 1)
+        return (r.mT @ (inv @ r)).sum()
+
+    def training_step(net):
+        loss = weak(V, gram_inv, net)
+        with torch.no_grad():
+            val_loss = torch.sqrt(weak(V_val, val_gram_inv, net)) / exact_norm**2
+            h1_err = torch.sqrt(V_err.integrate_functional(_h1_norm, net, net.gradient).sum())
+        return loss, val_loss, h1_err / exact_norm
+
+    model = Model(
+        net, training_step, epochs=epochs, optimizer_kwargs={"lr": LEARNING_RATE},
+        progress_bar=False,
+    )
+    return PatchRVPINN(
+        patches, V, V_val, V_err, net, gram_inv, val_gram_inv, exact_norm,
         training_step, model,
     )
 

@@ -1,10 +1,15 @@
-"""P1 Lagrange triangle reference element.
+"""P1/P2/P3 Lagrange triangle reference element.
 
-Counterpart of ``pytorch_fem_solver_tpu/element/element_tri.py``, limited to
-the P1 shape functions the DFN main path uses; P2/P3 raise (ROADMAP.md,
-queue A item 6). Symmetric Gauss rules of degree 1-5 come from
-``element.quadrature``; the 2x2 determinant and inverse of the affine map
-are analytic.
+Counterpart of ``pytorch_fem_solver_tpu/element/element_tri.py`` (the
+triangle, not yet ``ElementTriSurface``, which waits for the tetrahedra:
+ROADMAP.md, queue A item 6). Local DOF order: P1 the vertices; P2 the
+vertices, then the edges 01, 12, 20; P3 the vertices, then per edge (01,
+12, 20) the node near the first local vertex before the other, then the
+bubble. P1 gradients are constant per cell, ``(..., 1, 3, 2)``, and callers
+broadcast them over the quadrature axis; P2/P3 gradients carry a real
+quadrature axis, ``(..., q, n_loc, 2)``. Symmetric Gauss rules of degree
+1-5 come from ``element.quadrature``; the 2x2 determinant and inverse of
+the affine map are analytic.
 """
 
 from __future__ import annotations
@@ -19,11 +24,8 @@ class ElementTri(AbstractElement):
     """Reference triangle with vertices (0,0), (1,0), (0,1)."""
 
     def __init__(self, polynomial_order: int, integration_order: int):
-        if int(polynomial_order) != 1:
-            raise NotImplementedError(
-                "the port has P1 triangles only; P2/P3 are queued in "
-                "ROADMAP.md (queue A, item 6)"
-            )
+        if int(polynomial_order) not in (1, 2, 3):
+            raise NotImplementedError("Polynomial order not implemented")
         super().__init__(polynomial_order, integration_order)
 
     @property
@@ -43,11 +45,91 @@ class ElementTri(AbstractElement):
         return torch.stack([lam1, x[..., [0]], x[..., [1]]], dim=-2)
 
     def compute_shape_functions(self, bar_coords, inv_map_jacobian):
-        """Values (..., n_q, 3, 1) and physical gradients (..., 1, 3, 2)."""
-        # constant gradient per cell: (3,2) @ (..., 2, 2) -> (..., 3, 2);
-        # callers rely on broadcasting over the quadrature axis
-        v_grad = self.barycentric_grad.to(inv_map_jacobian) @ inv_map_jacobian
-        return bar_coords, v_grad
+        """Values (..., n_q, n_loc, 1) and physical gradients
+        (..., 1|n_q, n_loc, 2)."""
+        g = self.barycentric_grad.to(inv_map_jacobian)  # (3, 2)
+        if self.polynomial_order == 1:
+            # constant gradient per cell: (3,2) @ (..., 2, 2) -> (..., 3, 2);
+            # callers rely on broadcasting over the quadrature axis
+            return bar_coords, g @ inv_map_jacobian
+
+        l1 = bar_coords[..., 0, :][..., None, :]
+        l2 = bar_coords[..., 1, :][..., None, :]
+        l3 = bar_coords[..., 2, :][..., None, :]
+        g1, g2, g3 = g[0:1, :], g[1:2, :], g[2:3, :]
+
+        if self.polynomial_order == 2:
+            v = torch.cat(
+                [
+                    l1 * (2 * l1 - 1),
+                    l2 * (2 * l2 - 1),
+                    l3 * (2 * l3 - 1),
+                    4 * l1 * l2,
+                    4 * l2 * l3,
+                    4 * l3 * l1,
+                ],
+                dim=-2,
+            )
+            grad_ref = torch.cat(
+                [
+                    (4 * l1 - 1) * g1,
+                    (4 * l2 - 1) * g2,
+                    (4 * l3 - 1) * g3,
+                    4 * (l2 * g1 + l1 * g2),
+                    4 * (l3 * g2 + l2 * g3),
+                    4 * (l1 * g3 + l3 * g1),
+                ],
+                dim=-2,
+            )
+            return v, grad_ref @ inv_map_jacobian
+
+        # cubic: the edge node at lambda_i = 2/3, lambda_j = 1/3 is
+        # edge(li, lj); Basis._compute_dofs orients the two edge DOFs
+        # globally (nearer the smaller global vertex id first), so adjacent
+        # cells agree on the shared nodes
+        def vert(li):
+            return 0.5 * li * (3 * li - 1) * (3 * li - 2)
+
+        def edge(li, lj):
+            return 4.5 * li * lj * (3 * li - 1)
+
+        def dvert(li, gi):
+            return (13.5 * li * li - 9.0 * li + 1.0) * gi
+
+        def dedge(li, lj, gi, gj):
+            return 4.5 * (lj * (6 * li - 1) * gi + li * (3 * li - 1) * gj)
+
+        v = torch.cat(
+            [
+                vert(l1),
+                vert(l2),
+                vert(l3),
+                edge(l1, l2),
+                edge(l2, l1),
+                edge(l2, l3),
+                edge(l3, l2),
+                edge(l3, l1),
+                edge(l1, l3),
+                27.0 * l1 * l2 * l3,
+            ],
+            dim=-2,
+        )
+        grad_ref = torch.cat(
+            [
+                dvert(l1, g1),
+                dvert(l2, g2),
+                dvert(l3, g3),
+                dedge(l1, l2, g1, g2),
+                dedge(l2, l1, g2, g1),
+                dedge(l2, l3, g2, g3),
+                dedge(l3, l2, g3, g2),
+                dedge(l3, l1, g3, g1),
+                dedge(l1, l3, g1, g3),
+                27.0 * (l2 * l3 * g1 + l1 * l3 * g2 + l1 * l2 * g3),
+            ],
+            dim=-2,
+        )
+        return v, grad_ref @ inv_map_jacobian
 
     def _compute_gauss_values(self):
         return triangle_rule(self.integration_order)

@@ -6,6 +6,7 @@ from .fractures_tri import FracturesTri
 from .generation import rectangle, refine_uniform, triangulation_max_area, unit_square
 from .mesh_tri import MeshTri
 from .meshes_tri import MeshesTri
+from .patches import Patches
 from .pslg import triangulate_pslg
 from .quality import triangle_min_angles
 from .refinement import dorfler_mark, refine_adaptive, refine_network_adaptive
@@ -15,6 +16,7 @@ __all__ = [
     "FracturesTri",
     "MeshTri",
     "MeshesTri",
+    "Patches",
     "build_fracture_network",
     "dorfler_mark",
     "fit_affine_maps",

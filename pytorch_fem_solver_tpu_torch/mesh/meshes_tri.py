@@ -4,6 +4,7 @@ Counterpart of ``pytorch_fem_solver_tpu/mesh/meshes_tri.py``: each mesh's
 topology is built on the host once and the derived NumPy arrays are
 stacked, so every downstream computation runs over a leading batch axis.
 All meshes of a batch must have equal vertex, cell and edge counts.
+``apply_mask`` selects the same number of entries from every batch entry.
 """
 
 from __future__ import annotations
@@ -15,6 +16,14 @@ import torch
 
 from .. import config
 from .mesh_tri import MeshTri, _freeze
+
+
+def batched_take(array: torch.Tensor, idx) -> torch.Tensor:
+    """``out[b, ...] = array[b][idx[b, ...]]`` (the JAX package's
+    ``vmap(lambda arr, i: arr[i])``)."""
+    idx = torch.as_tensor(idx, device=array.device).long()
+    batch = torch.arange(idx.shape[0], device=idx.device)
+    return array[batch.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]
 
 
 def _stack_groups(groups: list[dict]) -> dict:
@@ -62,6 +71,24 @@ class MeshesTri(MeshTri):
     @staticmethod
     def compute_coordinates_4_cells(coordinates_4_vertices, vertices_4_cells):
         """Batched gather: out[b, c, i] = coords[b, cells[b, c, i]]."""
-        idx = vertices_4_cells.long()
-        batch = torch.arange(idx.shape[0], device=idx.device)
-        return coordinates_4_vertices[batch.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]
+        return batched_take(coordinates_4_vertices, vertices_4_cells)
+
+    @staticmethod
+    def apply_mask(tensor, mask):
+        """Select entries along axis 1 of every batch entry: ``mask`` either
+        integer indices ``(B, k)`` (a plain batched gather) or a boolean
+        ``(B, N)`` mask that selects the same count in every entry (the
+        selected entries in their order). A list or tuple passes its first
+        element, as in the JAX package.
+
+        The boolean branch is host-bound: the selected count is read back
+        from the device before the gather.
+        """
+        if isinstance(mask, (list, tuple)):
+            mask = mask[0]
+        mask = torch.as_tensor(mask, device=tensor.device)
+        if mask.dtype == torch.bool:
+            count = int(mask[0].sum())
+            idx = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)[..., :count]
+            return batched_take(tensor, idx)
+        return batched_take(tensor, mask)

@@ -380,3 +380,33 @@ def encode_edge_pairs(pairs: np.ndarray, n_vertices: int) -> np.ndarray:
     """
     p = np.asarray(pairs)
     return p[..., 0].astype(np.int64) * int(n_vertices) + p[..., 1]
+
+
+# -- P3 edge DOFs (shared by every P3 DOF builder of the port) ---------------
+
+#: the local edges of a triangle in the P3 slot order, each from its first
+#: local vertex (``element_tri.py``: 01, 12, 20)
+TRI_DIRECTED_EDGES = [[0, 1], [1, 2], [2, 0]]
+
+
+def p3_edge_dofs(directed: np.ndarray, edge_ids: np.ndarray, n_vertices: int) -> np.ndarray:
+    """``(T, 2 k)`` P3 edge DOFs of the ``directed`` (T, k, 2) local edges
+    whose unique-edge ids are ``edge_ids`` (T, k). Unique edge e owns the
+    DOFs ``n_vertices + 2e`` (the node nearer its smaller vertex id) and
+    ``n_vertices + 2e + 1``; each local edge lists the node nearer its
+    first vertex first, so adjacent cells share both nodes whatever their
+    local orientation."""
+    forward = directed[..., 0] < directed[..., 1]
+    near_i = n_vertices + 2 * edge_ids + np.where(forward, 0, 1)
+    near_j = n_vertices + 2 * edge_ids + np.where(forward, 1, 0)
+    return np.stack([near_i, near_j], axis=-1).reshape(directed.shape[0], -1)
+
+
+def edge_thirds(verts: np.ndarray, edges: np.ndarray) -> np.ndarray:
+    """``(2 E, d)`` coordinates of the P3 edge nodes: per edge the node at
+    1/3 from its smaller vertex id, then the one at 2/3."""
+    emin = verts[edges.min(axis=1)]
+    emax = verts[edges.max(axis=1)]
+    return np.stack(
+        [(2 * emin + emax) / 3.0, (emin + 2 * emax) / 3.0], axis=1
+    ).reshape(2 * edges.shape[0], -1)

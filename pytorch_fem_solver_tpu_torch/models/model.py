@@ -17,7 +17,7 @@ On a CUDA network the optimizer is built ``capturable`` where its class
 takes that option, so its step counter lives on the card: the hold then
 covers the whole optimizer state, and ``train()`` and ``train_compiled()``
 run the same arithmetic. Plateau schedulers are queued in ROADMAP.md
-(A2.4); they raise.
+(queue A, item 2.4); they raise.
 
 The stateful protocol of the JAX package: with ``training_state0`` given,
 ``training_step(net, state) -> ((loss, validation, accuracy), new_state)``
@@ -118,7 +118,8 @@ class Model:
         if learning_rate_scheduler is not None:
             raise NotImplementedError(
                 "learning-rate schedulers are not ported: plateau scheduling "
-                "differs between optax and torch.optim; see ROADMAP.md, queue A2"
+                "differs between optax and torch.optim; see ROADMAP.md, queue A "
+                "item 2.4"
             )
         self._neural_network = neural_network
         self._stateful = training_state0 is not None

@@ -101,8 +101,10 @@ def test_element_line_matches_jax(order):
         v, v_grad = pe.compute_shape_functions(bar[:, None], inv)
         jv, jv_grad = je.compute_shape_functions(jnp.asarray(bar.numpy())[:, None], jinv)
         assert _rel(v.numpy(), jv) == 0.0 and _rel(v_grad.numpy(), jv_grad) <= 1e-15
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pt.ElementLine(2, order)
+    # P2/P3 are ported (tests/test_torch_higher_order.py); P4 raises, as in
+    # the JAX package
+    with pytest.raises(NotImplementedError, match="Polynomial order"):
+        pt.ElementLine(4, order)
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -137,5 +137,7 @@ def test_unported_parts_raise(problems):
     ref_vals, ref_grads = jV.interpolate(jV, jax.numpy.asarray(u))
     assert _rel(vals.numpy(), ref_vals) <= 1e-13
     assert _rel(grads.numpy(), ref_grads) <= 1e-13
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pt.ElementTri(2, 2)
+    # P2/P3 are ported (tests/test_torch_higher_order.py); P4 raises, as in
+    # the JAX package
+    with pytest.raises(NotImplementedError, match="Polynomial order"):
+        pt.ElementTri(4, 2)

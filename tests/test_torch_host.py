@@ -229,5 +229,7 @@ def test_unported_refinement_raises(meshes):
     ours = dict(_flatten(fine._t))
     for key, value in _flatten(ref._t):
         np.testing.assert_array_equal(ours[key].numpy(), np.asarray(value), err_msg=str(key))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.ElementTri(2, 4)
+    # P2/P3 are ported (tests/test_torch_higher_order.py); P4 raises, as in
+    # the JAX package
+    with pytest.raises(NotImplementedError, match="Polynomial order"):
+        pt.ElementTri(4, 4)
