@@ -160,7 +160,27 @@ Phases (any failure exits non-zero and prints no result):
     patches), the K5 Grams against ``integrate_bilinear_form`` +
     ``reduce`` in float64 (1e-12), K5 against its plain version on the
     patch cells; s/epoch, launches per epoch and the idle share at both
-    sizes (``patch_rvpinn_s_per_epoch`` line).
+    sizes (``patch_rvpinn_s_per_epoch`` line);
+18. the tetrahedral tier (``tet_poisson``, ``tet_solve`` and
+    ``adaptive_tet`` of the port's ``bench.py``), float32 with float64
+    twins on the card, PCG to 1e-6: P1 on ``unit_cube(64)`` (1,572,864
+    tets, 274,625 DOFs; ``tools/exp_tet_scale.py``'s largest rung below the
+    2M-cell guard, about 150 MB of float32 BSR values against the 50 MB L2)
+    and P2 on ``unit_cube(24)`` (82,944 tets, 117,649 DOFs;
+    ``examples/example_poisson_3d.py`` at ``FEM_ORDER=2``), each with
+    phase 16's checks (the P1 structure's counts checked as well, and at
+    both the bytes K2 streams within 5% of the bound's), the float32 solve
+    to 1e-2 as the only control; then 4 levels of the adaptive loop of
+    ``examples/example_adaptive_3d.py`` from ``fichera_corner(24)``
+    (580,608 tets, 89,999 inner DOFs; theta 0.4): per level cells, DOFs,
+    iterations, the PCG and the true residual (phase 15's bound), K2
+    launches (>= the iterations), the host seconds of the mesh, the
+    refinement, the tables and the estimator and the solve's wall ms; the
+    cells grow; at level 0 the energy and eta within 1e-4 of a float64
+    level at tol 1e-10, the Dörfler marks of both equal outside the tie
+    band of the threshold (cells whose estimate the domain's symmetry
+    makes equal are ordered by rounding; the count that differ is
+    printed), and a level solved to 1e-2 failing both bounds.
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
@@ -272,6 +292,19 @@ F32_VS_F64 = 1e-4  # f32 vs f64 solution, beyond twice the float32 operator floo
 LADDER_TOLS = (1e-2, 1e-3, 1e-4, 1e-5)  # looser f32 solves; the first is the control
 PATCH_LEVELS_DEEP = 6  # 4,096 patches, 16,384 cells
 PATCH_BLOCK = 10
+# phase 18: tools/exp_tet_scale.py's largest rung below the 2M-cell guard of
+# compiled_bsr_solver, its cells and DOFs, and the P1 structure there (inner
+# DOFs, block-rows, tier-1 width, spilled block-rows, tier-2 width, stored
+# blocks): about 150 MB of float32 values, three times the L2
+TET_N = 64
+TET_SIZE = (1_572_864, 274_625)
+TET_STRUCTURE = (250_047, 31_264, 24, 4_216, 16, 584_266)
+TET_P2_N = 24  # examples/example_poisson_3d.py at FEM_ORDER=2
+TET_P2_SIZE = (82_944, 117_649)
+FICHERA_N = 24  # examples/example_adaptive_3d.py's loop on fichera_corner(24)
+FICHERA_SIZE = (580_608, 103_825, 89_999)  # level 0: cells, vertices, inner DOFs
+FICHERA_LEVELS = 4
+FICHERA_THETA = 0.4  # the example's
 
 failures: list[str] = []
 # name -> one launch at the benchmark shapes, registered by the phases for
@@ -482,6 +515,22 @@ def _k2_bytes_flops(st):
     return n_stored * (64 * 4 + 4) + 2 * st.nb * 4 + 2 * st.n_pad * 4, 2 * 64 * n_stored
 
 
+def _check_k2_bytes(tag, st):
+    """The bytes K2's loads ask of memory beside the bound's: the same,
+    but the column tables come in 32-byte sectors, so a row's last sector
+    brings padded slots. Within 5%: the kernel reads no padded block."""
+    n_bytes, _ = _k2_bytes_flops(st)
+    (nb, B), (nh, B2) = st.bcols.shape, st.bcols2.shape
+    counts = st.row_blocks.cpu().numpy().astype(np.int64)
+    sectors = -(-np.minimum(counts, B) * 4 // 32) + -(-np.maximum(counts - B, 0) * 4 // 32)
+    streamed = int(st.blk_id_host.size) * 64 * 4 + int(sectors.sum()) * 32 + 2 * nb * 4 + 2 * st.n_pad * 4
+    log(f"K2 bytes {tag}: the bound counts {n_bytes}, the kernel streams {streamed} "
+        f"({streamed / n_bytes:.4f} of it); a walk of every slot would stream "
+        f"{(nb * B + nh * B2) * (64 * 4 + 4) + 2 * st.n_pad * 4}")
+    check(abs(streamed / n_bytes - 1) <= 0.05,
+          f"K2 {tag} streams {streamed / n_bytes:.4f} of the bound's bytes (within 5%)")
+
+
 def _check_k2(tag, st, values64, x64):
     """K2 against its plain version in f64 and f32, two launches bitwise
     equal, one launch counted per product; the f32 max absolute error."""
@@ -564,16 +613,7 @@ def phase_k2(st, values64):
         f"tier 2 (nh={nh}, B2={B2}) {n_stored - stored1} of {nh * B2} slots stored")
     n_bytes, n_flops = _k2_bytes_flops(st)
     b_ms, by = bound_ms(n_bytes, n_flops)
-    # what the kernel's loads ask of memory: the same, but the column tables
-    # come in 32-byte sectors, so a row's last sector brings padded slots
-    counts = st.row_blocks.cpu().numpy().astype(np.int64)
-    sectors = -(-np.minimum(counts, B) * 4 // 32) + -(-np.maximum(counts - B, 0) * 4 // 32)
-    streamed = n_stored * 64 * 4 + int(sectors.sum()) * 32 + 2 * nb * 4 + 2 * st.n_pad * 4
-    log(f"K2 bytes: the bound counts {n_bytes}, the kernel streams {streamed} "
-        f"({streamed / n_bytes:.4f} of it); a walk of every slot would stream "
-        f"{(nb * B + nh * B2) * (64 * 4 + 4) + 2 * st.n_pad * 4}")
-    check(abs(streamed / n_bytes - 1) <= 0.05,
-          f"K2 streams {streamed / n_bytes:.4f} of the bound's bytes (within 5%)")
+    _check_k2_bytes(f"h={H}", st)
     log(
         f"K2 bsr_spmv nb={st.nb} B={B} spill_rows={nh} "
         f"stored_blocks={n_stored}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
@@ -1696,11 +1736,13 @@ def _single_trace_dofs(V):
     return int(trace.sum()), int((trace & (distinct_per_edge(mids) == 1)).sum())
 
 
-def _higher_order_case(tag, make, load, size, card):
-    """One higher-order compiled solve of phase 16: ``make(dtype, tol)``
-    builds the basis and its tables and solves once
-    (``bench.HigherOrderSolve``) on the card. Returns the case's figures
-    and the float32 solve."""
+def _higher_order_case(tag, make, load, size, card, ladder=LADDER_TOLS, structure=None):
+    """One compiled solve of phases 16 and 18: ``make(dtype, tol)`` builds
+    the basis and its tables and solves once (``bench.HigherOrderSolve``)
+    on the card; float32 solves at the ``ladder`` tolerances follow, the
+    first the control. ``structure`` is the expected (inner DOFs,
+    block-rows, B, spilled block-rows, B2, stored blocks). Returns the
+    case's figures and the float32 solve."""
     import torch
 
     from pytorch_fem_solver_tpu_torch.bench import _stiffness
@@ -1730,6 +1772,11 @@ def _higher_order_case(tag, make, load, size, card):
     log(f"{tag}: cells={cells} dofs={V.n_dofs} n_pad={st.n_pad} tier 1 (nb={nb}, B={B}), "
         f"tier 2 (nh={nh}, B2={B2}): {nh} of {nb} block-rows spill; {n_stored} stored blocks")
     check((cells, V.n_dofs) == size, f"{tag}: cells and DOFs {(cells, V.n_dofs)} == {size}")
+    if structure is not None:
+        got = (st.n_inner, nb, B, nh, B2, n_stored)
+        check(got == structure, f"{tag}: structure (inner DOFs, block-rows, B, spilled "
+              f"block-rows, B2, stored blocks) {got} == {structure}")
+    _check_k2_bytes(tag, st)
     b = V.integrate_linear_form(load)
     rel = float(info.residual_norm / V.reduce(b).norm())
     check(bool(info.converged) and rel <= TOL, f"{tag}: PCG residual {rel:.3e} <= {TOL:g} "
@@ -1776,11 +1823,12 @@ def _higher_order_case(tag, make, load, size, card):
           f"most {ITER_GAP} above f64's {iters64} (gap {info.iterations - iters64:+d})")
     # the float32 solve at looser tolerances: where it reaches the floor;
     # the loosest is the control
-    ladder = []
-    for tol in LADDER_TOLS:
+    tols, ladder = ladder, []
+    for tol in tols:
         rt = make(torch.float32, tol)
         ladder.append({"tol": tol, "iterations": rt.info.iterations, "f32_vs_f64": rel64(rt.u),
                        "true_residual": _true_residual(V, rt.u, b)[0]})
+        del rt
     log(f"{tag}: f32 tolerance ladder (tol, iterations, f32 vs f64, true residual): "
         + "; ".join(f"{e['tol']:g} {e['iterations']} {e['f32_vs_f64']:.3e} {e['true_residual']:.3e}"
                     for e in ladder))
@@ -1836,8 +1884,8 @@ def _higher_order_case(tag, make, load, size, card):
         f"profiled solve: wall {1e3 * wall:.3f} ms, device {device_ms:.3f} ms, idle share "
         f"{figures['idle_share']:.3f}, {sum(k[1] for k in kernels):.0f} launches; K2 in the solve "
         f"{k2_us:.3f} us per launch, alone {1e3 * ms:.3f} us (plain {1e3 * plain_ms:.3f} us), bound "
-        f"{1e3 * b_ms:.3f} us by {by}; host s: basis {r.seconds['basis']:.3f}, tables "
-        f"{r.seconds['tables']:.3f}, first solve {r.seconds['solve']:.3f}")
+        f"{1e3 * b_ms:.3f} us by {by}; host s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in r.seconds.items()))
     log("device ms/solve  launches/solve  kernel")
     for us, count, name in kernels[:12]:
         log(f"{us / 1e3:14.4f}  {count:14.1f}  {name[:110]}")
@@ -1990,6 +2038,165 @@ def phase_patches(card):
     log(json.dumps({"metric": "patch_rvpinn_s_per_epoch", "epochs": EPOCHS, "sizes": rows,
                     "card": card}))
     return setup_launches
+
+
+# -- phase 18: the tetrahedral tier ----------------------------------------------
+
+
+def _tet_make(n, order):
+    """``make(dtype, tol)`` of ``_higher_order_case`` for the sine problem
+    on ``unit_cube(n)``: the first float32 solve through
+    ``bench.tet_poisson`` (the host's mesh timed with it), the rest
+    through ``bench.tet_solve`` on that mesh, the float64 twin on its own
+    ``MeshTet`` built from the host triangulation."""
+    import torch
+
+    import pytorch_fem_solver_tpu_torch as pt
+    from pytorch_fem_solver_tpu_torch.bench import tet_poisson, tet_solve
+
+    meshes = {}
+
+    def make(dtype, tol):
+        if dtype not in meshes:
+            if dtype == torch.float32:
+                r = tet_poisson(n, order, tol=tol, device=DEVICE, dtype=dtype)
+                meshes[dtype] = r.basis.mesh
+                return r
+            meshes[dtype] = pt.MeshTet(pt.unit_cube(n), device=DEVICE, dtype=dtype)
+        return tet_solve(meshes[dtype], order, tol=tol)
+
+    return make
+
+
+def _dorfler_ties(eta, eta64, theta):
+    """The Dörfler marks of ``eta`` and ``eta64`` and where they differ.
+    The tie band is the cells whose ``eta64`` lies within twice the
+    largest |eta - eta64| of the threshold (the ``eta64`` of the last cell
+    ``eta64`` marks): the structured Fichera mesh holds cells that the
+    domain's symmetry gives one estimate, and rounding orders them, so a
+    cut through such a group may mark either member. Returns (marks of
+    eta, marks of eta64, differing cells, cells in the band, whether every
+    differing cell lies in it)."""
+    from pytorch_fem_solver_tpu_torch.mesh import dorfler_mark
+
+    m, m64 = dorfler_mark(eta, theta), dorfler_mark(eta64, theta)
+    differ = np.flatnonzero(m != m64)
+    threshold = float(eta64[m64].min())
+    near = np.abs(eta64 - threshold) <= 2 * float(np.abs(eta - eta64).max())
+    return m, m64, differ, int(near.sum()), bool(near[differ].all())
+
+
+def _fichera(card):
+    """Phase 18's adaptive Fichera loop: ``bench.adaptive_tet`` on
+    ``fichera_corner(FICHERA_N)``, float32, PCG to ``TOL``."""
+    import torch
+
+    import pytorch_fem_solver_tpu_torch as pt
+    from pytorch_fem_solver_tpu_torch.bench import (
+        _stiffness,
+        _unit_load,
+        adaptive_tet,
+        adaptive_tet_level,
+    )
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+
+    tri = pt.fichera_corner(FICHERA_N)
+    k2_total, rows, cells_before = 0, [], None
+    cuda_build.reset_launch_counts()
+    levels = adaptive_tet(tri, FICHERA_LEVELS, FICHERA_THETA, tol=TOL, device=DEVICE,
+                          dtype=torch.float32)
+    for level, lv in enumerate(levels):
+        # this level's solve and estimate, read before the checks launch more
+        k2 = cuda_build.launch_counts["bsr_spmv"]
+        k2_total += k2
+        mesh, V, info = lv.mesh, lv.basis, lv.info
+        b = V.integrate_linear_form(_unit_load)
+        rel = float(info.residual_norm / V.reduce(b).norm())
+        true_rel, rounding = _true_residual(V, lv.u, b)
+        local = V.integrate_bilinear_form_local(_stiffness)
+        solve_ms = 1e3 * _timed(lambda: V.solve_iterative(
+            local, b, tol=TOL, precondition="two_level", symmetric_form=True))
+        eta_norm = float(np.linalg.norm(lv.eta))
+        row = {"level": level, "cells": mesh.n_cells, "vertices": mesh.n_vertices,
+               "dofs": lv.n_dofs, "inner_dofs": int(V._basis_parameters["inner_dofs"].numel()),
+               "iterations": info.iterations, "rel_residual": rel, "true_residual": true_rel,
+               "rounding_scale": rounding, "k2_launches": k2, "energy": lv.energy,
+               "eta_norm": eta_norm, "marked": int(lv.marked.sum()),
+               "host_s": dict(lv.seconds), "solve_wall_ms": solve_ms}
+        rows.append(row)
+        log(f"Fichera level {level}: cells={mesh.n_cells} dofs={lv.n_dofs} (inner "
+            f"{row['inner_dofs']}) iterations={info.iterations} rel residual {rel:.4e} (true "
+            f"{true_rel:.4e}, f32 rounding scale {rounding:.4e}) K2 launches {k2} energy "
+            f"{lv.energy:.8e} ||eta|| {eta_norm:.6e} marked {row['marked']}; host s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in lv.seconds.items())
+            + f"; solve wall {solve_ms:.2f} ms")
+        check(bool(info.converged) and rel <= TOL, f"Fichera level {level}: rel residual {rel:.3e} <= {TOL}")
+        bound = TOL + ADAPTIVE_ROUNDING * rounding
+        check(true_rel <= bound, f"Fichera level {level}: true residual ||b - A u|| / ||b|| (COO "
+              f"operator) {true_rel:.3e} <= {TOL:g} + {ADAPTIVE_ROUNDING:g} x rounding scale "
+              f"{rounding:.3e}")
+        check(k2 >= info.iterations, f"Fichera level {level}: K2 launches {k2} >= iterations "
+              f"{info.iterations}")
+        check(bool(np.isfinite(lv.eta).all()) and lv.eta.shape == (mesh.n_cells,),
+              f"Fichera level {level}: eta finite, one per cell")
+        if level == 0:
+            got = (mesh.n_cells, mesh.n_vertices, row["inner_dofs"])
+            check(got == FICHERA_SIZE, f"Fichera level 0: cells, vertices, inner DOFs {got} == "
+                  f"{FICHERA_SIZE}")
+            lv64 = adaptive_tet_level(pt.MeshTet(tri, device=DEVICE, dtype=torch.float64), tol=1e-10)
+            d = abs(lv.energy - lv64.energy) / abs(lv64.energy)
+            check(d <= 1e-4, f"Fichera level 0 energy f32 vs f64 (tol 1e-10, "
+                  f"{lv64.info.iterations} iterations) on the card: rel {d:.3e} <= 1e-4")
+            gap = float(np.abs(lv.eta - lv64.eta).max() / np.abs(lv64.eta).max())
+            check(gap <= ADAPTIVE_ETA_TOL, f"Fichera level 0 eta f32 vs f64 on the card: max rel "
+                  f"{gap:.3e} <= {ADAPTIVE_ETA_TOL:g}")
+            m32, m64, differ, band, in_band = _dorfler_ties(lv.eta, lv64.eta, FICHERA_THETA)
+            check(np.array_equal(m32, lv.marked) and in_band, f"Fichera level 0 Dörfler marks "
+                  f"of the f32 and the f64 eta: {int(m64.sum())} and {int(m32.sum())} marked, "
+                  f"{differ.size} differ, every one in the tie band of the threshold ({band} "
+                  f"cells; differing: {differ[:12].tolist()})")
+            row.update(energy_f64=lv64.energy, eta_gap=gap, marks_differ=int(differ.size),
+                       tie_band_cells=band)
+            ctl = adaptive_tet_level(mesh, tol=ADAPTIVE_CONTROL_TOL)
+            ctl_rel, _ = _true_residual(V, ctl.u, b)
+            ctl_gap = float(np.abs(ctl.eta - lv64.eta).max() / np.abs(lv64.eta).max())
+            row["control"] = {"tol": ADAPTIVE_CONTROL_TOL, "iterations": ctl.info.iterations,
+                              "true_residual": ctl_rel, "eta_gap": ctl_gap}
+            check(ctl_rel > bound and ctl_gap > ADAPTIVE_ETA_TOL, f"Fichera level 0 control (tol "
+                  f"{ADAPTIVE_CONTROL_TOL:g}, {ctl.info.iterations} iterations) fails both: true "
+                  f"residual {ctl_rel:.3e} > {bound:.3e}, eta gap {ctl_gap:.3e} > "
+                  f"{ADAPTIVE_ETA_TOL:g}")
+            del lv64, ctl
+        else:
+            check(mesh.n_cells > cells_before, f"Fichera level {level}: cells grow {cells_before} "
+                  f"-> {mesh.n_cells} ({rows[-2]['marked']} cells marked, theta {FICHERA_THETA})")
+        cells_before = mesh.n_cells
+        del mesh, V, info, local, lv
+        # the next level's count starts here: the loop refines, then solves
+        cuda_build.reset_launch_counts()
+    log(json.dumps({"metric": "adaptive_fichera_levels", "n": FICHERA_N, "theta": FICHERA_THETA,
+                    "tol": TOL, "levels": rows, "card": card}))
+    return k2_total
+
+
+def phase_tets(card):
+    """Phase 18: the 3D Poisson solves at P1 and P2 and the adaptive
+    Fichera loop, float32 with float64 twins on the card."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import _sine_load_3d
+
+    p1, r = _higher_order_case(f"P1 unit_cube({TET_N})", _tet_make(TET_N, 1), _sine_load_3d,
+                               TET_SIZE, card, ladder=(ADAPTIVE_CONTROL_TOL,),
+                               structure=TET_STRUCTURE)
+    del r
+    torch.cuda.empty_cache()
+    p2, r = _higher_order_case(f"P2 unit_cube({TET_P2_N})", _tet_make(TET_P2_N, 2), _sine_load_3d,
+                               TET_P2_SIZE, card, ladder=(ADAPTIVE_CONTROL_TOL,))
+    del r
+    torch.cuda.empty_cache()
+    log(json.dumps({"metric": "tet_solves", "tol": TOL, "cases": [p1, p2]}))
+    return p1["k2_launches"], p2["k2_launches"], _fichera(card)
 
 
 def phase_two_fracture():
@@ -2190,6 +2397,8 @@ def main() -> int:
     done("16 higher order")
     patch_launches = phase_patches(card)
     done("17 patch RVPINN")
+    tet_p1_k2, tet_p2_k2, fichera_k2 = phase_tets(card)
+    done("18 tets")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
     ) + f"; start to tables {marks[0][1] - t_start:.1f}")
@@ -2203,7 +2412,8 @@ def main() -> int:
     k1["launches"] = launches["p1_element_3d"]
     k2["launches"] = launches["bsr_spmv"]
     k2["launches_by_path"] = {"main": launches["bsr_spmv"], "dfn_rvpinn": dfn_launches["bsr_spmv"],
-                              "adaptive_dfn": adaptive_k2, "p3": p3_k2, "dfn_p2": dfn_p2_k2}
+                              "adaptive_dfn": adaptive_k2, "p3": p3_k2, "dfn_p2": dfn_p2_k2,
+                              "tet_p1": tet_p1_k2, "tet_p2": tet_p2_k2, "fichera": fichera_k2}
     k5["launches"] = rvpinn_launches["p1_element_2d"]
     k5["launches_by_path"] = {"rvpinn": rvpinn_launches["p1_element_2d"],
                               "posteriori_rvpinn": posteriori_launches["p1_element_2d"],

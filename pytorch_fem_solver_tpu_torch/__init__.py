@@ -15,27 +15,35 @@ from .basis import (
     AbstractBasis,
     Basis,
     BoundaryEdgesBasis,
+    BoundaryFacesBasis,
     FractureBasis,
     FractureNetworkBasis,
     InteriorEdgesBasis,
     InteriorEdgesFractureBasis,
     InteriorEdgesNetworkBasis,
+    InteriorFacesBasis,
     PatchesBasis,
 )
-from .element import ElementLine, ElementTri
+from .element import ElementLine, ElementTet, ElementTri, ElementTriSurface
 from .mesh import (
     FractureNetworkMesh,
     FracturesTri,
     MeshesTri,
+    MeshTet,
     MeshTri,
     Patches,
+    box,
     build_fracture_network,
     dorfler_mark,
+    fichera_corner,
     rectangle,
     refine_adaptive,
+    refine_adaptive_tet,
     refine_network_adaptive,
     refine_uniform,
+    refine_uniform_tet,
     triangulation_max_area,
+    unit_cube,
     unit_square,
 )
 from .models import FeedForwardNeuralNetwork, Model
@@ -49,23 +57,33 @@ __all__ = [
     "FractureNetworkBasis",
     "InteriorEdgesNetworkBasis",
     "BoundaryEdgesBasis",
+    "BoundaryFacesBasis",
     "InteriorEdgesBasis",
     "InteriorEdgesFractureBasis",
+    "InteriorFacesBasis",
     "PatchesBasis",
     "ElementLine",
+    "ElementTet",
     "ElementTri",
+    "ElementTriSurface",
     "FractureNetworkMesh",
     "FracturesTri",
     "MeshesTri",
+    "MeshTet",
     "MeshTri",
     "Patches",
+    "box",
     "build_fracture_network",
     "dorfler_mark",
+    "fichera_corner",
     "rectangle",
     "refine_adaptive",
+    "refine_adaptive_tet",
     "refine_network_adaptive",
     "refine_uniform",
+    "refine_uniform_tet",
     "triangulation_max_area",
+    "unit_cube",
     "unit_square",
     "FeedForwardNeuralNetwork",
     "Model",

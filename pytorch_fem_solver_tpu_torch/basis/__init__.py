@@ -1,8 +1,10 @@
-"""Basis layer: P1-P3 assembly on triangle meshes, fracture networks and
-batched patches, and the edge bases of the jump and flux terms."""
+"""Basis layer: P1-P3 assembly on triangle and tetrahedral meshes, fracture
+networks and batched patches, and the edge and face bases of the jump and
+flux terms."""
 
 from .abstract_basis import AbstractBasis
 from .basis import Basis
+from .faces_basis import BoundaryFacesBasis, InteriorFacesBasis
 from .fracture_basis import FractureBasis, build_global_triangulation
 from .fracture_network_basis import FractureNetworkBasis, InteriorEdgesNetworkBasis
 from .interior_edges_basis import BoundaryEdgesBasis, InteriorEdgesBasis
@@ -13,11 +15,13 @@ __all__ = [
     "AbstractBasis",
     "Basis",
     "BoundaryEdgesBasis",
+    "BoundaryFacesBasis",
     "FractureBasis",
     "FractureNetworkBasis",
     "InteriorEdgesBasis",
     "InteriorEdgesFractureBasis",
     "InteriorEdgesNetworkBasis",
+    "InteriorFacesBasis",
     "PatchesBasis",
     "build_global_triangulation",
 ]

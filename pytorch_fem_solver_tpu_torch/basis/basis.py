@@ -1,12 +1,13 @@
-"""Cell-volume basis on a single triangle mesh.
+"""Cell-volume basis on a single triangle or tetrahedral mesh.
 
 Counterpart of ``pytorch_fem_solver_tpu/basis/basis.py``: the P1, P2 and
-P3 DOF maps of triangles (the tetrahedral P3 branch raises: ROADMAP.md,
-queue A item 6), with point probing queued (item 3). ``interpolate``
-evaluates on the basis's own quadrature points and takes the two-sided and
-one-sided traces onto the edge bases. Local entry (i, j) lands at global
-(row_i, col_j); the DOF tables and interior-DOF lists are computed on the
-host once (NumPy, float64) and move to the mesh's device.
+P3 DOF maps of triangles and tetrahedra, with point probing queued
+(ROADMAP.md, queue A item 3). ``interpolate`` evaluates on the basis's own
+quadrature points and takes the two-sided and one-sided traces onto the
+facet bases (the edges of a triangle mesh, the faces of a tet mesh). Local
+entry (i, j) lands at global (row_i, col_j); the DOF tables and
+interior-DOF lists are computed on the host once (NumPy, float64) and move
+to the mesh's device.
 """
 
 from __future__ import annotations
@@ -17,11 +18,15 @@ import numpy as np
 import torch
 
 from ..mesh.topology import (
+    TET_EDGE_PERMUTATIONS,
+    TET_FACE_PERMUTATIONS,
     TRI_DIRECTED_EDGES,
     edge_thirds,
+    face_bubble_markers,
     p2_edge_dirichlet_markers,
     p3_edge_dofs,
     unique_edge_ids,
+    unique_face_ids,
 )
 from .abstract_basis import AbstractBasis, dof_tables, host
 from .interior_edges_basis import InteriorEdgesBasis
@@ -29,8 +34,8 @@ from .interior_edges_basis import InteriorEdgesBasis
 
 class Basis(AbstractBasis):
     """Lagrange basis over mesh cells: P1 (vertices), P2 (vertices + edge
-    midpoints) or P3 (vertices + two oriented edge nodes + a barycenter
-    bubble per cell)."""
+    midpoints) or P3 (vertices + two oriented edge nodes + one bubble per
+    cell on triangles, per unique face on tetrahedra)."""
 
     def _compute_dofs(self, mesh, element):
         order = element.polynomial_order
@@ -42,11 +47,7 @@ class Basis(AbstractBasis):
             like = mesh["vertices", "coordinates"]
             verts = host(like).astype(np.float64)
             cells = host(mesh["cells", "vertices"]).astype(np.int64)
-            if cells.shape[-1] == 4:
-                raise NotImplementedError(
-                    "P2/P3 DOF maps of tetrahedra wait for the tets: ROADMAP.md, "
-                    "queue A item 6"
-                )
+            is_tet = cells.shape[-1] == 4
             edges = host(mesh["edges", "vertices"]).astype(np.int64)
             vert_markers = host(mesh["vertices", "markers"]).reshape(-1)
             edge_markers = p2_edge_dirichlet_markers(
@@ -60,19 +61,33 @@ class Basis(AbstractBasis):
                 dofs = np.concatenate([cells, cell_edges + n_vertices], axis=1)
                 markers = np.concatenate([vert_markers, edge_markers], axis=0)
             else:
-                # two oriented DOFs per unique edge and the cell's bubble
+                # two oriented DOFs per unique edge, then the bubbles: the
+                # cell's barycenter on triangles, each unique face's on tets
                 n_edges, n_cells = edges.shape[0], cells.shape[0]
-                directed = cells[:, TRI_DIRECTED_EDGES]
-                bubble = n_vertices + 2 * n_edges + np.arange(n_cells)
+                first_bubble = n_vertices + 2 * n_edges
+                if is_tet:
+                    directed = cells[:, TET_EDGE_PERMUTATIONS]
+                    faces = host(mesh["faces", "vertices"]).astype(np.int64)
+                    bubble = first_bubble + unique_face_ids(
+                        faces, cells[:, TET_FACE_PERMUTATIONS], n_vertices
+                    )
+                    bubble_coords = verts[faces].mean(axis=1)
+                    bubble_markers = face_bubble_markers(
+                        faces, host(mesh["faces", "markers"]), vert_markers
+                    )
+                else:
+                    directed = cells[:, TRI_DIRECTED_EDGES]
+                    bubble = (first_bubble + np.arange(n_cells))[:, None]
+                    bubble_coords = verts[cells].mean(axis=1)
+                    bubble_markers = np.zeros(n_cells, np.int64)
                 coords = np.concatenate(
-                    [verts, edge_thirds(verts, edges), verts[cells].mean(axis=1)], axis=0
+                    [verts, edge_thirds(verts, edges), bubble_coords], axis=0
                 )
                 dofs = np.concatenate(
-                    [cells, p3_edge_dofs(directed, cell_edges, n_vertices), bubble[:, None]],
-                    axis=1,
+                    [cells, p3_edge_dofs(directed, cell_edges, n_vertices), bubble], axis=1
                 )
                 markers = np.concatenate(
-                    [vert_markers, np.repeat(edge_markers, 2), np.zeros(n_cells, np.int64)]
+                    [vert_markers, np.repeat(edge_markers, 2), bubble_markers]
                 )
             coords_4_global_dofs, global_dofs_4_elements, nodes_4_boundary_dofs = (
                 dof_tables(coords, dofs, markers, like)
@@ -121,13 +136,15 @@ class Basis(AbstractBasis):
           own quadrature points, ``(T, q, 1, 1)`` and ``(T, 1|q, 1, d)``
           (a quadrature axis of 1 for P1, whose gradients are constant per
           cell).
-        * ``basis`` an :class:`InteriorEdgesBasis`: two-sided traces. The
-          edge quadrature points are pulled back into each adjacent cell's
+        * ``basis`` an :class:`InteriorEdgesBasis` (or an
+          :class:`InteriorFacesBasis` of a tet mesh): two-sided traces. The
+          facet quadrature points are pulled back into each adjacent cell's
           reference coordinates and the shape functions evaluated there,
           with a cell-pair axis at dim -4: ``(E, 2, q, 1, 1)`` and
           ``(E, 2, 1|q, 1, d)`` (jump terms).
-        * ``basis`` a :class:`BoundaryEdgesBasis`: one-sided traces, the
-          same with a side axis of size 1 (boundary fluxes).
+        * ``basis`` a :class:`BoundaryEdgesBasis` (or
+          :class:`BoundaryFacesBasis`): one-sided traces, the same with a
+          side axis of size 1 (boundary fluxes).
 
         With ``tensor`` (n_dofs, 1) returns ``(values, gradients)``; without
         it, the pair of callables ``interpolator(f)`` and

@@ -1,10 +1,11 @@
 """1D quadrature bases over the interior and the boundary edges of a 2D mesh.
 
-Counterpart of ``pytorch_fem_solver_tpu/basis/interior_edges_basis.py``
-for the edges of triangle meshes (the face branch of the P2/P3 maps waits
-for the tets: ROADMAP.md, queue A item 6). P1 puts one DOF per facet
-endpoint (the global vertex ids); P2/P3 add the facet's own edge DOFs with
-the numbering of the cell ``Basis``. Used for jump and flux functionals:
+Counterpart of ``pytorch_fem_solver_tpu/basis/interior_edges_basis.py``.
+The facet code here also serves the face bases of tetrahedral meshes
+(``faces_basis.py``), which re-target ``facet_group``. P1 puts one DOF per
+facet vertex (the global vertex ids); P2/P3 add the facet's own edge DOFs
+(and, on a face at P3, its own bubble) with the numbering of the cell
+``Basis``. Used for jump and flux functionals:
 ``integrate_functional`` over edges with the weights ``2 * w_q * |edge| / 2``,
 and as the target of the two-sided (interior) and one-sided (boundary)
 traces of ``Basis.interpolate``.
@@ -15,10 +16,13 @@ from __future__ import annotations
 import numpy as np
 
 from ..mesh.topology import (
+    TRI_DIRECTED_EDGES,
     edge_thirds,
     encode_edge_pairs,
+    face_bubble_markers,
     p2_edge_dirichlet_markers,
     p3_edge_dofs,
+    unique_face_ids,
 )
 from .abstract_basis import AbstractBasis, dof_tables, host
 
@@ -39,7 +43,8 @@ class InteriorEdgesBasis(AbstractBasis):
             # the facet's vertices and its own edge DOFs, numbered as the
             # cell Basis numbers them (n_v + unique-edge id for P2; the two
             # oriented DOFs n_v + 2e, n_v + 2e + 1 for P3, whose bubble
-            # block is the cells' barycenters, none on a facet), so
+            # block is the cells' barycenters on triangles, none on an edge,
+            # and the faces' on tets, a face's own being its face id), so
             # facet-assembled forms land in the cell basis's global space
             like = mesh["vertices", "coordinates"]
             verts = host(like).astype(np.float64)
@@ -49,13 +54,10 @@ class InteriorEdgesBasis(AbstractBasis):
                 edges_all, host(mesh["edges", "markers"]), vert_markers
             )
             fv = host(mesh[self.facet_group, "vertices"]).astype(np.int64)
-            if fv.shape[1] != 2:
-                raise NotImplementedError(
-                    "P2/P3 DOF maps of faces wait for the tets: ROADMAP.md, "
-                    "queue A item 6"
-                )
+            is_face = fv.shape[1] == 3
             n_v = verts.shape[0]
-            directed = fv[:, None, :]  # (E, 1, 2): the facet itself
+            # (E, 1, 2): the edge itself; (F, 3, 2): a face's edges 01, 12, 20
+            directed = fv[:, TRI_DIRECTED_EDGES] if is_face else fv[:, None, :]
             codes_all = encode_edge_pairs(np.sort(edges_all, axis=-1), n_v)
             edge_order = np.argsort(codes_all)
             pc = encode_edge_pairs(np.sort(directed.reshape(-1, 2), axis=-1), n_v)
@@ -68,17 +70,25 @@ class InteriorEdgesBasis(AbstractBasis):
                 dofs = np.concatenate([fv, facet_edges + n_v], axis=1)
                 markers = np.concatenate([vert_markers, edge_markers], axis=0)
             else:
-                cells = host(mesh["cells", "vertices"]).astype(np.int64)
+                dofs = [fv, p3_edge_dofs(directed, facet_edges, n_v)]
+                if is_face:
+                    faces = host(mesh["faces", "vertices"]).astype(np.int64)
+                    own = unique_face_ids(faces, fv, n_v)
+                    dofs.append((n_v + 2 * edges_all.shape[0] + own)[:, None])
+                    bubble_coords = verts[faces].mean(axis=1)
+                    bubble_markers = face_bubble_markers(
+                        faces, host(mesh["faces", "markers"]), vert_markers
+                    )
+                else:
+                    cells = host(mesh["cells", "vertices"]).astype(np.int64)
+                    bubble_coords = verts[cells].mean(axis=1)
+                    bubble_markers = np.zeros(cells.shape[0], dtype=np.int64)
                 coords = np.concatenate(
-                    [verts, edge_thirds(verts, edges_all), verts[cells].mean(axis=1)], axis=0
+                    [verts, edge_thirds(verts, edges_all), bubble_coords], axis=0
                 )
-                dofs = np.concatenate([fv, p3_edge_dofs(directed, facet_edges, n_v)], axis=1)
+                dofs = np.concatenate(dofs, axis=1)
                 markers = np.concatenate(
-                    [
-                        vert_markers,
-                        np.repeat(edge_markers, 2),
-                        np.zeros(cells.shape[0], dtype=np.int64),
-                    ]
+                    [vert_markers, np.repeat(edge_markers, 2), bubble_markers]
                 )
             coords_4_global_dofs, global_dofs_4_elements, nodes_4_boundary_dofs = (
                 dof_tables(coords, dofs, markers, like)

@@ -28,6 +28,16 @@ interior edge's flux jump ``h_E ||[du_h/dn]||^2`` from the two-sided traces
 onto ``InteriorEdgesNetworkBasis``. ``adaptive_dfn`` runs the loop:
 Dörfler marking and ``FractureNetworkMesh.refined`` between the levels.
 
+``tet_poisson`` is the counterpart of ``tools/exp_tet_scale.py``: the sine
+Poisson problem on ``unit_cube(n)`` with ``ElementTet(order, 2 order)``
+through ``compiled_solver`` (250,047 inner DOFs at its n=64), and
+``tet_solve`` the same on a built mesh.
+``adaptive_tet`` is the loop of ``examples/example_adaptive_3d.py`` on the
+Fichera corner: the P1 solve by ``solve_iterative``, the bulk term plus the
+face normal-gradient jumps from the two-sided traces onto
+``InteriorFacesBasis``, Dörfler marking and ``MeshTet.refined``. Both run K2
+once per PCG iteration, on a 24-wide tier 1.
+
 ``p3_poisson`` is the counterpart of the "p3" phase of
 ``tools/exp_solver_tier.py``: ``Basis(MeshTri(rectangle(n, n)),
 ElementTri(3, 5)).compiled_solver`` on the sine Poisson problem, 99,856
@@ -46,9 +56,9 @@ import numpy as np
 import torch
 
 from . import config
-from .basis import Basis, FractureNetworkBasis, InteriorEdgesNetworkBasis
-from .element import ElementLine, ElementTri
-from .mesh import MeshTri, rectangle
+from .basis import Basis, FractureNetworkBasis, InteriorEdgesNetworkBasis, InteriorFacesBasis
+from .element import ElementLine, ElementTet, ElementTri, ElementTriSurface
+from .mesh import MeshTet, MeshTri, rectangle, unit_cube
 from .mesh.refinement import dorfler_mark
 from .ops.bsr import (
     BSRStructure,
@@ -227,13 +237,16 @@ def make_fused_pcg(basis, *, max_b: int = 8) -> FusedPCG:
 
 
 class AdaptiveLevel(NamedTuple):
-    """One level of ``adaptive_dfn``: what ``solve_and_estimate`` returns
-    (``n_dofs``, ``energy`` ``u . b``, ``eta`` per cell as float64 NumPy),
-    the solution ``u`` (n_dofs, 1), the PCG record, the level's mesh and
-    basis, and the host seconds of its parts: ``tables`` (the bases and the
-    BSR structure), ``solve`` (assembly, preconditioner set-up and PCG),
-    ``estimator``, and in ``adaptive_dfn`` also ``refine`` (the marking and
-    refinement that made this level's mesh, 0 at the first level)."""
+    """One level of ``adaptive_dfn`` or ``adaptive_tet``: what
+    ``solve_and_estimate`` returns (``n_dofs``, ``energy`` ``u . b``,
+    ``eta`` per cell as float64 NumPy), the solution ``u`` (n_dofs, 1), the
+    PCG record, the level's mesh and basis, and the host seconds of its
+    parts: ``tables`` (the bases and the BSR structure), ``solve``
+    (assembly, preconditioner set-up and PCG), ``estimator``, and in the
+    loops also ``refine`` (the refinement that made this level's mesh,
+    with its marking in ``adaptive_dfn``; 0 at the first level). ``adaptive_tet`` also gives the level's Dörfler
+    marks (``marked``: the cells its refinement bisects) and, at its first
+    level, ``seconds["mesh"]`` (the host's ``MeshTet``)."""
 
     n_dofs: int
     energy: float
@@ -241,8 +254,9 @@ class AdaptiveLevel(NamedTuple):
     u: torch.Tensor
     info: PCGInfo
     mesh: object
-    basis: FractureNetworkBasis
+    basis: object
     seconds: dict
+    marked: np.ndarray | None = None
 
 
 def _now(device) -> float:
@@ -323,6 +337,72 @@ def adaptive_dfn(
             refine = _now(mesh.device) - t0
 
 
+def adaptive_tet_level(mesh, *, tol: float = 1e-6) -> AdaptiveLevel:
+    """Solve ``-Δu = 1`` on the tet ``mesh`` (P1, ``ElementTet(1, 2)``) to
+    the relative residual ``tol`` and estimate the error per cell, as
+    ``examples/example_adaptive_3d.py:solve_and_estimate``: ``eta_T^2 =
+    h_T^2 |T| + sum_F h_F / 2 ||[du_h/dn]||^2_F`` over the interior faces F
+    of T, with ``h_F`` the square root of the face's area."""
+    t0 = _now(mesh.device)
+    V = Basis(mesh, ElementTet(1, 2))
+    V_faces = InteriorFacesBasis(mesh, ElementTriSurface(1, 2))
+    get_bsr_structure(V, max_b=default_max_b(V), want_entry_slot=False)  # cached on V
+    t1 = _now(mesh.device)
+    b = V.integrate_linear_form(_unit_load)
+    u, info = V.solve_iterative(
+        V.integrate_bilinear_form_local(_stiffness), b, tol=tol,
+        precondition="two_level", symmetric_form=True, return_info=True,
+    )
+    t2 = _now(mesh.device)
+    h_T = mesh["cells", "length"]
+    bulk = V.integrate_functional(lambda basis: h_T**2).reshape(-1)
+    _, ug_faces = V.interpolate(V_faces, u)
+    n_F = mesh["interior_faces", "normals"][..., None, :, :]
+    h_F = torch.sqrt(mesh["interior_faces", "area"])[..., None, :, :]
+
+    def face_term(basis):
+        jump = (ug_faces[:, 0] * n_F).sum(-1, keepdim=True) - (
+            ug_faces[:, 1] * n_F
+        ).sum(-1, keepdim=True)
+        return h_F * jump**2
+
+    half = 0.5 * V_faces.integrate_functional(face_term).reshape(-1)
+    cells = V_faces._adjacent_cells()
+    eta2 = bulk.index_add(0, cells[:, 0], half).index_add(0, cells[:, 1], half)
+    eta = torch.sqrt(eta2).to(torch.float64).cpu().numpy()
+    energy = float(torch.dot(b[:, 0], u[:, 0]))
+    t3 = _now(mesh.device)
+    return AdaptiveLevel(
+        V.n_dofs, energy, eta, u, info, mesh, V,
+        {"tables": t1 - t0, "solve": t2 - t1, "estimator": t3 - t2},
+    )
+
+
+def adaptive_tet(
+    tri: dict, levels: int, theta: float = 0.4, *, tol: float = 1e-6,
+    device=None, dtype: torch.dtype | None = None,
+) -> Iterator[AdaptiveLevel]:
+    """Yield ``levels`` levels of the estimator-driven tet loop from the
+    triangulation ``tri`` (``fichera_corner(n)``, say): ``MeshTet`` on
+    ``device`` (default the card) in ``dtype``, solve and estimate
+    (``adaptive_tet_level``), Dörfler-mark ``theta`` of the estimate, then
+    bisect the marked cells (``MeshTet.refined``) for the next level. Each
+    level is yielded with its marks before the next mesh is made."""
+    device = config.resolve_device(device)
+    t0 = _now(device)
+    mesh = MeshTet(tri, device=device, dtype=dtype)
+    seconds = {"mesh": _now(device) - t0, "refine": 0.0}
+    for level in range(levels):
+        lv = adaptive_tet_level(mesh, tol=tol)
+        lv.seconds.update(seconds)
+        marked = dorfler_mark(lv.eta, theta)
+        yield lv._replace(marked=marked)
+        if level + 1 < levels:
+            t0 = _now(device)
+            mesh = mesh.refined(marked)
+            seconds = {"refine": _now(device) - t0}
+
+
 # -- the higher-order compiled solves ------------------------------------------
 
 
@@ -373,6 +453,43 @@ def p3_poisson(
         return Basis(MeshTri(rectangle(n, n), device=device, dtype=dtype), ElementTri(3, 5))
 
     return _compiled(make_basis, _stiffness, _sine_load, device, tol)
+
+
+def _sine_load_3d(basis):
+    p = basis.integration_points
+    return (
+        3 * np.pi**2 * torch.sin(np.pi * p[..., 0:1]) * torch.sin(np.pi * p[..., 1:2])
+        * torch.sin(np.pi * p[..., 2:3]) * basis.v
+    )
+
+
+def tet_poisson(
+    n: int, order: int = 1, *, tol: float = 1e-6, device=None,
+    dtype: torch.dtype | None = None,
+) -> HigherOrderSolve:
+    """``-Δu = 3 π^2 sin(π x) sin(π y) sin(π z)`` on ``unit_cube(n)`` (6 n^3
+    tets) with zero Dirichlet data, P1 or P2 (``ElementTet(order, 2
+    order)``), through ``Basis.compiled_solver``: canonical-pair assembly
+    into the BSR layout with a 24-wide tier 1, the aggregate-block
+    two-level M, PCG to the relative residual ``tol``.
+    ``seconds["mesh"]`` is the host's ``MeshTet``; ``device`` defaults to
+    the card, ``dtype`` to ``config.default_dtype()``."""
+    device = config.resolve_device(device)
+    t0 = _now(device)
+    mesh = MeshTet(unit_cube(n), device=device, dtype=dtype)
+    t_mesh = _now(device) - t0
+    r = tet_solve(mesh, order, tol=tol)
+    r.seconds["mesh"] = t_mesh
+    return r
+
+
+def tet_solve(mesh, order: int = 1, *, tol: float = 1e-6) -> HigherOrderSolve:
+    """``tet_poisson``'s problem and solve on a built ``MeshTet`` of the
+    unit cube, on the mesh's device and in its dtype."""
+    return _compiled(
+        lambda: Basis(mesh, ElementTet(order, 2 * order)), _stiffness, _sine_load_3d,
+        mesh.device, tol,
+    )
 
 
 def dfn_p2_solve(mesh, *, tol: float = 1e-6) -> HigherOrderSolve:

@@ -2,6 +2,7 @@
 
 from .abstract_element import AbstractElement
 from .element_line import ElementLine
-from .element_tri import ElementTri
+from .element_tet import ElementTet
+from .element_tri import ElementTri, ElementTriSurface
 
-__all__ = ["AbstractElement", "ElementLine", "ElementTri"]
+__all__ = ["AbstractElement", "ElementLine", "ElementTet", "ElementTri", "ElementTriSurface"]

@@ -1,8 +1,8 @@
 """P1/P2/P3 Lagrange triangle reference element.
 
-Counterpart of ``pytorch_fem_solver_tpu/element/element_tri.py`` (the
-triangle, not yet ``ElementTriSurface``, which waits for the tetrahedra:
-ROADMAP.md, queue A item 6). Local DOF order: P1 the vertices; P2 the
+Counterpart of ``pytorch_fem_solver_tpu/element/element_tri.py``: the
+triangle and ``ElementTriSurface``, the triangle chart embedded in R^3
+that the face bases of tetrahedral meshes integrate on. Local DOF order: P1 the vertices; P2 the
 vertices, then the edges 01, 12, 20; P3 the vertices, then per edge (01,
 12, 20) the node near the first local vertex before the other, then the
 bubble. P1 gradients are constant per cell, ``(..., 1, 3, 2)``, and callers
@@ -151,3 +151,26 @@ class ElementTri(AbstractElement):
             dim=-2,
         ) / det[..., None, None]
         return det[..., None, None, None], inv[..., None, :, :]
+
+
+class ElementTriSurface(ElementTri):
+    """Reference triangle mapped into R^d (d >= 2): the facet element of the
+    face bases (``InteriorFacesBasis``, ``BoundaryFacesBasis``), as
+    ``ElementLine`` is the edge bases'.
+
+    The chart Jacobian J is a (d, 2) column pair; the measure is the Gram
+    determinant ``sqrt(det(J^T J))`` (= |det J| when d = 2) and the
+    "inverse" the pseudo-inverse ``(J^T J)^{-1} J^T``, so the shape
+    functions' gradients are tangential gradients in ambient coordinates.
+    """
+
+    def compute_det_and_inv_map(self, map_jacobian):
+        G = map_jacobian.mT @ map_jacobian  # (..., 2, 2)
+        a, b = G[..., 0, 0], G[..., 0, 1]
+        c, d = G[..., 1, 0], G[..., 1, 1]
+        det_G = a * d - b * c
+        adj = torch.stack(
+            [torch.stack([d, -b], dim=-1), torch.stack([-c, a], dim=-1)], dim=-2
+        )
+        pinv = (adj @ map_jacobian.mT) / det_G[..., None, None]
+        return torch.sqrt(det_G)[..., None, None, None], pinv[..., None, :, :]

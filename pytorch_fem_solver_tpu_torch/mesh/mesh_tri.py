@@ -144,23 +144,22 @@ class MeshTri:
         longest-edge bisection of the marked cells (``mesh.refinement``),
         built from the host copies of this mesh's tables. Mirrors
         ``FractureNetworkMesh.refined`` so estimator-driven loops read the
-        same on every mesh family."""
-        from .refinement import _host, refine_adaptive
+        same on every mesh family. A tetrahedral mesh bisects through
+        ``refine_adaptive_tet``."""
+        from .refinement import _host, refine_adaptive, refine_adaptive_tet
 
         cells = _host(self["cells", "vertices"])
-        if cells.shape[-1] == 4:
-            raise NotImplementedError(
-                "adaptive refinement of tetrahedra (refine_adaptive_tet) is "
-                "queued in ROADMAP.md (queue A, item 6)"
-            )
         tri = {
             "vertices": _host(self["vertices", "coordinates"]),
             "vertex_markers": _host(self["vertices", "markers"]),
-            "triangles": cells,
         }
-        return type(self)(
-            refine_adaptive(tri, marked), device=self.device, dtype=self.dtype
-        )
+        if cells.shape[-1] == 4:
+            tri["tetrahedra"] = cells
+            refined = refine_adaptive_tet(tri, marked)
+        else:
+            tri["triangles"] = cells
+            refined = refine_adaptive(tri, marked)
+        return type(self)(refined, device=self.device, dtype=self.dtype)
 
     # -- sizes ------------------------------------------------------------
 

@@ -1,11 +1,12 @@
 """Adaptive local mesh refinement: longest-edge (Rivara) bisection.
 
-Counterpart of ``pytorch_fem_solver_tpu/mesh/refinement.py``, the triangle
-half (the tetrahedral ``refine_adaptive_tet`` waits for the tet meshes,
-ROADMAP.md queue A item 6). Dörfler marking picks the cells; every marked
-triangle bisects its longest edge, and a closure pass keeps the mesh
-conforming (an edge being split forces both adjacent triangles to split
-it). ``refine_network_adaptive`` extends the loop to fracture networks: the
+Counterpart of ``pytorch_fem_solver_tpu/mesh/refinement.py``. Dörfler
+marking picks the cells; every marked triangle bisects its longest edge,
+and a closure pass keeps the mesh conforming (an edge being split forces
+both adjacent triangles to split it). ``refine_adaptive_tet`` does the same
+for tetrahedra in rounds: each round bisects, in every incident tet at
+once, the wanted edges that are the longest edge of all their tets, so no
+round leaves a hanging node. ``refine_network_adaptive`` extends the loop to fracture networks: the
 per-fracture closures exchange marks on shared (trace) edges, keyed by
 their glued global vertex pairs, until the whole network is stable, so a
 trace edge bisects consistently in every incident fracture.
@@ -24,6 +25,7 @@ import torch
 
 __all__ = [
     "refine_adaptive",
+    "refine_adaptive_tet",
     "refine_network_adaptive",
     "dorfler_mark",
 ]
@@ -193,6 +195,164 @@ def refine_adaptive(triangulation: dict, marked) -> dict:
         vertices, triangles, markers, tables, edge_marked, labels
     )
     return refined
+
+
+def _tet_edge_tables(vertices, tets):
+    """Unique-edge tables for a tet mesh: per-tet edge ids in the
+    TET_EDGE_PERMUTATIONS layout, unique edge endpoints, and the tie-broken
+    longest edge per tet (key = (length, global edge id), so every tet
+    sharing an edge agrees on the comparison)."""
+    from .topology import (
+        TET_EDGE_PERMUTATIONS,
+        _sort_unique_codes,
+        encode_edge_pairs,
+    )
+
+    n_v = vertices.shape[0]
+    local = np.sort(tets[:, TET_EDGE_PERMUTATIONS], axis=-1)  # (T, 6, 2)
+    codes = encode_edge_pairs(local.reshape(-1, 2), n_v)
+    _, edge_codes, inverse, _ = _sort_unique_codes(codes)
+    e_ids = inverse.reshape(-1, 6)
+    edges = np.stack(np.divmod(edge_codes, n_v), axis=1)  # (E, 2)
+    lens = np.linalg.norm(
+        vertices[edges[:, 0]] - vertices[edges[:, 1]], axis=1
+    )
+    tet_lens = lens[e_ids]  # (T, 6) — identical floats for a shared edge
+    is_max = tet_lens == tet_lens.max(axis=1, keepdims=True)
+    # among the longest edges of a tet, prefer the largest global edge id;
+    # argmax over the masked ids also yields the local slot of that edge
+    masked = np.where(is_max, e_ids, -1)
+    longest_local = masked.argmax(axis=1)
+    longest = masked[np.arange(tets.shape[0]), longest_local]
+    return e_ids, edges, longest, longest_local
+
+
+def _tet_boundary_edge_labels(tets, edges, markers, n_v):
+    """Per unique-edge midpoint label: edges lying on a boundary face (face
+    with a single incident tet) inherit the stronger endpoint label;
+    interior edges stay 0. 3D counterpart of _boundary_edge_labels."""
+    from .topology import encode_edge_pairs, tet_boundary_faces
+
+    bf = tet_boundary_faces(tets, n_v)  # overflow-guarded dedup
+    bf_edges = np.sort(bf[:, [[0, 1], [1, 2], [0, 2]]].reshape(-1, 2), axis=1)
+    bf_codes = np.unique(encode_edge_pairs(bf_edges, n_v))
+    on_boundary = np.isin(encode_edge_pairs(edges, n_v), bf_codes)
+    ml = markers.reshape(-1)
+    ends = np.maximum(ml[edges[:, 0]], ml[edges[:, 1]])
+    return np.where(on_boundary, ends, 0).astype(np.int64)
+
+
+def refine_adaptive_tet(
+    triangulation: dict, marked, max_rounds: int = 500
+) -> dict:
+    """Conforming adaptive bisection of marked tetrahedra.
+
+    Vectorized Rivara longest-edge bisection: per round, the set of edges
+    that both (a) are wanted — the tie-broken longest edge of a marked tet,
+    closed under "a tet touching a wanted edge wants its own longest edge"
+    — and (b) are *terminal* — the longest edge of every tet containing
+    them — is bisected simultaneously in all incident tets. Terminality
+    makes each round exactly conforming: a face is split iff it contains
+    the bisected edge, identically in both adjacent tets, so no hanging
+    nodes ever exist between rounds. The maximal wanted edge is always
+    terminal (every incident tet's longest edge is wanted by closure and
+    cannot exceed it), so every round makes progress; rounds repeat until
+    every originally marked tet has had its longest edge bisected once.
+
+    The 3D counterpart of :func:`refine_adaptive`.
+
+    Args:
+      triangulation: dict with ``vertices`` (N, 3), ``tetrahedra`` (T, 4)
+        (``cells``/``tets`` accepted) and optional ``vertex_markers``.
+      marked: (T,) boolean mask of tets to bisect at least once (a
+        tensor is read back to the host).
+      max_rounds: safety cap on propagation rounds.
+
+    Returns a new triangulation dict (``vertices``, ``tetrahedra``,
+    ``vertex_markers``). Midpoints of boundary edges (edges on a face with
+    a single incident tet) inherit the stronger endpoint marker.
+    """
+    from .topology import TET_EDGE_PERMUTATIONS
+
+    out = dict(triangulation)
+    for key in ("cells", "tets"):
+        if "tetrahedra" not in out and key in out:
+            out["tetrahedra"] = out[key]
+    vertices = np.asarray(out["vertices"], dtype=np.float64)
+    tets = np.asarray(out["tetrahedra"], dtype=np.int64)
+    if "vertex_markers" in out and out["vertex_markers"] is not None:
+        markers = np.asarray(out["vertex_markers"]).reshape(-1, 1)
+    else:
+        from .topology import build_tet_topology
+
+        markers = build_tet_topology(vertices, tets)["vertex_markers"]
+        markers = np.asarray(markers).reshape(-1, 1)
+
+    marked = _host(marked).astype(bool).reshape(-1)
+    if marked.shape[0] != tets.shape[0]:
+        raise ValueError(
+            f"marked has {marked.shape[0]} entries for {tets.shape[0]} cells"
+        )
+
+    rounds = 0
+    while marked.any():
+        if rounds >= max_rounds:  # pragma: no cover - safety net
+            raise RuntimeError(
+                f"refine_adaptive_tet did not converge in {max_rounds} rounds"
+            )
+        rounds += 1
+        n_v = vertices.shape[0]
+        e_ids, edges, longest, longest_local = _tet_edge_tables(
+            vertices, tets
+        )
+        n_e = edges.shape[0]
+        cnt_incident = np.bincount(e_ids.ravel(), minlength=n_e)
+        cnt_longest = np.bincount(longest, minlength=n_e)
+        terminal = cnt_longest == cnt_incident
+
+        wanted = np.zeros(n_e, dtype=bool)
+        wanted[longest[marked]] = True
+        while True:
+            touched = wanted[e_ids].any(axis=1)
+            grow = touched & ~wanted[longest]
+            if not grow.any():
+                break
+            wanted[longest[grow]] = True
+
+        bisect = wanted & terminal
+        split = bisect[longest]
+        if not split.any():  # pragma: no cover - guaranteed nonempty
+            raise RuntimeError("bisection stalled: no terminal wanted edge")
+
+        labels = _tet_boundary_edge_labels(tets, edges, markers, n_v)
+        bsel = np.flatnonzero(bisect)
+        mid_of_edge = np.full(n_e, -1, dtype=np.int64)
+        mid_of_edge[bsel] = n_v + np.arange(bsel.size)
+        midpoints = vertices[edges[bsel]].mean(axis=1)
+        mid_markers = labels[bsel].reshape(-1, 1)
+
+        st = np.flatnonzero(split)
+        pair = TET_EDGE_PERMUTATIONS[longest_local[st]]  # (S, 2) local i, j
+        mids = mid_of_edge[longest[st]]
+        rows = np.arange(st.size)
+        child_a = tets[st].copy()
+        child_a[rows, pair[:, 0]] = mids  # (m, j) half — det scales by 1/2
+        child_b = tets[st].copy()
+        child_b[rows, pair[:, 1]] = mids  # (i, m) half
+
+        vertices = np.concatenate([vertices, midpoints], axis=0)
+        markers = np.concatenate([markers, mid_markers], axis=0)
+        tets = np.concatenate([tets[~split], child_a, child_b], axis=0)
+        # a split tet is refined (children unmarked); unsplit keep marks
+        marked = np.concatenate(
+            [marked[~split], np.zeros(2 * st.size, dtype=bool)]
+        )
+
+    return {
+        "vertices": vertices,
+        "tetrahedra": tets,
+        "vertex_markers": markers,
+    }
 
 
 def refine_network_adaptive(

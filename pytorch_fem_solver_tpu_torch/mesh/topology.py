@@ -410,3 +410,34 @@ def edge_thirds(verts: np.ndarray, edges: np.ndarray) -> np.ndarray:
     return np.stack(
         [(2 * emin + emax) / 3.0, (emin + 2 * emax) / 3.0], axis=1
     ).reshape(2 * edges.shape[0], -1)
+
+
+# -- P3 face bubbles (the tetrahedral P3 DOF builders) ------------------------
+
+
+def unique_face_ids(faces: np.ndarray, triples: np.ndarray, n_vertices: int) -> np.ndarray:
+    """Ids in the mesh's unique, vertex-sorted ``faces`` (F, 3) table of the
+    vertex ``triples`` (..., 3), in any vertex order; matched by the scalar
+    face code of ``build_tet_topology``."""
+    if n_vertices**3 >= 2**62:
+        raise NotImplementedError(
+            "P3 tet face matching overflows the scalar face code above ~1.6M vertices"
+        )
+
+    def codes(f):
+        return (f[:, 0].astype(np.int64) * n_vertices + f[:, 1]) * n_vertices + f[:, 2]
+
+    fcodes = codes(faces)
+    order = np.argsort(fcodes)
+    local = codes(np.sort(np.asarray(triples).reshape(-1, 3), axis=-1))
+    return order[np.searchsorted(fcodes[order], local)].reshape(np.shape(triples)[:-1])
+
+
+def face_bubble_markers(faces, face_markers, vertex_markers) -> np.ndarray:
+    """Dirichlet labels of the P3 face bubbles: a bubble is constrained iff
+    its face lies on the boundary and all three vertices carry nonzero
+    markers (the edge rule of ``p2_edge_dirichlet_markers``, one dimension
+    up); the label is the strongest vertex label."""
+    fm = np.asarray(vertex_markers).reshape(-1)[faces]
+    on = (np.asarray(face_markers).reshape(-1) != 0) & (fm != 0).all(axis=1)
+    return np.where(on, fm.max(axis=1), 0).astype(np.int64)

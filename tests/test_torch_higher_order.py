@@ -12,8 +12,8 @@ to 1e-12; quadratic and cubic reproduction through ``solve`` and
 ``solve_iterative``; two-sided trace continuity of the oriented P3 edge
 DOFs; trace DOFs single on the network and the batched and flat DFN paths
 equal DOF for DOF; ``compiled_solver`` at P3 on ``rectangle(8, 8)`` and at
-P2 on the network with the JAX package's PCG iteration counts; P4 and the
-tetrahedral branches raising.
+P2 on the network with the JAX package's PCG iteration counts; P4 raising
+and the tetrahedral branches building.
 """
 
 from types import SimpleNamespace
@@ -136,29 +136,26 @@ def test_element_line_shape_functions_match_jax(order):
 
 
 def test_p4_and_tetrahedra_raise():
+    """P4 raises in every element; the tetrahedral branches of the DOF maps,
+    which raised until the tets were ported, build the cell's 10 / 20 and
+    the face's 6 / 10 local DOFs (held against the JAX package in
+    ``test_torch_tet.py`` and ``test_torch_faces.py``)."""
     with pytest.raises(NotImplementedError, match="Polynomial order"):
         pt.ElementTri(4, 5)
     with pytest.raises(NotImplementedError, match="Polynomial order"):
         pt.ElementLine(4, 2)
+    with pytest.raises(NotImplementedError, match="Polynomial order"):
+        pt.ElementTet(4, 5)
     with pytest.raises(NotImplementedError):  # the JAX package raises too
         fem.Basis(fem.MeshTri(fem.unit_square(n=2)), fem.ElementTri(4, 5))
-    # the tetrahedral branches of the DOF maps name the tets' item
-    tables = {
-        ("vertices", "coordinates"): torch.zeros(4, 3),
-        ("vertices", "markers"): torch.ones(4, 1, dtype=torch.int32),
-        ("cells", "vertices"): torch.tensor([[0, 1, 2, 3]], dtype=torch.int32),
-        ("edges", "vertices"): torch.tensor([[0, 1], [0, 2], [0, 3], [1, 2], [1, 3], [2, 3]]),
-        ("edges", "markers"): torch.ones(6, dtype=torch.int32),
-        ("faces", "vertices"): torch.tensor([[0, 1, 2], [0, 1, 3]]),
-    }
-    mesh = type("TetTables", (), {"__getitem__": lambda self, key: tables[key]})()
-    for order in (2, 3):
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            pt.Basis._compute_dofs(None, mesh, pt.ElementTri(order, 4))
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            pt.InteriorEdgesBasis._compute_dofs(
-                SimpleNamespace(facet_group="faces"), mesh, pt.ElementLine(order, 4)
-            )
+    mesh = pt.MeshTet(pt.unit_cube(1), device="cpu")
+    for order, n_cell, n_face in ((2, 10, 6), (3, 20, 10)):
+        dofs = pt.Basis._compute_dofs(None, mesh, pt.ElementTet(order, 4))[1]
+        assert tuple(dofs.shape) == (6, n_cell)
+        faces = pt.InteriorEdgesBasis._compute_dofs(
+            SimpleNamespace(facet_group="boundary_faces"), mesh, pt.ElementTriSurface(order, 4)
+        )[1]
+        assert tuple(faces.shape) == (12, n_face)
 
 
 @pytest.mark.parametrize("order", [2, 3])
