@@ -180,7 +180,34 @@ Phases (any failure exits non-zero and prints no result):
     level at tol 1e-10, the Dörfler marks of both equal outside the tie
     band of the threshold (cells whose estimate the domain's symmetry
     makes equal are ordered by rounding; the count that differ is
-    printed), and a level solved to 1e-2 failing both bounds.
+    printed), and a level solved to 1e-2 failing both bounds;
+19. the 3D RVPINN (``make_vpinn_3d`` of the port's ``bench_vpinn.py``,
+    ``examples/example_vpinn_3d.py``): at the example's N=8, 10 epochs of
+    ``train()`` in float32 and float64 on the card for both Gram methods
+    (finite losses, the last below the first, within 1e-2); at N=32
+    (196,608 tets, 29,791 inner DOFs), float32, for ``"cholesky"`` and
+    ``"pcg"``: 20 epochs through ``train()`` and through
+    ``train_compiled(10)`` (finite, decreasing, within 1e-4 of each other),
+    s/epoch, the Gram PCG's iterations per epoch, one profiled block of 10
+    epochs (device ms, launches and host reads per epoch, idle share), and
+    no hand kernel launched (the Gram applies are the library's triangular
+    solves or the plain ELL matvec); then the Cholesky run under
+    ``reduce_on_plateau`` (factor 0.5, patience 2, rtol 1e-2): its scale
+    drops in both loops, the loops within 1e-4, and the scheduler adds no
+    host read per epoch (a ``vpinn_3d_s_per_epoch`` line);
+20. the chunked tet solve: ``tet_poisson(80)`` in float32 (3,072,000 tets,
+    493,039 inner DOFs; ``tools/exp_tet_scale.py``'s n=80 rung) through
+    the chunked default of ``compiled_bsr_solver`` (12 chunks of 2^18
+    cells), with phase 16's checks and a median of 3 solves; the structure
+    against the host's count, 68 +- 3 iterations (the JAX package's) and
+    within 3 of float64; the same solve with ``chunk_cells=0`` on the same
+    basis and tables: equal iterations, values within the float32 rounding
+    of the summation order (2 x 49 eps32 of each slot's sum of |terms|),
+    solutions closer than the float32 solve is to float64, its true
+    residual within phase 15's bound; the peak device memory of both
+    solves and of both assemblies alone, and the host seconds of the
+    mesh, the basis, the tables and the chunk tables (a
+    ``tet_chunked_solve`` line).
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
@@ -292,8 +319,8 @@ F32_VS_F64 = 1e-4  # f32 vs f64 solution, beyond twice the float32 operator floo
 LADDER_TOLS = (1e-2, 1e-3, 1e-4, 1e-5)  # looser f32 solves; the first is the control
 PATCH_LEVELS_DEEP = 6  # 4,096 patches, 16,384 cells
 PATCH_BLOCK = 10
-# phase 18: tools/exp_tet_scale.py's largest rung below the 2M-cell guard of
-# compiled_bsr_solver, its cells and DOFs, and the P1 structure there (inner
+# phase 18: tools/exp_tet_scale.py's largest rung below 2M cells, where
+# compiled_bsr_solver turns to chunked assembly, its cells and DOFs, and the P1 structure there (inner
 # DOFs, block-rows, tier-1 width, spilled block-rows, tier-2 width, stored
 # blocks): about 150 MB of float32 values, three times the L2
 TET_N = 64
@@ -305,6 +332,31 @@ FICHERA_N = 24  # examples/example_adaptive_3d.py's loop on fichera_corner(24)
 FICHERA_SIZE = (580_608, 103_825, 89_999)  # level 0: cells, vertices, inner DOFs
 FICHERA_LEVELS = 4
 FICHERA_THETA = 0.4  # the example's
+# phase 19: examples/example_vpinn_3d.py at its default FEM_N (3,072 tets,
+# 343 inner DOFs) and at the card's full-width rung, N=32: its cells and
+# inner DOFs (983,040 quadrature points; the dense float32 Gram 3.5 GB)
+VPINN3D_SMALL = 8
+VPINN3D_FULL = 32
+VPINN3D_SIZE = (196_608, 29_791)
+VPINN3D_EPOCHS = 20
+VPINN3D_BLOCK = 10
+# the plateau run: the epochs improve by about 1e-3 of the loss each, so the
+# optax default rtol (1e-4) would never cut the scale in 20 epochs
+VPINN3D_PLATEAU = {"factor": 0.5, "patience": 2, "rtol": 1e-2}
+# phase 20: tools/exp_tet_scale.py's unit_cube(80) rung through the chunked
+# default of compiled_bsr_solver (2^18 cells per chunk): cells and DOFs, the
+# structure counted on the host beforehand (inner DOFs, n_pad, block-rows,
+# B, spilled block-rows, B2, value slots with padding) and the JAX
+# package's iterations there (docs/performance.md, 3D scale table)
+CHUNK_N = 80
+CHUNK_SIZE = (3_072_000, 531_441)
+CHUNK_STRUCTURE = (493_039, 493_056, 61_632, 24, 12_936, 20, 111_224_832)
+CHUNK_CELLS = 1 << 18
+CHUNK_JAX_ITERATIONS = 68
+CHUNK_REPEATS = 3
+# terms a BSR slot of the P1 tet operator sums at most: a vertex lies in 24
+# tets of unit_cube(n), and the mirror completion adds the partner's
+SLOT_TERMS = 48
 
 failures: list[str] = []
 # name -> one launch at the benchmark shapes, registered by the phases for
@@ -1736,13 +1788,15 @@ def _single_trace_dofs(V):
     return int(trace.sum()), int((trace & (distinct_per_edge(mids) == 1)).sum())
 
 
-def _higher_order_case(tag, make, load, size, card, ladder=LADDER_TOLS, structure=None):
-    """One compiled solve of phases 16 and 18: ``make(dtype, tol)`` builds
-    the basis and its tables and solves once (``bench.HigherOrderSolve``)
-    on the card; float32 solves at the ``ladder`` tolerances follow, the
-    first the control. ``structure`` is the expected (inner DOFs,
-    block-rows, B, spilled block-rows, B2, stored blocks). Returns the
-    case's figures and the float32 solve."""
+def _higher_order_case(tag, make, load, size, card, ladder=LADDER_TOLS, structure=None,
+                       repeats=HIGHER_ORDER_REPEATS):
+    """One compiled solve of phases 16, 18 and 20: ``make(dtype, tol)``
+    builds the basis and its tables and solves once
+    (``bench.HigherOrderSolve``) on the card; float32 solves at the
+    ``ladder`` tolerances follow, the first the control. ``structure`` is
+    the expected (inner DOFs, block-rows, B, spilled block-rows, B2, stored
+    blocks); the timed wall is the median of ``repeats`` solves. Returns
+    the case's figures and the float32 solve."""
     import torch
 
     from pytorch_fem_solver_tpu_torch.bench import _stiffness
@@ -1859,7 +1913,7 @@ def _higher_order_case(tag, make, load, size, card, ladder=LADDER_TOLS, structur
     n_bytes, n_flops = _k2_bytes_flops(st)
     b_ms, by = bound_ms(n_bytes, n_flops)
 
-    walls = [_timed(r.solve) for _ in range(HIGHER_ORDER_REPEATS)]
+    walls = [_timed(r.solve) for _ in range(repeats)]
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         wall = _timed(r.solve)
     kernels, device_ms = _device_kernels(prof, 1)
@@ -1879,7 +1933,7 @@ def _higher_order_case(tag, make, load, size, card, ladder=LADDER_TOLS, structur
         "k2_bound_ms": b_ms, "k2_bound_by": by, "k2_max_abs_err": max_abs,
         "host_s": r.seconds, "card": card,
     }
-    log(f"{tag}: median wall {figures['median_wall_ms']:.3f} ms over {HIGHER_ORDER_REPEATS} solves "
+    log(f"{tag}: median wall {figures['median_wall_ms']:.3f} ms over {repeats} solves "
         f"{['%.3f' % w for w in figures['walls_ms']]}, {info.iterations} iterations, K2 launches {k2}; "
         f"profiled solve: wall {1e3 * wall:.3f} ms, device {device_ms:.3f} ms, idle share "
         f"{figures['idle_share']:.3f}, {sum(k[1] for k in kernels):.0f} launches; K2 in the solve "
@@ -2199,6 +2253,298 @@ def phase_tets(card):
     return p1["k2_launches"], p2["k2_launches"], _fichera(card)
 
 
+# -- phase 19: the 3D RVPINN -------------------------------------------------------
+
+
+def _vpinn_3d_block(tag, run, net0, card, scheduler=None):
+    """Phase 19 at one width and Gram method: ``run`` (a built
+    ``make_vpinn_3d``) trains ``VPINN3D_EPOCHS`` epochs through ``train()``,
+    a model on a copy of its initial network ``net0`` the same through
+    ``train_compiled(VPINN3D_BLOCK)``; finite decreasing losses, the loops
+    within 1e-4 (the card's scatters sum with atomics); s/epoch of both;
+    one profiled block (device ms, launches, host reads per epoch, idle
+    share); for the PCG Gram its iterations. With ``scheduler`` (plateau
+    kwargs) every loop runs under it and its scale must drop."""
+    import copy
+
+    import torch
+
+    from pytorch_fem_solver_tpu_torch import Model
+    from pytorch_fem_solver_tpu_torch.bench_vpinn import LEARNING_RATE
+
+    kw = {} if scheduler is None else {"learning_rate_scheduler": "reduce_on_plateau",
+                                       "scheduler_kwargs": scheduler}
+
+    def model(epochs):
+        return Model(copy.deepcopy(net0), run.training_step, epochs=epochs,
+                     optimizer_kwargs={"lr": LEARNING_RATE}, progress_bar=False, **kw)
+
+    eager = run.model if scheduler is None else model(VPINN3D_EPOCHS)
+    gram_iters = getattr(run.gram_solve, "iterations", None)
+    if gram_iters is not None:
+        for v in gram_iters.values():
+            v.clear()
+    eager_s = _timed(eager.train) / VPINN3D_EPOCHS
+    losses, _, accs = eager.get_training_history()
+    forward = list(gram_iters["forward"]) if gram_iters is not None else []
+    backward = list(gram_iters["backward"]) if gram_iters is not None else []
+    blocked = model(VPINN3D_EPOCHS)
+    blocked_s = _timed(lambda: blocked.train_compiled(VPINN3D_BLOCK)) / VPINN3D_EPOCHS
+    blosses = blocked.get_training_history()[0]
+    for name, hist in (("train()", losses), (f"train_compiled({VPINN3D_BLOCK})", blosses)):
+        check(len(hist) == VPINN3D_EPOCHS and bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
+              f"{tag} {name}: {len(hist)} finite losses, {hist[0]:.6e} -> {hist[-1]:.6e}")
+    diff = _rel_curve(blosses, losses)
+    check(diff <= 1e-4, f"{tag} train_compiled({VPINN3D_BLOCK}) vs train(): rel {diff:.3e} <= 1e-4")
+    fig = {"case": tag, "train_s_per_epoch": eager_s, "train_compiled_s_per_epoch": blocked_s,
+           "block_size": VPINN3D_BLOCK, "loss_first_last": [losses[0], losses[-1]],
+           "h1_first_last": [accs[0], accs[-1]], "loops_rel": diff, "card": card}
+    if scheduler is not None:
+        scales = [float(m._scheduler.state["scale"]) for m in (eager, blocked)]
+        check(max(scales) < 1.0, f"{tag}: the plateau scale dropped in both loops {scales}")
+        fig["final_scale"] = scales
+    if gram_iters is not None:
+        fig["gram_pcg_iterations_per_epoch"] = {
+            "forward": float(np.mean(forward)), "backward": float(np.mean(backward))}
+        log(f"{tag}: Gram PCG iterations per epoch, forward {forward}, backward {backward}")
+    prof_model = model(VPINN3D_BLOCK)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        wall = _timed(lambda: prof_model.train_compiled(VPINN3D_BLOCK))
+    kernels, device_ms = _device_kernels(prof, VPINN3D_BLOCK)
+    wall_ms = 1e3 * wall / VPINN3D_BLOCK
+    reads = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and "Memcpy DtoH" in e.name) / VPINN3D_BLOCK
+    fig.update({"profiled_wall_ms_per_epoch": wall_ms, "device_ms_per_epoch": device_ms,
+                "launches_per_epoch": sum(k[1] for k in kernels),
+                "host_reads_per_epoch": reads, "idle_share": 1 - device_ms / wall_ms,
+                "idle_share_unprofiled": 1 - device_ms / (1e3 * blocked_s)})
+    log(f"{tag}: profile, one block of {VPINN3D_BLOCK} epochs: wall {wall_ms:.3f} ms per epoch "
+        f"under the profiler, device {device_ms:.3f} ms, idle share {fig['idle_share']:.3f} "
+        f"({fig['idle_share_unprofiled']:.3f} of the unprofiled train_compiled epoch), "
+        f"{fig['launches_per_epoch']:.0f} kernel launches and {reads:.1f} host reads "
+        "(Memcpy DtoH) per epoch")
+    log("device ms/epoch  launches/epoch  kernel")
+    for us, count, name in kernels[:12]:
+        log(f"{us / 1e3:14.4f}  {count:14.1f}  {name[:110]}")
+    log(f"{tag}: s/epoch train() {eager_s:.6e}, train_compiled({VPINN3D_BLOCK}) {blocked_s:.6e}; "
+        f"loss {losses[0]:.6e} -> {losses[-1]:.6e}, relative H1 {accs[0]:.4f} -> {accs[-1]:.4f}")
+    return fig
+
+
+def phase_vpinn_3d(card):
+    """Phase 19: the 3D RVPINN of ``examples/example_vpinn_3d.py`` on the
+    card, both Gram methods."""
+    import copy
+
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench_vpinn import make_vpinn_3d
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+
+    f32, f64 = torch.float32, torch.float64
+    marks = [("start", time.perf_counter())]
+    for gram in ("cholesky", "pcg"):  # library handles, allocator
+        warm = make_vpinn_3d(VPINN3D_SMALL, gram, epochs=2, device=DEVICE, dtype=f32)
+        warm.model.train()
+        warm.model.train_compiled(2)
+    del warm
+
+    # the example's size: float32 against float64 on the card
+    for gram in ("cholesky", "pcg"):
+        hist = {}
+        for dtype in (f32, f64):
+            run = make_vpinn_3d(VPINN3D_SMALL, gram, epochs=10, device=DEVICE, dtype=dtype)
+            run.model.train()
+            hist[dtype] = run.model.get_training_history()[0]
+        l32 = hist[f32]
+        check(bool(np.isfinite(l32).all()) and l32[-1] < l32[0],
+              f"3D RVPINN N={VPINN3D_SMALL} {gram} f32: finite losses {l32[0]:.6e} -> {l32[-1]:.6e}")
+        d64 = _rel_curve(l32, hist[f64])
+        check(d64 <= 1e-2, f"3D RVPINN N={VPINN3D_SMALL} {gram} f32 vs f64 10-epoch losses on the "
+              f"card: rel {d64:.3e} <= 1e-2")
+    marks.append((f"N={VPINN3D_SMALL} f32 and f64", time.perf_counter()))
+
+    # the full-width rung, both Gram methods
+    figures = []
+    kept = None
+    for gram in ("cholesky", "pcg"):
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = make_vpinn_3d(VPINN3D_FULL, gram, epochs=VPINN3D_EPOCHS, device=DEVICE, dtype=f32)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        net0 = copy.deepcopy(run.network)
+        inner = int(run.basis._basis_parameters["inner_dofs"].shape[0])
+        points = run.basis.integration_points.shape[0] * run.basis.integration_points.shape[1]
+        check((run.mesh.n_cells, inner) == VPINN3D_SIZE,
+              f"3D RVPINN N={VPINN3D_FULL}: cells and inner DOFs {(run.mesh.n_cells, inner)} == "
+              f"{VPINN3D_SIZE}")
+        tag = f"3D RVPINN N={VPINN3D_FULL} {gram}"
+        fig = _vpinn_3d_block(tag, run, net0, card)
+        launches = dict(cuda_build.launch_counts)
+        # no hand kernel on this path: the Gram applies are the library's
+        # triangular solves or the plain ELL matvec, as XLA runs them for JAX
+        check(sum(launches.values()) == 0, f"{tag}: no hand kernel launched ({launches})")
+        fig.update({"setup_s": setup_s, "cells": run.mesh.n_cells, "inner_dofs": inner,
+                    "quadrature_points": points})
+        log(f"{tag}: setup {setup_s:.3f} s, {points} quadrature points")
+        figures.append(fig)
+        marks.append((f"N={VPINN3D_FULL} {gram}", time.perf_counter()))
+        if gram == "cholesky":
+            kept = (run, net0)
+        del run
+    run, net0 = kept
+    tag = f"3D RVPINN N={VPINN3D_FULL} cholesky plateau {VPINN3D_PLATEAU}"
+    figures.append(_vpinn_3d_block(tag, run, net0, card, scheduler=VPINN3D_PLATEAU))
+    # the plateau state lives on the card: no host read added per epoch
+    reads = (figures[-1]["host_reads_per_epoch"], figures[0]["host_reads_per_epoch"])
+    check(reads[0] <= reads[1], f"{tag}: host reads per train_compiled epoch {reads[0]:.1f}, "
+          f"without the scheduler {reads[1]:.1f}")
+    del run, kept
+    torch.cuda.empty_cache()
+    marks.append(("plateau", time.perf_counter()))
+    log(json.dumps({"metric": "vpinn_3d_s_per_epoch", "cases": figures}))
+    log("phase 19 seconds: " + "; ".join(
+        f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])))
+
+
+# -- phase 20: the chunked tet solve -----------------------------------------------
+
+
+def _peak_of(fn):
+    """``fn()`` with the device memory around it: ``(result, allocated
+    before, peak during)`` in bytes."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, base, torch.cuda.max_memory_allocated()
+
+
+def phase_chunked(card):
+    """Phase 20: ``tet_poisson(80)`` in float32 through the chunked
+    default, against ``chunk_cells=0`` on the same basis and tables."""
+    import gc
+
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import _sine_load_3d, _stiffness
+    from pytorch_fem_solver_tpu_torch.ops import compiled
+    from pytorch_fem_solver_tpu_torch.ops.bsr import (
+        bsr_values_from_chunks_symmetric,
+        default_max_b,
+        get_bsr_structure,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 20 starts with {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    tag = f"P1 unit_cube({CHUNK_N}) chunked"
+    p, r = _higher_order_case(tag, _tet_make(CHUNK_N, 1), _sine_load_3d, CHUNK_SIZE, card,
+                              ladder=(ADAPTIVE_CONTROL_TOL,), repeats=CHUNK_REPEATS)
+    V = r.basis
+    max_b = default_max_b(V)
+    st = get_bsr_structure(V, max_b=max_b, want_entry_slot=False)
+    (nb, B), (nh, B2) = st.bcols.shape, st.bcols2.shape
+    got = (st.n_inner, st.n_pad, nb, B, nh, B2, st.n_values)
+    check(got == CHUNK_STRUCTURE, f"{tag}: structure (inner DOFs, n_pad, block-rows, B, spilled "
+          f"block-rows, B2, value slots) {got} == {CHUNK_STRUCTURE}, the host's count")
+    n_cells = int(V.v_grad.shape[0])
+    chunks = getattr(V, "_chunk_tables", {}).get((CHUNK_CELLS, max_b))
+    check(chunks is not None and len(chunks) == -(-n_cells // CHUNK_CELLS),
+          f"{tag}: the default took {len(chunks or ())} chunks of {CHUNK_CELLS} cells")
+    del V._chunk_tables[(CHUNK_CELLS, max_b)]
+    t0 = time.perf_counter()
+    chunks = compiled._chunk_table(V, st, CHUNK_CELLS, max_b)
+    r.seconds["chunk_tables"] = time.perf_counter() - t0
+    iters = p["iterations"]
+    check(abs(iters - CHUNK_JAX_ITERATIONS) <= ITER_GAP, f"{tag}: {iters} iterations within "
+          f"{ITER_GAP} of the JAX package's {CHUNK_JAX_ITERATIONS}")
+    check(abs(iters - p["iterations_f64"]) <= ITER_GAP, f"{tag}: f32 iterations {iters} within "
+          f"{ITER_GAP} of f64's {p['iterations_f64']}")
+
+    # the same solve unchunked, on the same basis and tables
+    solve0 = V.compiled_solver(_stiffness, _sine_load_3d, tol=TOL, chunk_cells=0)
+    (u_c, info_c), base_c, peak_c = _peak_of(r.solve)
+    del u_c
+    (u_0, info_0), base_0, peak_0 = _peak_of(solve0)
+    u_c, info_c = r.solve()
+    check(info_c.iterations == info_0.iterations == iters, f"{tag}: chunked and unchunked "
+          f"iterations {info_c.iterations} == {info_0.iterations} == {iters}")
+    # the assembled values differ only by the order of the float32 sums:
+    # within 2 x (SLOT_TERMS + 1) x eps32 of each slot's sum of |terms|
+    # the assembly alone, each with the other's output not yet resident
+    def assemble(form, table):
+        return bsr_values_from_chunks_symmetric(st, compiled._local_chunks(V, st, form, table))
+
+    vals_0, base_a0, peak_a0 = _peak_of(lambda: assemble(_stiffness, None))
+    vals_0 = tuple(v.cpu() for v in vals_0)
+    vals_c, base_ac, peak_ac = _peak_of(lambda: assemble(_stiffness, chunks))
+    vals_0 = tuple(v.to(vals_c[0].device) for v in vals_0)
+    abs_sum = assemble(lambda b: _stiffness(b).abs(), chunks)
+    eps = torch.finfo(torch.float32).eps
+    diff = torch.cat([(c - z).abs().reshape(-1) for c, z in zip(vals_c, vals_0)])
+    scale = torch.cat([s.reshape(-1) for s in abs_sum])
+    worst = float((diff / (2 * (SLOT_TERMS + 1) * eps * scale).clamp_min(1e-30)).max())
+    max_rel = float(diff.max() / torch.cat([z.reshape(-1) for z in vals_0]).abs().max())
+    check(worst <= 1.0, f"{tag}: chunked vs unchunked values within the float32 rounding of the "
+          f"summation order (worst slot at {worst:.3e} of 2 x {SLOT_TERMS + 1} eps32 sum|terms|; "
+          f"max |diff| / max |value| {max_rel:.3e})")
+    del vals_c, vals_0, abs_sum, diff, scale
+    # what the chunks cost in time: the two assemblies and the two solves,
+    # timed in turns on the same tables
+    walls = {"assembly_chunked": [], "assembly_unchunked": [], "solve_chunked": [],
+             "solve_unchunked": []}
+    for _ in range(CHUNK_REPEATS):
+        walls["assembly_chunked"].append(_timed(lambda: assemble(_stiffness, chunks)))
+        walls["assembly_unchunked"].append(_timed(lambda: assemble(_stiffness, None)))
+        walls["solve_chunked"].append(_timed(r.solve))
+        walls["solve_unchunked"].append(_timed(solve0))
+    median_ms = {k: 1e3 * float(np.median(w)) for k, w in walls.items()}
+    log(f"{tag}: median wall ms over {CHUNK_REPEATS} in turns: "
+        + ", ".join(f"{k} {v:.3f} {['%.3f' % (1e3 * w) for w in walls[k]]}"
+                    for k, v in median_ms.items()))
+    du = float((u_c - u_0).norm() / u_0.norm())
+    check(du <= p["f32_vs_f64"], f"{tag}: chunked vs unchunked solution rel L2 {du:.3e} <= the "
+          f"float32 solve's own distance from float64 {p['f32_vs_f64']:.3e}")
+    b = V.integrate_linear_form(_sine_load_3d)
+    true0, rounding = _true_residual(V, u_0, b)
+    bound = TOL + ADAPTIVE_ROUNDING * rounding
+    check(true0 <= bound, f"{tag}: unchunked true residual {true0:.3e} <= {bound:.3e}")
+    gib = 2**30
+    p.update({"chunk_cells": CHUNK_CELLS, "chunks": len(chunks), "structure": got,
+              "unchunked_iterations": info_0.iterations, "chunked_vs_unchunked_u": du,
+              "values_rounding_share": worst, "values_max_rel": max_rel,
+              "unchunked_true_residual": true0,
+              "median_ms_in_turns": median_ms,
+              "peak_gib_chunked": peak_c / gib, "peak_gib_unchunked": peak_0 / gib,
+              "solve_peak_over_resident_gib_chunked": (peak_c - base_c) / gib,
+              "solve_peak_over_resident_gib_unchunked": (peak_0 - base_0) / gib,
+              "assembly_peak_over_resident_gib_chunked": (peak_ac - base_ac) / gib,
+              "assembly_peak_over_resident_gib_unchunked": (peak_a0 - base_a0) / gib,
+              "host_s": r.seconds})
+    log(f"{tag}: max_memory_allocated chunked {peak_c / gib:.3f} GiB ({(peak_c - base_c) / gib:.3f} "
+        f"over the {base_c / gib:.3f} GiB resident), unchunked {peak_0 / gib:.3f} GiB "
+        f"({(peak_0 - base_0) / gib:.3f} over {base_0 / gib:.3f}); the assembly alone "
+        f"{(peak_ac - base_ac) / gib:.3f} GiB over the resident chunked, "
+        f"{(peak_a0 - base_a0) / gib:.3f} unchunked; {len(chunks)} chunks of "
+        f"{CHUNK_CELLS} cells; host s: " + ", ".join(f"{k} {v:.3f}" for k, v in r.seconds.items()))
+    log(json.dumps({"metric": "tet_chunked_solve", "tol": TOL, "jax_iterations": CHUNK_JAX_ITERATIONS,
+                    "case": p}, default=str))
+    del r, V, solve0, u_0, u_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return p["k2_launches"]
+
+
 def phase_two_fracture():
     """Phase 10: the two-fracture RVPINN loss and one Adam step on the card,
     against the same port in float64 on the CPU."""
@@ -2399,9 +2745,13 @@ def main() -> int:
     done("17 patch RVPINN")
     tet_p1_k2, tet_p2_k2, fichera_k2 = phase_tets(card)
     done("18 tets")
+    phase_vpinn_3d(card)
+    done("19 3D RVPINN")
+    chunked_k2 = phase_chunked(card)
+    done("20 chunked tets")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
-    ) + f"; start to tables {marks[0][1] - t_start:.1f}")
+    ) + f"; start to tables {marks[0][1] - t_start:.1f}; total {time.perf_counter() - t_start:.1f}")
 
     if failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
@@ -2413,7 +2763,8 @@ def main() -> int:
     k2["launches"] = launches["bsr_spmv"]
     k2["launches_by_path"] = {"main": launches["bsr_spmv"], "dfn_rvpinn": dfn_launches["bsr_spmv"],
                               "adaptive_dfn": adaptive_k2, "p3": p3_k2, "dfn_p2": dfn_p2_k2,
-                              "tet_p1": tet_p1_k2, "tet_p2": tet_p2_k2, "fichera": fichera_k2}
+                              "tet_p1": tet_p1_k2, "tet_p2": tet_p2_k2, "fichera": fichera_k2,
+                              "tet_chunked": chunked_k2}
     k5["launches"] = rvpinn_launches["p1_element_2d"]
     k5["launches_by_path"] = {"rvpinn": rvpinn_launches["p1_element_2d"],
                               "posteriori_rvpinn": posteriori_launches["p1_element_2d"],

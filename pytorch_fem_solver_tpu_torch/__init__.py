@@ -36,12 +36,15 @@ from .mesh import (
     build_fracture_network,
     dorfler_mark,
     fichera_corner,
+    quality_report,
     rectangle,
     refine_adaptive,
     refine_adaptive_tet,
     refine_network_adaptive,
     refine_uniform,
     refine_uniform_tet,
+    triangle_min_angles,
+    triangulate_pslg,
     triangulation_max_area,
     unit_cube,
     unit_square,
@@ -49,6 +52,10 @@ from .mesh import (
 from .models import FeedForwardNeuralNetwork, Model
 from .utils import benchmark_seven_fracture_geometry, build_benchmark_network
 
+# the JAX package's list less ``VectorBasis`` (ROADMAP.md, queue A4); the
+# port's own entry points imported above (the benchmark network, the
+# adaptive refinement and marking, ``fichera_corner``) are importable by
+# name and stay out of it, as they are out of the JAX package's
 __all__ = [
     "config",
     "AbstractBasis",
@@ -56,39 +63,33 @@ __all__ = [
     "FractureBasis",
     "FractureNetworkBasis",
     "InteriorEdgesNetworkBasis",
+    "FractureNetworkMesh",
+    "triangulate_pslg",
+    "triangle_min_angles",
+    "quality_report",
     "BoundaryEdgesBasis",
     "BoundaryFacesBasis",
+    "InteriorFacesBasis",
     "InteriorEdgesBasis",
     "InteriorEdgesFractureBasis",
-    "InteriorFacesBasis",
     "PatchesBasis",
     "ElementLine",
     "ElementTet",
     "ElementTri",
     "ElementTriSurface",
-    "FractureNetworkMesh",
-    "FracturesTri",
-    "MeshesTri",
     "MeshTet",
     "MeshTri",
+    "MeshesTri",
+    "FracturesTri",
     "Patches",
-    "box",
-    "build_fracture_network",
-    "dorfler_mark",
-    "fichera_corner",
-    "rectangle",
-    "refine_adaptive",
-    "refine_adaptive_tet",
-    "refine_network_adaptive",
-    "refine_uniform",
-    "refine_uniform_tet",
-    "triangulation_max_area",
-    "unit_cube",
-    "unit_square",
     "FeedForwardNeuralNetwork",
     "Model",
-    "benchmark_seven_fracture_geometry",
-    "build_benchmark_network",
+    "box",
+    "rectangle",
+    "refine_uniform",
+    "refine_uniform_tet",
+    "unit_cube",
+    "unit_square",
 ]
 
 __version__ = "0.1.0"

@@ -3,8 +3,8 @@
 Counterpart of ``pytorch_fem_solver_tpu/basis/abstract_basis.py``: the
 forms, the dense and iterative solves (BSR, ELL and segment operators), the
 Gram solvers of RVPINN training and the compiled BSR solve. The mixed
-bilinear forms and ``_iterate_at_quadrature`` are queued in ROADMAP.md
-(queue A, item 3). All
+bilinear forms (Stokes) and ``_iterate_at_quadrature`` (Newton) are queued
+in ROADMAP.md (queue A5). All
 quadrature-evaluated tensors (shape values, physical gradients, integration
 points, weights, DOF and scatter indices) are computed once at construction
 on the mesh's device; the integrate methods are plain functions of them, and
@@ -256,8 +256,8 @@ class AbstractBasis(abc.ABC):
         ``precondition``: ``"jacobi"``; ``"agg_block"`` (BSR: aggregate
         blocks of the smoother plus the dense coarse level); ``"two_level"``
         (BSR: ``auto_preconditioner``; ELL: the smoothed two-level M, its
-        tables cached on the basis). ``"mult_two_level"`` and ``"rbm"`` are
-        queued in ROADMAP.md (A7) and raise. ``symmetric_form=True`` asserts
+        tables cached on the basis). ``"mult_two_level"`` (ROADMAP.md, A6)
+        and ``"rbm"`` (A4) are queued and raise. ``symmetric_form=True`` asserts
         symmetric local matrices and takes the canonical-pair assembly (BSR
         only). ``solver="bicgstab"`` is for non-symmetric operators. With
         ``return_info`` the result is ``(u, PCGInfo)``.
@@ -296,9 +296,10 @@ class AbstractBasis(abc.ABC):
                     "'jacobi')"
                 )
             if precondition in ("mult_two_level", "rbm"):
+                item = "A6" if precondition == "mult_two_level" else "A4"
                 raise NotImplementedError(
                     f"precondition={precondition!r} is not ported; see "
-                    "ROADMAP.md, queue A7"
+                    f"ROADMAP.md, queue {item}"
                 )
             from ..ops.bsr import (
                 bsr_diagonal,

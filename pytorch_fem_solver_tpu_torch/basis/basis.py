@@ -2,7 +2,7 @@
 
 Counterpart of ``pytorch_fem_solver_tpu/basis/basis.py``: the P1, P2 and
 P3 DOF maps of triangles and tetrahedra, with point probing queued
-(ROADMAP.md, queue A item 3). ``interpolate`` evaluates on the basis's own
+(ROADMAP.md, queue A7). ``interpolate`` evaluates on the basis's own
 quadrature points and takes the two-sided and one-sided traces onto the
 facet bases (the edges of a triangle mesh, the faces of a tet mesh). Local
 entry (i, j) lands at global (row_i, col_j); the DOF tables and

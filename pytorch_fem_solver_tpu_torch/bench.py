@@ -31,7 +31,13 @@ Dörfler marking and ``FractureNetworkMesh.refined`` between the levels.
 ``tet_poisson`` is the counterpart of ``tools/exp_tet_scale.py``: the sine
 Poisson problem on ``unit_cube(n)`` with ``ElementTet(order, 2 order)``
 through ``compiled_solver`` (250,047 inner DOFs at its n=64), and
-``tet_solve`` the same on a built mesh.
+``tet_solve`` the same on a built mesh. Above 2M cells (from n=70 at P1,
+e.g. the table's n=80 and n=100 rungs) ``compiled_solver`` streams the
+assembly over chunks of 2^18 cells by default. Run as a module,
+``python3 -m pytorch_fem_solver_tpu_torch.bench tet_poisson N`` solves
+``tet_poisson(N)`` on the card in float32 and prints one JSON line: the
+sizes, iterations and residual, the walls of three more solves on the
+built tables, the peak device memory and the host seconds.
 ``adaptive_tet`` is the loop of ``examples/example_adaptive_3d.py`` on the
 Fichera corner: the P1 solve by ``solve_iterative``, the bulk term plus the
 face normal-gradient jumps from the two-sided traces onto
@@ -500,3 +506,45 @@ def dfn_p2_solve(mesh, *, tol: float = 1e-6) -> HigherOrderSolve:
         lambda: FractureNetworkBasis(mesh, ElementTri(2, 4)),
         _stiffness, _unit_load, mesh.device, tol,
     )
+
+
+def main(argv=None) -> int:
+    """``tet_poisson N`` (P1) on the card, float32: one JSON line."""
+    import json
+    import subprocess
+    import sys
+
+    args = list(sys.argv[1:] if argv is None else argv)
+    if len(args) != 2 or args[0] != "tet_poisson":
+        print("usage: python3 -m pytorch_fem_solver_tpu_torch.bench tet_poisson N",
+              file=sys.stderr)
+        return 2
+    n = int(args[1])
+    device = config.resolve_device(None)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    torch.cuda.reset_peak_memory_stats()
+    r = tet_poisson(n, device=device, dtype=torch.float32)
+    first_peak = torch.cuda.max_memory_allocated()
+    walls = []
+    for _ in range(3):
+        t0 = _now(device)
+        u, info = r.solve()
+        walls.append(_now(device) - t0)
+    b = r.basis.reduce(r.basis.integrate_linear_form(_sine_load_3d))
+    print(json.dumps({
+        "metric": "tet_poisson", "n": n, "cells": int(r.basis.v_grad.shape[0]),
+        "dofs": r.basis.n_dofs, "iterations": info.iterations,
+        "rel_residual": float(info.residual_norm / b.norm()),
+        "finite": bool(torch.isfinite(u).all()), "walls_s": walls,
+        "median_wall_s": float(np.median(walls)), "peak_gib_first_solve": first_peak / 2**30,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "host_s": r.seconds,
+        "card": card,
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

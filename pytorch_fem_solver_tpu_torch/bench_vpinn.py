@@ -27,6 +27,16 @@ previous epoch's Gram iterate warm-starting the next through
 ``Model(training_state0=...)``. Its full size is h=0.1 (19,680 cells,
 9,795 DOFs).
 
+``make_vpinn_3d`` is the counterpart of ``examples/example_vpinn_3d.py``:
+the 2D RVPINN one dimension up, a 3 -> 20x4 -> 1 MLP with the
+``x(x-1)y(y-1)z(z-1)`` boundary modifier trained against P1 hats on
+``MeshTet(unit_cube(n))`` with ``ElementTet(1, integration_order=3)``, the
+loss ``r^T G^{-1} r`` through ``gram_solver(stiffness, method=gram)``
+(dense Cholesky or the matrix-free ELL PCG), the manufactured
+``sin(πx) sin(πy) sin(πz)``, Adam at 1e-3. Its Gram applies are the
+library's triangular solves or the plain ELL matvec: no hand kernel runs
+on this path, as no Pallas kernel runs on the JAX one.
+
 ``make_posteriori_rvpinn`` is the counterpart of
 ``examples/example_weak_plus_posterri.py`` at ``make_rvpinn``'s size: the
 same RVPINN loss plus the a-posteriori estimator of the network,
@@ -69,13 +79,15 @@ from .basis import (
     InteriorEdgesBasis,
     PatchesBasis,
 )
-from .element import ElementLine, ElementTri
+from .element import ElementLine, ElementTet, ElementTri
 from .mesh import (
     FractureNetworkMesh,
     FracturesTri,
+    MeshTet,
     MeshTri,
     Patches,
     rectangle,
+    unit_cube,
     unit_square,
 )
 from .models import FeedForwardNeuralNetwork, Model
@@ -431,6 +443,118 @@ def make_dfn_rvpinn(
         mesh, V, net, u_fem, oracle_info, fem_norm, gram_solve, boundary_nodes,
         training_step, model,
     )
+
+
+# -- the 3D RVPINN -------------------------------------------------------------
+
+VPINN3D_N = 8  # examples/example_vpinn_3d.py's FEM_N default
+VPINN3D_EPOCHS = 1500  # its FEM_EPOCHS default
+VPINN3D_WIDTH = 20
+VPINN3D_DEPTH = 4
+
+
+def _unit_cube_bc(inputs):
+    x, y, z = inputs[..., 0:1], inputs[..., 1:2], inputs[..., 2:3]
+    return x * (x - 1) * y * (y - 1) * z * (z - 1)
+
+
+def _exact_3d(p):
+    return (
+        torch.sin(math.pi * p[..., 0:1])
+        * torch.sin(math.pi * p[..., 1:2])
+        * torch.sin(math.pi * p[..., 2:3])
+    )
+
+
+def _grad_exact_3d(p):
+    s, c, pi = torch.sin, torch.cos, math.pi
+    x, y, z = p[..., 0:1], p[..., 1:2], p[..., 2:3]
+    return torch.cat(
+        [
+            pi * c(pi * x) * s(pi * y) * s(pi * z),
+            pi * s(pi * x) * c(pi * y) * s(pi * z),
+            pi * s(pi * x) * s(pi * y) * c(pi * z),
+        ],
+        dim=-1,
+    )
+
+
+def _residual_3d(basis, gradient):
+    pts = basis.integration_points
+    return 3 * math.pi**2 * _exact_3d(pts) * basis.v - (basis.v_grad @ gradient(pts).mT)
+
+
+def _h1_exact_3d(basis):
+    pts = basis.integration_points
+    return _exact_3d(pts) ** 2 + (_grad_exact_3d(pts) ** 2).sum(-1, keepdim=True)
+
+
+def _h1_norm_3d(basis, net, gradient):
+    pts = basis.integration_points
+    return (_exact_3d(pts) - net(pts)) ** 2 + (
+        (_grad_exact_3d(pts) - gradient(pts)) ** 2
+    ).sum(-1, keepdim=True)
+
+
+class VPINN3D(NamedTuple):
+    mesh: MeshTet
+    basis: Basis
+    network: FeedForwardNeuralNetwork
+    gram_solve: Callable  # a ``GramPCG`` for gram="pcg"
+    exact_norm: torch.Tensor
+    training_step: Callable
+    model: Model
+
+
+def make_vpinn_3d(
+    n: int = VPINN3D_N,
+    gram: str = "cholesky",
+    *,
+    epochs: int = VPINN3D_EPOCHS,
+    seed: int = 0,
+    device=None,
+    dtype: torch.dtype | None = None,
+) -> VPINN3D:
+    """The 3D RVPINN of ``examples/example_vpinn_3d.py`` (its ``FEM_N`` and
+    ``FEM_GRAM`` are ``n`` and ``gram``): mesh, basis, seeded network, Gram
+    solver, training step and an Adam ``Model`` at 1e-3.
+
+    ``training_step(net)`` returns ``(loss, relative, h1_error)``: the
+    loss ``r^T G^{-1} r``, ``sqrt(loss) / ||u||_{H1}^2`` and the relative H1
+    error of the network against the manufactured solution, the two
+    metrics computed under ``torch.no_grad()``. ``device`` defaults to the
+    card, ``dtype`` to ``config.default_dtype()``.
+    """
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_dtype()
+    mesh = MeshTet(unit_cube(n), device=device, dtype=dtype)
+    V = Basis(mesh, ElementTet(1, integration_order=3))
+    net = FeedForwardNeuralNetwork(
+        input_dimension=3,
+        output_dimension=1,
+        nb_hidden_layers=VPINN3D_DEPTH,
+        neurons_per_layers=VPINN3D_WIDTH,
+        boundary_condition_modifier=_unit_cube_bc,
+        seed=seed,
+        device=device,
+        dtype=dtype,
+    )
+    gram_solve = V.gram_solver(_stiffness, method=gram)
+    exact_norm = torch.sqrt(V.integrate_functional(_h1_exact_3d).sum())
+
+    def training_step(net):
+        r = V.reduce(V.integrate_linear_form(_residual_3d, net.gradient))
+        loss = (r.T @ gram_solve(r))[0, 0]
+        with torch.no_grad():
+            relative = torch.sqrt(loss) / exact_norm**2
+            h1_err = torch.sqrt(V.integrate_functional(_h1_norm_3d, net, net.gradient).sum())
+        return loss, relative, h1_err / exact_norm
+
+    model = Model(
+        net, training_step, epochs=epochs, optimizer_kwargs={"lr": LEARNING_RATE},
+        progress_bar=False,
+    )
+    return VPINN3D(mesh, V, net, gram_solve, exact_norm, training_step, model)
 
 
 # -- the patch RVPINN --------------------------------------------------------

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import config
 from .abstract_element import AbstractElement
 from .quadrature import triangle_rule
 
@@ -38,6 +39,13 @@ class ElementTri(AbstractElement):
     @property
     def reference_element_area(self) -> float:
         return 0.5
+
+    @property
+    def outward_normal(self) -> torch.Tensor:
+        """Outward (unnormalized) edge normals of the reference triangle."""
+        return torch.tensor(
+            [[1.0, 1.0], [-1.0, 0.0], [0.0, -1.0]], dtype=config.default_dtype()
+        )
 
     def compute_barycentric_coordinates(self, x):
         """(..., n_pts, 2) reference coords -> (..., n_pts, 3, 1) barycentric."""

@@ -19,7 +19,12 @@ from .mesh_tri import MeshTri
 from .meshes_tri import MeshesTri
 from .patches import Patches
 from .pslg import triangulate_pslg
-from .quality import triangle_min_angles
+from .quality import (
+    quality_report,
+    tet_min_dihedral_angles,
+    tet_quality_report,
+    triangle_min_angles,
+)
 from .refinement import (
     dorfler_mark,
     refine_adaptive,
@@ -27,27 +32,29 @@ from .refinement import (
     refine_network_adaptive,
 )
 
+# the JAX package's list; the port's own helpers imported above
+# (build_fracture_network, fit_affine_maps, refine_network_adaptive,
+# triangulation_max_area) are importable by name and stay out of it
 __all__ = [
-    "FractureNetworkMesh",
-    "FracturesTri",
     "MeshTet",
     "MeshTri",
     "MeshesTri",
+    "FracturesTri",
+    "FractureNetworkMesh",
+    "triangulate_pslg",
+    "triangle_min_angles",
+    "quality_report",
+    "tet_min_dihedral_angles",
+    "tet_quality_report",
     "Patches",
     "box",
-    "build_fracture_network",
-    "dorfler_mark",
     "fichera_corner",
-    "fit_affine_maps",
     "rectangle",
+    "unit_cube",
+    "dorfler_mark",
     "refine_adaptive",
     "refine_adaptive_tet",
-    "refine_network_adaptive",
     "refine_uniform",
     "refine_uniform_tet",
-    "triangle_min_angles",
-    "triangulate_pslg",
-    "triangulation_max_area",
-    "unit_cube",
     "unit_square",
 ]

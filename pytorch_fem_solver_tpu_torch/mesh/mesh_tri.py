@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .. import config
-from .topology import build_tri_topology
+from .topology import TRI_EDGE_PERMUTATIONS, build_tri_topology
 
 
 def _freeze(tree, device, dtype):
@@ -43,6 +43,9 @@ class MeshTri:
     ``device`` defaults to the card (``config.resolve_device``); ``dtype``
     to ``config.default_dtype()``.
     """
+
+    #: local vertex pairs of the 3 triangle edges
+    edge_permutations = TRI_EDGE_PERMUTATIONS
 
     def __init__(
         self,
@@ -139,6 +142,13 @@ class MeshTri:
         else:
             self._t[key] = value
 
+    def __contains__(self, key) -> bool:
+        try:
+            self[key]
+            return True
+        except KeyError:
+            return False
+
     def refined(self, marked):
         """Adaptively refined copy on the same device and dtype: conforming
         longest-edge bisection of the marked cells (``mesh.refinement``),
@@ -186,6 +196,10 @@ class MeshTri:
     @property
     def dim(self) -> int:
         return int(self["vertices", "coordinates"].shape[-1])
+
+    def batch_size(self):
+        """Leading batch dims (empty for a single mesh)."""
+        return ()
 
     # -- gathers ----------------------------------------------------------
 

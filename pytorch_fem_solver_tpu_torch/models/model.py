@@ -16,8 +16,25 @@ on flat copies (a few launches per epoch, no host sync).
 On a CUDA network the optimizer is built ``capturable`` where its class
 takes that option, so its step counter lives on the card: the hold then
 covers the whole optimizer state, and ``train()`` and ``train_compiled()``
-run the same arithmetic. Plateau schedulers are queued in ROADMAP.md
-(queue A, item 2.4); they raise.
+run the same arithmetic.
+
+Learning-rate schedulers follow the JAX package's ``optax.chain(optimizer,
+scheduler)``: each epoch the scheduler maps the epoch's loss to a
+multiplier of the update, computed before the update it multiplies.
+``"reduce_on_plateau"`` is :class:`ReduceOnPlateau`, optax's rule written
+out by hand (``torch.optim.lr_scheduler.ReduceLROnPlateau`` follows a
+different one); a scheduler already built (an instance with an ``init``,
+such as a ``ReduceOnPlateau(...)``) is taken as it is, as the JAX package
+takes a ``GradientTransformation``; any other scheduler is called as
+``learning_rate_scheduler(**scheduler_kwargs)`` and must return such a
+callable. The optimizer's update is linear in its learning rate (Adam's
+and SGD's are), so the multiplier is applied as ``lr = lr0 * scale``, with
+``lr0`` the built optimizer's learning rate (its default where
+``optimizer_kwargs`` names none) and
+``lr`` a 0-dim tensor on the parameters' device that is updated in place:
+no host read per epoch. A scheduler's ``state`` (a dict of tensors, as
+:class:`ReduceOnPlateau` keeps it) is held with the optimizer state on a
+non-finite epoch, reset with it in ``train()`` and written to checkpoints.
 
 The stateful protocol of the JAX package: with ``training_state0`` given,
 ``training_step(net, state) -> ((loss, validation, accuracy), new_state)``
@@ -92,6 +109,99 @@ def _detached(value) -> torch.Tensor:
     return value.detach() if torch.is_tensor(value) else torch.as_tensor(value)
 
 
+class ReduceOnPlateau:
+    """``optax.contrib.reduce_on_plateau`` (optax 0.2.6) by hand.
+
+    ``scale = scheduler(loss)`` folds the loss into a running mean over
+    ``accumulation_size`` epochs; when the mean is complete it counts as an
+    improvement if ``mean < (1 - rtol) * best - atol``. ``patience``
+    epochs without one multiply the scale by ``factor`` (never below
+    ``min_scale``) and start ``cooldown`` epochs in which the plateau count
+    stays 0. The state lives in 0-dim tensors (``init`` places them), each
+    updated in place with ``torch.where``, so a call reads nothing back to
+    the host.
+    """
+
+    def __init__(
+        self,
+        factor: float = 0.1,
+        patience: int = 10,
+        rtol: float = 1e-4,
+        atol: float = 0.0,
+        cooldown: int = 0,
+        accumulation_size: int = 1,
+        min_scale: float = 0.0,
+    ):
+        if factor <= 0.0 or factor >= 1.0:
+            raise ValueError(f"Factor must be in the range (0, 1), got factor = {factor}.")
+        if rtol < 0.0 or atol < 0.0:
+            raise ValueError(
+                f"Both rtol and atol must be non-negative, got rtol = {rtol} and atol = {atol}."
+            )
+        if rtol == 0.0 and atol == 0.0:
+            raise ValueError(
+                f"At least one of rtol or atol must be positive, got rtol = {rtol} and atol = {atol}."
+            )
+        if rtol > 1.0:
+            raise ValueError(f"rtol must be less than or equal to 1.0, got rtol = {rtol}.")
+        self.factor, self.patience, self.rtol, self.atol = factor, patience, rtol, atol
+        self.cooldown, self.accumulation_size, self.min_scale = cooldown, accumulation_size, min_scale
+        self.state: dict = {}
+
+    def init(self, like: torch.Tensor) -> None:
+        """(Re)set the state on ``like``'s device, floats in its dtype."""
+        if not self.state:
+            self.state = {
+                "scale": like.new_empty(()),
+                "best_value": like.new_empty(()),
+                "plateau_count": like.new_empty((), dtype=torch.int32),
+                "cooldown_count": like.new_empty((), dtype=torch.int32),
+                "count": like.new_empty((), dtype=torch.int32),
+                "avg_value": like.new_empty(()),
+            }
+        with torch.no_grad():
+            for name, value in (("scale", 1.0), ("best_value", math.inf), ("plateau_count", 0),
+                                ("cooldown_count", 0), ("count", 0), ("avg_value", 0.0)):
+                self.state[name].fill_(value)
+
+    @torch.no_grad()
+    def __call__(self, value: torch.Tensor) -> torch.Tensor:
+        s = self.state
+        count = s["count"]
+        new_count = count + 1
+        avg = (count * s["avg_value"] + value.to(s["avg_value"].dtype)) / new_count
+        full = new_count == self.accumulation_size
+        # the plateau logic, applied where the mean is complete
+        improved = avg < (1 - self.rtol) * s["best_value"] - self.atol
+        best = torch.where(improved, avg, s["best_value"])
+        plateau = torch.where(improved, 0, s["plateau_count"] + 1).to(torch.int32)
+        hit = plateau == self.patience
+        scale = s["scale"]
+        reduced = torch.maximum(
+            torch.where(hit, scale * self.factor, scale), scale.new_tensor(self.min_scale)
+        )
+        cooling = s["cooldown_count"] > 0
+        new_plateau = torch.where(cooling | hit, 0, plateau).to(torch.int32)
+        new_scale = torch.where(cooling, scale, reduced)
+        new_cooldown = torch.where(
+            cooling, s["cooldown_count"] - 1, torch.where(hit, self.cooldown, 0)
+        ).to(torch.int32)
+        s["plateau_count"].copy_(torch.where(full, new_plateau, s["plateau_count"]))
+        s["best_value"].copy_(torch.where(full, best, s["best_value"]))
+        s["scale"].copy_(torch.where(full, new_scale, scale))
+        s["cooldown_count"].copy_(torch.where(full, new_cooldown, s["cooldown_count"]))
+        s["count"].copy_(torch.where(full, 0, new_count))
+        s["avg_value"].copy_(torch.where(full, 0.0, avg))
+        return s["scale"]
+
+
+def _is_built_scheduler(scheduler) -> bool:
+    """A scheduler object already built (JAX's ``GradientTransformation``
+    branch): an instance, not a class or factory, that carries an
+    ``init`` for its state, as ``ReduceOnPlateau`` does."""
+    return not isinstance(scheduler, type) and callable(getattr(scheduler, "init", None))
+
+
 def _architecture_signature(net) -> str:
     """The layer names and shapes, e.g. ``w0:(2, 15);b0:(15,);...``."""
     return ";".join(f"{n}:{tuple(p.shape)}" for n, p in net.named_parameters())
@@ -115,12 +225,6 @@ class Model:
         progress_bar: bool = True,
         training_state0: Any = None,
     ):
-        if learning_rate_scheduler is not None:
-            raise NotImplementedError(
-                "learning-rate schedulers are not ported: plateau scheduling "
-                "differs between optax and torch.optim; see ROADMAP.md, queue A "
-                "item 2.4"
-            )
         self._neural_network = neural_network
         self._stateful = training_state0 is not None
         self._training_state0 = (
@@ -136,7 +240,23 @@ class Model:
             kwargs["lr"] = kwargs.pop("learning_rate")
         self._optimizer_class = optimizer
         self._optimizer_kwargs = kwargs
+
+        self._scheduler = None
+        self._lr = None
         self._optimizer = self._make_optimizer()
+        if learning_rate_scheduler is not None:
+            if learning_rate_scheduler == "reduce_on_plateau":
+                self._scheduler = ReduceOnPlateau(**(scheduler_kwargs or {}))
+            elif _is_built_scheduler(learning_rate_scheduler):
+                self._scheduler = learning_rate_scheduler
+            else:
+                self._scheduler = learning_rate_scheduler(**(scheduler_kwargs or {}))
+            param0 = next(iter(neural_network.parameters()))
+            # the optimizer's own default where optimizer_kwargs gives none
+            self._lr0 = float(self._optimizer.param_groups[0]["lr"])
+            self._lr = torch.tensor(self._lr0, dtype=torch.float64, device=param0.device)
+            self._reset_scheduler()
+            self._optimizer = self._make_optimizer()
 
         self._use_early_stopping = use_early_stopping
         self._early_stopping_patience = int(early_stopping_patience)
@@ -164,7 +284,33 @@ class Model:
             and "capturable" in inspect.signature(self._optimizer_class).parameters
         ):
             kwargs.setdefault("capturable", True)
+        if self._lr is not None:
+            kwargs["lr"] = self._lr
         return self._optimizer_class(params, **kwargs)
+
+    def _reset_scheduler(self) -> None:
+        """The scheduler's initial state and learning rate (optax's
+        ``init``)."""
+        init = getattr(self._scheduler, "init", None)
+        if init is not None:
+            init(next(iter(self._neural_network.parameters())).detach())
+        self._lr.fill_(self._lr0)
+
+    def _schedule(self, loss: torch.Tensor) -> None:
+        """This epoch's multiplier from its loss, into the learning rate
+        of the step that follows."""
+        if self._scheduler is not None:
+            scale = torch.as_tensor(self._scheduler(loss), dtype=self._lr.dtype, device=self._lr.device)
+            self._lr.copy_(scale * self._lr0)
+
+    def _load_optimizer_state(self, state_dict) -> None:
+        self._optimizer.load_state_dict(state_dict)
+        if self._lr is not None:  # the loaded groups hold copies of the tensor
+            for group in self._optimizer.param_groups:
+                group["lr"] = self._lr
+
+    def _scheduler_state(self) -> dict:
+        return getattr(self._scheduler, "state", None) or {}
 
     def _snapshot(self) -> dict:
         return {
@@ -202,7 +348,7 @@ class Model:
         held = list(params)
         for p in params:
             held += [v for v in self._optimizer.state.get(p, {}).values() if torch.is_tensor(v)]
-        return held
+        return held + list(self._scheduler_state().values())
 
     # -- public API --------------------------------------------------------
 
@@ -236,6 +382,8 @@ class Model:
             # state: skip the update and fall back to the best snapshot
             if not math.isfinite(loss_value):
                 self._load_parameters(self.optimal_parameters)
+                if self._scheduler is not None:
+                    self._reset_scheduler()
                 self._optimizer = self._make_optimizer()
                 # a non-finite epoch may have poisoned the warm-start state
                 state = self._training_state0
@@ -259,6 +407,7 @@ class Model:
                 self._best_loss = loss_value
                 self.optimal_parameters = self._snapshot()
 
+            self._schedule(scalars[0])
             self._optimizer.step()
             state = state_new
 
@@ -333,6 +482,7 @@ class Model:
                     best_flat = torch.where(improved, copies.groups[0][1][:n_params], best_flat)
                     best_loss = torch.where(improved, loss, best_loss)
                     n_bad = n_bad + ~finite
+                    self._schedule(loss)
                     self._optimizer.step()
                     # a non-finite epoch holds the parameters and the
                     # optimizer state; state the step created (the first
@@ -355,6 +505,7 @@ class Model:
                     pytree.tree_map(lambda t: t if t is None else t.clone(), carry),
                     [p.detach().clone() for p in params],
                     copy.deepcopy(self._optimizer.state_dict()),
+                    {k: v.clone() for k, v in self._scheduler_state().items()},
                 )
             t0 = time.perf_counter()
             rows, carry = run_block(length, carry)
@@ -387,10 +538,12 @@ class Model:
             if stop_epoch is not None and stop_epoch + 1 < length:
                 # the block ran past the stopping point: re-run it from its
                 # start state for exactly the epochs the eager loop ran
-                carry0, params0, opt0 = start
+                carry0, params0, opt0, sched0 = start
                 with torch.no_grad():
                     torch._foreach_copy_(params, params0)
-                self._optimizer.load_state_dict(opt0)
+                    for k, v in sched0.items():
+                        self._scheduler_state()[k].copy_(v)
+                self._load_optimizer_state(opt0)
                 _, carry = run_block(stop_epoch + 1, carry0)
             if int(carry[2]) > 10:
                 stopped = True
@@ -423,8 +576,8 @@ class Model:
     def save_checkpoint(self, path: str):
         """Write parameters, optimizer state and histories to ``path``
         (.npz), with the architecture signature checked on load. The
-        optimizer state (Adam's moments and step) makes a resumed run
-        continue the interrupted trajectory."""
+        optimizer state (Adam's moments and step) and the scheduler's state
+        make a resumed run continue the interrupted trajectory."""
         net = self._neural_network
         arrays = {
             f"param_{n}": p.detach().cpu().numpy() for n, p in net.named_parameters()
@@ -434,6 +587,8 @@ class Model:
                 arrays[f"opt_{idx}_{key}"] = (
                     value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
                 )
+        for key, value in self._scheduler_state().items():
+            arrays[f"sched_{key}"] = value.detach().cpu().numpy()
         arrays["architecture"] = np.array(_architecture_signature(net))
         arrays["loss_history"] = np.asarray(self._loss_history)
         arrays["validation_loss_history"] = np.asarray(self._validation_loss_history)
@@ -465,8 +620,39 @@ class Model:
         if state:
             opt_state = self._optimizer.state_dict()
             opt_state["state"] = state
-            self._optimizer.load_state_dict(opt_state)
+            self._load_optimizer_state(opt_state)
+        with torch.no_grad():
+            for key, value in self._scheduler_state().items():
+                if f"sched_{key}" in data.files:
+                    value.copy_(torch.as_tensor(data[f"sched_{key}"]))
+        if self._scheduler is not None and "scale" in self._scheduler_state():
+            self._lr.copy_(self._scheduler_state()["scale"] * self._lr0)
         self._loss_history = [float(v) for v in data["loss_history"]]
         self._validation_loss_history = [float(v) for v in data["validation_loss_history"]]
         self._accuracy_history = [float(v) for v in data["accuracy_history"]]
         return self._neural_network
+
+    def plot_training_history(self, plot_names: Optional[dict] = None):
+        """Semilogy plot of the loss, validation and accuracy histories;
+        returns the axis. Needs matplotlib, imported here only."""
+        import matplotlib.pyplot as plt
+
+        if plot_names is None:
+            plot_names = {
+                "loss": "Training loss",
+                "validation": "Validation loss",
+                "accuracy": "Accuracy",
+                "title": "Training history",
+            }
+
+        _, axis = plt.subplots()
+        axis.semilogy(self._loss_history, linestyle="-", label=plot_names["loss"])
+        axis.semilogy(
+            self._validation_loss_history, linestyle="--", label=plot_names["validation"]
+        )
+        axis.semilogy(self._accuracy_history, linestyle=":", label=plot_names["accuracy"])
+        axis.set_xlabel("# Epochs")
+        axis.set_ylabel("Loss")
+        axis.set_title(plot_names["title"])
+        axis.legend()
+        return axis

@@ -347,14 +347,34 @@ def bsr_values_from_local_symmetric(structure: BSRStructure, local_matrices):
     (row-block <= col-block) slot, then completes every mirror block
     (``bsr_complete_symmetric``). Only valid for symmetric local matrices.
     """
-    n_loc = local_matrices.shape[-1]
-    iu, ju = torch.triu_indices(n_loc, n_loc, device=local_matrices.device)
-    # local (i, i) pairs are exactly the global diagonal scalars, which the
-    # self-partnered transpose doubles: halve them before the scatter
-    w = torch.where(iu == ju, 0.5, 1.0).to(local_matrices.dtype)
-    local_sym = (local_matrices[..., iu, ju] * w).reshape(-1)
-    values = _scatter_drop(structure.entry_slot_sym, local_sym, structure.n_values)
-    return bsr_complete_symmetric(structure, values)
+    return bsr_values_from_chunks_symmetric(
+        structure, ((structure.entry_slot_sym, local_matrices),)
+    )
+
+
+def bsr_values_from_chunks_symmetric(structure: BSRStructure, chunks):
+    """``bsr_values_from_local_symmetric`` over runs of cells, so the
+    element matrices of the whole mesh need never exist at once.
+
+    ``chunks`` yields ``(slots, local_matrices)`` per run: its element
+    matrices and its rows of ``entry_slot_sym``. Every run's canonical
+    pairs are added into one buffer of ``n_values + 1`` slots, the last the
+    sink of the Dirichlet-touching pairs (``mode="drop"``); the mirror
+    blocks are completed once, after the last run.
+    """
+    values = None
+    for slots, local_matrices in chunks:
+        n_loc = local_matrices.shape[-1]
+        iu, ju = torch.triu_indices(n_loc, n_loc, device=local_matrices.device)
+        # local (i, i) pairs are exactly the global diagonal scalars, which
+        # the self-partnered transpose doubles: halve them before the scatter
+        w = torch.where(iu == ju, 0.5, 1.0).to(local_matrices.dtype)
+        pairs = (local_matrices[..., iu, ju] * w).reshape(-1)
+        if values is None:
+            values = pairs.new_zeros(structure.n_values + 1)
+        values.index_add_(0, slots, pairs)
+        del pairs  # not held through the completion, whose copies set the peak
+    return bsr_complete_symmetric(structure, values[: structure.n_values])
 
 
 def bsr_complete_symmetric(structure: BSRStructure, values):
@@ -438,13 +458,13 @@ def bsr_matvec(structure: BSRStructure, values, x):
 
     ``x`` is the permuted padded vector (n_pad,). Values and ``x`` share one
     dtype: reduced-precision value storage (the JAX ``values_dtype``) is not
-    ported yet (ROADMAP.md, queue B).
+    ported yet (ROADMAP.md, queue B6).
     """
     v1, v2 = values
     if v1.dtype != x.dtype:
         raise NotImplementedError(
             f"BSR values in {v1.dtype} with x in {x.dtype}: reduced-precision "
-            "value storage is not ported yet (ROADMAP.md, queue B)"
+            "value storage is not ported yet (ROADMAP.md, queue B6)"
         )
     return bsr_spmv(
         structure.bcols, v1, x, structure.bcols2, v2, structure.heavy_rows,

@@ -8,9 +8,20 @@ preconditioner setup and PCG (with the SpMV kernel) on the basis's device.
 PyTorch runs eagerly, so there is nothing to compile: the name is kept so a
 reader finds the counterpart.
 
-Not ported yet (ROADMAP.md): the chunked assembly branch (auto above 2M
-cells), the vector/rigid-body-mode branch, reduced-precision preconditioner
-operands and reduced-precision SpMV values.
+The chunked assembly (``chunk_cells``; on by default for a symmetric form
+above 2M cells) streams the canonical-pair scatter over cell chunks, so
+the full-size (T, q, n_loc, n_loc) temporary of the form never exists.
+The JAX package pads the basis arrays to a whole number of chunks and
+stacks copies of them for its ``lax.scan``; PyTorch loops in Python, so a
+chunk here is a view of the basis's own ``v_grad``, ``integration_points``
+and ``_dx`` (the last chunk ragged) and of the structure's
+``entry_slot_sym``, and no array is copied. The per-chunk slot views are
+cached on the basis as ``_chunk_tables[(C, max_b)]``, where JAX caches its
+padded tables.
+
+Not ported yet (ROADMAP.md): the vector/rigid-body-mode branch (A4),
+reduced-precision preconditioner operands and reduced-precision SpMV
+values (B6).
 """
 
 from __future__ import annotations
@@ -25,8 +36,8 @@ from .bsr import (
     bsr_expand,
     bsr_matvec,
     bsr_reduce,
+    bsr_values_from_chunks_symmetric,
     bsr_values_from_local,
-    bsr_values_from_local_symmetric,
     default_max_b,
     get_bsr_structure,
     inverse_inner_perm,
@@ -98,9 +109,11 @@ def bsr_pcg(
 
 
 class _CellChunkView:
-    """Cell-axis slice of a basis, handed to the user's bilinear form by the
-    symmetric-form probe. Exposes exactly the array surface typical forms
-    read (``v``, ``v_grad``, ``integration_points``, the element)."""
+    """Cell-axis slice of a basis, handed to the user's bilinear form
+    during chunked assembly and by the symmetric-form probe. Exposes
+    exactly the array surface typical forms read (``v``, ``v_grad``,
+    ``integration_points``, the element); anything else raises with a
+    pointer to the unchunked path."""
 
     def __init__(self, v, v_grad, integration_points, dx, element):
         self.v = v
@@ -111,9 +124,45 @@ class _CellChunkView:
 
     def __getattr__(self, name):
         raise AttributeError(
-            f"the form probe exposes only v / v_grad / integration_points "
-            f"(requested: {name!r})"
+            f"chunked assembly exposes only v / v_grad / integration_points "
+            f"to the bilinear form (requested: {name!r}); pass "
+            "chunk_cells=0 to compiled_bsr_solver to disable chunking"
         )
+
+
+def _chunk_table(basis, structure, chunk_cells: int, max_b: int):
+    """``(start, stop, slots)`` per chunk of ``chunk_cells`` cells: the
+    cell range and the view of ``entry_slot_sym`` that its canonical pairs
+    scatter to. Cached on the basis per ``(chunk_cells, max_b)``."""
+    cache = getattr(basis, "_chunk_tables", None)
+    if cache is None:
+        cache = basis._chunk_tables = {}
+    key = (chunk_cells, max_b)
+    if key not in cache:
+        n_cells = int(basis.v_grad.shape[0])
+        pairs = structure.entry_slot_sym.shape[0] // n_cells
+        cache[key] = tuple(
+            (c0, min(c0 + chunk_cells, n_cells),
+             structure.entry_slot_sym[c0 * pairs: min(c0 + chunk_cells, n_cells) * pairs])
+            for c0 in range(0, n_cells, chunk_cells)
+        )
+    return cache[key]
+
+
+def _local_chunks(basis, structure, bilinear_form, chunks):
+    """``(slots, local_matrices)`` for ``bsr_values_from_chunks_symmetric``:
+    with ``chunks`` None, the whole mesh at once with the form on the basis
+    itself; else chunk by chunk, the form on a ``_CellChunkView`` of the
+    chunk's cells."""
+    if chunks is None:
+        yield structure.entry_slot_sym, basis.integrate_bilinear_form_local(bilinear_form)
+        return
+    for c0, c1, slots in chunks:
+        view = _CellChunkView(
+            basis.v, basis.v_grad[c0:c1], basis.integration_points[c0:c1],
+            basis._dx[c0:c1], basis._element,
+        )
+        yield slots, (basis._evaluate_form(bilinear_form, view) * basis._dx[c0:c1]).sum(-3)
 
 
 def compiled_bsr_solver(
@@ -125,6 +174,7 @@ def compiled_bsr_solver(
     precondition: str = "auto",
     symmetric_form: bool = True,
     max_b: Optional[int] = None,
+    chunk_cells: Optional[int] = None,
 ):
     """Build ``solve() -> (u, info)`` for a fixed basis + forms.
 
@@ -137,10 +187,13 @@ def compiled_bsr_solver(
       precondition: ``"auto"`` (aggregate-block two-level) or ``"jacobi"``.
       symmetric_form: enable the canonical-pair scatter (6/9 entries for P1
         triangles); only valid for symmetric forms.
-      max_b: tier-1 block cap; None picks ``default_max_b`` (8 in 2D).
-
-    A symmetric form on more than 2M cells, where the JAX package switches
-    to chunked assembly, raises: that branch is not ported yet.
+      max_b: tier-1 block cap; None picks ``default_max_b`` (8 in 2D, 24
+        for tets).
+      chunk_cells: stream the symmetric scatter over chunks of this many
+        cells (see the module docstring). None picks 2^18 for a symmetric
+        form on more than 2M cells and 0 otherwise; 0 disables chunking.
+        Chunked forms may only read ``v`` / ``v_grad`` /
+        ``integration_points`` from the basis they are passed.
 
     Returns:
       ``solve(b=None) -> (u, PCGInfo)``.
@@ -153,15 +206,19 @@ def compiled_bsr_solver(
     if int(getattr(basis, "n_components", 1)) >= 2:
         raise NotImplementedError(
             "the vector (rigid-body-mode) branch of compiled_bsr_solver is "
-            "not ported yet; see ROADMAP.md"
+            "not ported yet; see ROADMAP.md, queue A4"
         )
 
     n_cells = int(basis.v_grad.shape[0])
-    if n_cells > 2_000_000 and symmetric_form:
-        raise NotImplementedError(
-            "chunked assembly (the JAX default above 2M cells) is not ported "
-            "yet; see ROADMAP.md"
+    if chunk_cells and not symmetric_form:
+        raise ValueError(
+            "chunk_cells requires symmetric_form=True (the streaming "
+            "scatter is canonical-pair only); at >2M cells the one-shot "
+            "non-symmetric local temp is known to exceed HBM "
+            "(docs/performance.md)"
         )
+    if chunk_cells is None:
+        chunk_cells = (1 << 18) if (n_cells > 2_000_000 and symmetric_form) else 0
 
     # construction-time spot check: symmetric_form=True with a
     # non-symmetric form would silently assemble a symmetrized (wrong)
@@ -196,6 +253,7 @@ def compiled_bsr_solver(
     if max_b is None:
         max_b = default_max_b(basis)
     st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=not symmetric_form)
+    chunks = _chunk_table(basis, st, int(chunk_cells), max_b) if chunk_cells else None
     solve_padded = bsr_pcg(st, precondition, tol=tol, maxiter=maxiter)
 
     # direct-to-padded rhs scatter (flat single-index linear layouts): the
@@ -214,11 +272,14 @@ def compiled_bsr_solver(
     n_dofs = basis.n_dofs
 
     def _run(b):
-        local = basis.integrate_bilinear_form_local(bilinear_form)
         if symmetric_form:
-            values = bsr_values_from_local_symmetric(st, local)
+            values = bsr_values_from_chunks_symmetric(
+                st, _local_chunks(basis, st, bilinear_form, chunks)
+            )
         else:
-            values = bsr_values_from_local(st, local)
+            values = bsr_values_from_local(
+                st, basis.integrate_bilinear_form_local(bilinear_form)
+            )
         if rhs_pad_idx is not None:
             lv = basis.reshape_for_assembly(
                 basis.integrate_linear_form_local(linear_form), "linear"

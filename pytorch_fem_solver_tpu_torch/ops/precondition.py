@@ -16,8 +16,9 @@ hybrid-ELL operator (``TwoLevelStructure`` host tables built once,
 ``two_level_from_values`` per assembly: gather-only restriction and
 prolongation and a dense coarse inverse), the plain block two-level
 ``build_two_level``, and the scalar branch of ``auto_preconditioner``. The
-other preconditioners of the JAX package (affine/RBM, three-level,
-multiplicative) are queued in ROADMAP.md (A7).
+other preconditioners of the JAX package are queued in ROADMAP.md: the
+affine/rigid-body-mode family in A4, the three-level and multiplicative
+families in A6.
 """
 
 from __future__ import annotations
@@ -367,12 +368,12 @@ def auto_preconditioner(basis, structure, values, diag):
     aggregate table built once per basis and layout and held on the device.
 
     The vector branch of the JAX package (the rigid-body-mode coarse space
-    for ``n_components >= 2``) is queued in ROADMAP.md (A7) and raises.
+    for ``n_components >= 2``) is queued in ROADMAP.md (A4) and raises.
     """
     if int(getattr(basis, "n_components", 1)) >= 2:
         raise NotImplementedError(
             "the rigid-body-mode two-level preconditioner of vector bases "
-            "is not ported; see ROADMAP.md, queue A7"
+            "is not ported; see ROADMAP.md, queue A4"
         )
     g = default_aggregate_size(structure)
     gs = min(g, 128)

@@ -290,7 +290,10 @@ def test_checkpoint_round_trip_resumes_the_trajectory(tmp_path):
 
 def test_unported_options_raise():
     r = _port()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.Model(r.network, r.training_step, learning_rate_scheduler="reduce_on_plateau")
+    # the plateau scheduler is ported now (tests/test_torch_scheduler.py):
+    # accepted, with its state on the network's device
+    m = pt.Model(r.network, r.training_step, learning_rate_scheduler="reduce_on_plateau")
+    assert m._scheduler.state["scale"].device == r.network.w0.device
+    assert m._optimizer.param_groups[0]["lr"] is m._lr and float(m._lr) == 1e-3
     m = pt.Model(r.network, r.training_step, optimizer_kwargs={"learning_rate": 0.5})
     assert m._optimizer.param_groups[0]["lr"] == 0.5

@@ -137,17 +137,34 @@ def test_compiled_solver_jacobi_nonsymmetric_and_assembled_rhs():
     assert _rel_diff(u.numpy(), u_sym.numpy()) <= 1e-9
 
 
-def test_unported_options_raise():
-    """The branches of the JAX compiled_bsr_solver this slice leaves out
-    raise at construction: the vector (rigid-body-mode) branch and the
-    chunked assembly the JAX package picks above 2M cells. An unknown
-    preconditioner name is refused."""
+def test_unported_options_raise(monkeypatch):
+    """The vector (rigid-body-mode) branch of the JAX compiled_bsr_solver
+    raises at construction (ROADMAP.md, queue A4). Above 2M cells a
+    symmetric form picks the chunked assembly, 2^18 cells per chunk, as the
+    JAX package does (a stub basis; the structure and the solver are stubs
+    too, so nothing is built), and a non-symmetric one stays unchunked. An
+    unknown preconditioner name is refused."""
+    import pytorch_fem_solver_tpu_torch.ops.compiled as compiled
+
     a_p = lambda b: b.v_grad @ b.v_grad.mT  # noqa: E731
-    vector = SimpleNamespace(n_components=2)
-    huge = SimpleNamespace(v_grad=torch.empty(2_000_001, 0))
-    for basis in (vector, huge):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compiled_bsr_solver(basis, a_p, lambda b: b.v)
+    with pytest.raises(NotImplementedError, match="queue A4"):
+        compiled_bsr_solver(SimpleNamespace(n_components=2), a_p, lambda b: b.v)
+    n_cells = 2_000_001
+    slots = torch.zeros((), dtype=torch.int32).expand(10 * n_cells)  # no memory
+    monkeypatch.setattr(compiled, "get_bsr_structure",
+                        lambda *a, **k: SimpleNamespace(entry_slot_sym=slots))
+    monkeypatch.setattr(compiled, "bsr_pcg", lambda *a, **k: None)
+    for symmetric, chunks in ((True, 8), (False, None)):
+        huge = SimpleNamespace(v_grad=torch.empty(n_cells, 0), _basis_parameters={}, n_dofs=1)
+        compiled_bsr_solver(huge, a_p, lambda b: b.v, max_b=24, symmetric_form=symmetric)
+        tables = getattr(huge, "_chunk_tables", None)
+        if chunks is None:
+            assert tables is None
+        else:
+            assert list(tables) == [(1 << 18, 24)] and len(tables[(1 << 18, 24)]) == chunks
+            c0, c1, view = tables[(1 << 18, 24)][-1]
+            assert (c0, c1, view.shape[0]) == (7 << 18, n_cells, 10 * (n_cells - (7 << 18)))
+    monkeypatch.undo()
     _, pV = _bases(0.25)
     with pytest.raises(ValueError, match="unknown precondition"):
         pV.compiled_solver(a_p, lambda b: b.v, precondition="ilu")

@@ -173,8 +173,8 @@ def test_interpolate_matches_jax(mesh, dfn, square):
 
 def test_named_raises(dfn, square):
     jV, pV, jl, pl, jb, pb = dfn
-    for precondition in ("mult_two_level", "rbm"):
-        with pytest.raises(NotImplementedError, match="A7"):
+    for precondition, item in (("mult_two_level", "A6"), ("rbm", "A4")):
+        with pytest.raises(NotImplementedError, match=f"queue {item}"):
             pV.solve_iterative(pl, pb, precondition=precondition)
     with pytest.raises(ValueError, match="unknown precondition"):
         pV.solve_iterative(pl, pb, precondition="ilu")

@@ -165,7 +165,7 @@ def test_auto_preconditioner_vector_branch_raises():
     class Vector:
         n_components = 2
 
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="queue A4"):
         pp.auto_preconditioner(Vector(), None, None, None)
 
 
