@@ -207,7 +207,43 @@ Phases (any failure exits non-zero and prints no result):
     residual within phase 15's bound; the peak device memory of both
     solves and of both assemblies alone, and the host seconds of the
     mesh, the basis, the tables and the chunk tables (a
-    ``tet_chunked_solve`` line).
+    ``tet_chunked_solve`` line);
+21. linear elasticity through ``VectorBasis.compiled_solver`` (the
+    rigid-body-mode two-level M; ``elasticity_2d`` and ``elasticity_3d``
+    of the port's ``bench.py``), float32 with float64 twins on the card,
+    PCG to 1e-6: ``examples/example_elasticity.py``'s plate on
+    ``unit_square(n=256)`` (130,050 inner DOFs) and
+    ``examples/example_elasticity_3d.py``'s bubble on ``unit_cube(48)``
+    (663,552 tets, 311,469 inner DOFs), each with phase 16's checks (a
+    float32 solve to 1e-2 as the only control, which must fail both the
+    true-residual bound and the f32-vs-f64 bound, the plate's 1e-5 instead
+    of 1e-4), the inner DOFs and the
+    coarse space (g, na, m) as counted on the host (96, 1,356, 3 and 512,
+    609, 6), the host seconds of the RBM structure, the tier-2 share of the
+    stored blocks and the peak device memory of a solve; on the plate
+    ``solve_iterative(precondition="rbm")`` within 1 iteration and 1e-4 of
+    the compiled solve, the RBM count below 0.55 x the Jacobi count and
+    the L2 error against the
+    exact displacement falling as h^2 (the n=128 plate's over the n=256
+    one's in (3.3, 4.8)); a JSON ``elasticity_solves`` line;
+22. compiled Newton (``newton_dfn`` and ``newton_elasticity`` of the
+    port's ``bench.py``, ``precondition="auto"``), float32: k(u) = 0.5 +
+    u^2 on phase 1's h=0.03 network (107,355 DOFs) to 2e-4 and the
+    strain-stiffening plate on ``unit_square(n=128)`` (32,258 inner DOFs;
+    the rigid-body-mode M rebuilt from each step's Jacobian) to 2e-6 (the
+    stopping test is absolute below an initial norm of 1; each tolerance
+    lies above float32's floor of its residual): counts reset
+    before each, converged, K2 launched twice per BiCGStab iteration and
+    once per step (its start), the Newton steps within 1 of a float64 twin
+    on the card at 1e-10 and the solution within 1e-4 of it, K2 against
+    its plain version on the Newton structure (full entry slots) with the
+    float64 twin's Jacobian values at its first step and at its solution
+    (not symmetric), the eager
+    ``solve_newton`` in as many steps and within 1e-4; on the network the
+    nonlinear maximum below the linear solve's; Newton steps, BiCGStab
+    iterations per step, the wall per step and one profiled solve (device
+    ms by kernel, launches, the idle share; a JSON ``newton_solves``
+    line).
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
@@ -357,6 +393,50 @@ CHUNK_REPEATS = 3
 # terms a BSR slot of the P1 tet operator sums at most: a vertex lies in 24
 # tets of unit_cube(n), and the mirror completion adds the partner's
 SLOT_TERMS = 48
+# phase 21: linear elasticity, mu=1, lam=2, through VectorBasis.compiled_solver
+# (the rigid-body-mode M): examples/example_elasticity.py's plate at
+# unit_square(n=256) (ElementTri(1, 4)) and examples/example_elasticity_3d.py's
+# bubble at unit_cube(48) (ElementTet(1, 2)). Cells, DOFs, inner DOFs and the
+# coarse space (g, na, m) that default_affine_aggregate_size gives at their
+# n_pad (130,176 and 311,808), counted on the host beforehand
+ELAST_2D_N = 256
+ELAST_2D_SIZE = (131_072, 132_098)
+ELAST_2D_INNER = 130_050
+ELAST_2D_COARSE = (96, 1_356, 3)
+ELAST_2D_HALF = 128  # the plate whose L2 error over the n=256 one's is in L2_RATE
+L2_RATE = (3.3, 4.8)  # second order, the JAX package's tests/test_elasticity.py bounds
+RBM_VS_JACOBI = 0.55  # RBM iterations below this share of Jacobi's (the same test)
+ELAST_3D_N = 48
+ELAST_3D_SIZE = (663_552, 352_947)
+ELAST_3D_INNER = 311_469
+ELAST_3D_COARSE = (512, 609, 6)
+ELAST_REPEATS = 3
+# the control solve, held against both the true-residual bound and the
+# f32-vs-f64 bound. On the plate the rigid-body-mode PCG's error falls far
+# faster than its residual, so a solve to 1e-2 lands 6.9e-5 from float64,
+# inside the generic 1e-4: the plate's bound is 1e-5, ten times its sound
+# float32 solve's 1.1e-6 and seven times below that control (H100 runs of
+# this script)
+ELAST_CONTROL_TOL = 1e-2
+ELAST_2D_F32_VS_F64 = 1e-5
+# phase 22: compiled Newton in float32 (the examples' 1e-10 is out of
+# float32's reach), float64 twins on the card at NEWTON_TOL_64:
+# examples/example_nonlinear_dfn.py on phase 1's h=0.03 network and the
+# strain-stiffening residual of the JAX package's tests/test_newton.py on
+# unit_square(n=128), ElementTri(1, 3), both with precondition="auto". The
+# stopping test is res <= tol * max(1, res0), absolute for res0 < 1, and
+# each float32 tolerance sits between float32's floor and the residual of
+# the step before the last (the CPU's float32 and float64 runs): on the
+# network (res0 0.312) the norms run 0.19, 0.10, 4.0e-3, then 5.5e-5 at the
+# floor (3.8e-5 to 5.5e-5: at 1e-5 the compiled rule stalls after 9 steps);
+# on the plate (res0 0.0082) 6.0e-6 after the first step (the solution
+# 1.2e-4 from float64 there), then the floor, 6.4e-7
+NEWTON_TOL_DFN = 2e-4
+NEWTON_TOL_PLATE = 2e-6
+NEWTON_TOL_64 = 1e-10
+NEWTON_ELAST_N = 128
+NEWTON_ELAST_INNER = 32_258
+NEWTON_REPEATS = 3
 
 failures: list[str] = []
 # name -> one launch at the benchmark shapes, registered by the phases for
@@ -1648,16 +1728,17 @@ def _trace_edge_sets(mesh):
     return sets
 
 
-def _true_residual(V, u, b):
+def _true_residual(V, u, b, form=None):
     """||b - A u|| / ||b|| over the inner DOFs in float64, and its float32
     rounding scale eps32 || |A| |u| || / ||b||. A is the level's operator
-    from its float32 element matrices, assembled as a sparse COO matrix
-    through the basis's own DOF map: neither the BSR layout nor K2."""
+    (``form``, by default the stiffness) from its float32 element matrices,
+    assembled as a sparse COO matrix through the basis's own DOF map:
+    neither the BSR layout nor K2."""
     import torch
 
     from pytorch_fem_solver_tpu_torch.bench import _stiffness
 
-    local = V.integrate_bilinear_form_local(_stiffness)
+    local = V.integrate_bilinear_form_local(form or _stiffness)
     vals = V.reshape_for_assembly(local, "bilinear").double()
     rows, cols = (i.long() for i in V._basis_parameters["bilinear_form_idx"])
     a = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (V.n_dofs, V.n_dofs)).coalesce()
@@ -1789,17 +1870,25 @@ def _single_trace_dofs(V):
 
 
 def _higher_order_case(tag, make, load, size, card, ladder=LADDER_TOLS, structure=None,
-                       repeats=HIGHER_ORDER_REPEATS):
-    """One compiled solve of phases 16, 18 and 20: ``make(dtype, tol)``
+                       repeats=HIGHER_ORDER_REPEATS, form=None, f32_vs_f64=F32_VS_F64,
+                       control_residual=False):
+    """One compiled solve of phases 16, 18, 20 and 21: ``make(dtype, tol)``
     builds the basis and its tables and solves once
     (``bench.HigherOrderSolve``) on the card; float32 solves at the
     ``ladder`` tolerances follow, the first the control. ``structure`` is
     the expected (inner DOFs, block-rows, B, spilled block-rows, B2, stored
-    blocks); the timed wall is the median of ``repeats`` solves. Returns
-    the case's figures and the float32 solve."""
+    blocks); the timed wall is the median of ``repeats`` solves; ``form``
+    is the bilinear form (the stiffness by default; the preconditioner is
+    ``compiled_solver``'s ``"auto"`` for the basis); ``f32_vs_f64`` the
+    bound on the float32 solve's distance from float64 beyond twice the
+    float32 floor; with ``control_residual`` the control must also fail
+    the true-residual bound. Returns the case's figures and the float32
+    solve."""
     import torch
 
     from pytorch_fem_solver_tpu_torch.bench import _stiffness
+
+    form = form or _stiffness
     from pytorch_fem_solver_tpu_torch.ops import cuda_build
     from pytorch_fem_solver_tpu_torch.ops.bsr import (
         _bsr_spmv_plain,
@@ -1811,7 +1900,7 @@ def _higher_order_case(tag, make, load, size, card, ladder=LADDER_TOLS, structur
         default_max_b,
         get_bsr_structure,
     )
-    from pytorch_fem_solver_tpu_torch.ops.compiled import aggblock_setup, bsr_pcg
+    from pytorch_fem_solver_tpu_torch.ops.compiled import bsr_pcg, preconditioner_setup
     from pytorch_fem_solver_tpu_torch.ops.solvers import pcg
 
     cuda_build.reset_launch_counts()
@@ -1839,7 +1928,7 @@ def _higher_order_case(tag, make, load, size, card, ladder=LADDER_TOLS, structur
           "+ 1 (one per iteration and one for the start)")
     check(bool(torch.isfinite(r.u).all()) and r.u.shape == (V.n_dofs, 1),
           f"{tag}: solution finite, shape {tuple(r.u.shape)}")
-    true_rel, rounding = _true_residual(V, r.u, b)
+    true_rel, rounding = _true_residual(V, r.u, b, form)
     bound = TOL + ADAPTIVE_ROUNDING * rounding
     check(true_rel <= bound, f"{tag}: true residual ||b - A u|| / ||b|| (COO operator, float64) "
           f"{true_rel:.3e} <= {TOL:g} + {ADAPTIVE_ROUNDING:g} x rounding scale {rounding:.3e}")
@@ -1853,22 +1942,23 @@ def _higher_order_case(tag, make, load, size, card, ladder=LADDER_TOLS, structur
     # the float32 floor: this basis's float32 element matrices and load,
     # solved in float64 to 1e-12 on the same structure. No float32 solve
     # comes closer to the float64 solution than this operator's own.
-    values_op = bsr_values_from_local_symmetric(st, V.integrate_bilinear_form_local(_stiffness).double())
-    x_op, info_op = bsr_pcg(st, "auto", tol=1e-12)(values_op, bsr_reduce(st, b.double()))
+    values_op = bsr_values_from_local_symmetric(st, V.integrate_bilinear_form_local(form).double())
+    x_op, info_op = bsr_pcg(st, "auto", tol=1e-12, basis=V)(values_op, bsr_reduce(st, b.double()))
     floor = rel64(bsr_expand(st, x_op, V.n_dofs))
     del values_op, x_op
     diff = rel64(r.u)
-    bound = F32_VS_F64 + 2 * floor
+    bound = f32_vs_f64 + 2 * floor
     check(diff <= bound, f"{tag}: f32 vs f64 solution on the card, rel L2 {diff:.3e} <= "
-          f"{F32_VS_F64:g} + 2 x the float32 operator floor {floor:.3e} (its float32 element "
+          f"{f32_vs_f64:g} + 2 x the float32 operator floor {floor:.3e} (its float32 element "
           f"matrices solved in float64 to 1e-12, {info_op.iterations} iterations)")
     # the same f32 solve with the plain SpMV in place of K2: the kernel
     # neither costs nor saves iterations
-    values32 = bsr_values_from_local_symmetric(st, V.integrate_bilinear_form_local(_stiffness))
+    values32 = bsr_values_from_local_symmetric(st, V.integrate_bilinear_form_local(form))
     diag32 = bsr_diagonal(st, values32)
     _, info_plain = pcg(
         lambda v: _bsr_spmv_plain(st.bcols, values32[0], v, st.bcols2, values32[1], st.heavy_rows),
-        bsr_reduce(st, b), precond_diag=diag32, precond=aggblock_setup(st)(values32, diag32), tol=TOL,
+        bsr_reduce(st, b), precond_diag=diag32,
+        precond=preconditioner_setup(st, "auto", V)(values32, diag32), tol=TOL,
     )
     del values32
     check(abs(info.iterations - info_plain.iterations) <= 1, f"{tag}: f32 iterations with K2 "
@@ -1880,8 +1970,10 @@ def _higher_order_case(tag, make, load, size, card, ladder=LADDER_TOLS, structur
     tols, ladder = ladder, []
     for tol in tols:
         rt = make(torch.float32, tol)
+        rel_t, rounding_t = _true_residual(V, rt.u, b, form)
         ladder.append({"tol": tol, "iterations": rt.info.iterations, "f32_vs_f64": rel64(rt.u),
-                       "true_residual": _true_residual(V, rt.u, b)[0]})
+                       "true_residual": rel_t,
+                       "true_residual_bound": TOL + ADAPTIVE_ROUNDING * rounding_t})
         del rt
     log(f"{tag}: f32 tolerance ladder (tol, iterations, f32 vs f64, true residual): "
         + "; ".join(f"{e['tol']:g} {e['iterations']} {e['f32_vs_f64']:.3e} {e['true_residual']:.3e}"
@@ -1889,17 +1981,23 @@ def _higher_order_case(tag, make, load, size, card, ladder=LADDER_TOLS, structur
     ctl_diff = ladder[0]["f32_vs_f64"]
     what = (f"{tag}: control solved to {ladder[0]['tol']:g} ({ladder[0]['iterations']} "
             f"iterations) against the f32-vs-f64 bound: {ctl_diff:.3e} vs {bound:.3e}")
-    if floor <= F32_VS_F64:
+    if floor <= f32_vs_f64:
         check(ctl_diff > bound, what + " (must fail it)")
     else:
         # every float32 solve from the control's tolerance on already lies
         # at the float32 floor, in every solution norm: nothing separates
         # them, so the control is reported, not held
-        log(what + f"; the float32 floor {floor:.3e} exceeds {F32_VS_F64:g}, so no solution "
+        log(what + f"; the float32 floor {floor:.3e} exceeds {f32_vs_f64:g}, so no solution "
             "norm separates the control from the solve: reported, not held")
+    if control_residual:
+        ctl = ladder[0]
+        check(ctl["true_residual"] > ctl["true_residual_bound"], f"{tag}: control solved to "
+              f"{ctl['tol']:g} against the true-residual bound: {ctl['true_residual']:.3e} vs "
+              f"{TOL:g} + {ADAPTIVE_ROUNDING:g} x its rounding scale = "
+              f"{ctl['true_residual_bound']:.3e} (must fail it)")
 
     # K2 against its plain version on this structure
-    local64 = r64.basis.integrate_bilinear_form_local(_stiffness)
+    local64 = r64.basis.integrate_bilinear_form_local(form)
     values64 = bsr_values_from_local_symmetric(st, local64)
     x64 = torch.as_tensor(np.random.default_rng(SEED + 16).standard_normal(st.n_pad), device=DEVICE)
     max_abs = _check_k2(tag, st, values64, x64)
@@ -2545,6 +2643,301 @@ def phase_chunked(card):
     return p["k2_launches"]
 
 
+def _vector_make(first, make_basis, load):
+    """``make(dtype, tol)`` of ``_higher_order_case`` for a vector solve:
+    the first call through ``first(tol)`` (a ``bench`` entry point, float32,
+    its host seconds with it), every later float32 solve on that basis; the
+    float64 twin on its own basis ``make_basis(torch.float64)`` (its own
+    mesh from the host triangulation), which shares the float32 basis's BSR
+    structure (integer tables only). Each basis keeps its own
+    rigid-body-mode W, in its dtype."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import _compiled, elasticity_form
+
+    bases = {}
+
+    def make(dtype, tol):
+        if not bases:
+            r = first(tol)
+            bases[torch.float32] = r.basis
+            return r
+        if dtype not in bases:
+            V = make_basis(dtype)
+            V._bsr_structures = bases[torch.float32]._bsr_structures
+            bases[dtype] = V
+        V = bases[dtype]
+        return _compiled(lambda: V, elasticity_form, load, V.device, tol)
+
+    return make
+
+
+def _elasticity_case(tag, make, load, size, inner, coarse, card, f32_vs_f64=F32_VS_F64):
+    """Phase 16's checks on one elasticity solve (``form`` the Lamé form)
+    and the rigid-body-mode figures: (g, na, m) as the host counted them,
+    the host seconds of the RBM structure alone, the tier-2 share of the
+    stored blocks, the peak device memory of a solve."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import _coarse_of, elasticity_form
+    from pytorch_fem_solver_tpu_torch.ops.bsr import default_max_b, get_bsr_structure
+    from pytorch_fem_solver_tpu_torch.ops.precondition import get_affine_two_level_structure
+
+    p, r = _higher_order_case(tag, make, load, size, card, ladder=(ELAST_CONTROL_TOL,),
+                              repeats=ELAST_REPEATS, form=elasticity_form,
+                              f32_vs_f64=f32_vs_f64, control_residual=True)
+    V = r.basis
+    n_inner = int(V._basis_parameters["inner_dofs"].numel())
+    check(n_inner == inner, f"{tag}: {n_inner} inner DOFs == {inner}")
+    got = _coarse_of(V)
+    check(got == coarse, f"{tag}: rigid-body-mode coarse space (g, na, m) {got} == {coarse}, "
+          f"{got[1] * got[2]} coarse unknowns")
+    st = get_bsr_structure(V, max_b=default_max_b(V), want_entry_slot=False)
+    del V._affine_two_level_structures
+    t0 = time.perf_counter()
+    get_affine_two_level_structure(V, st, rbm=True)
+    r.seconds["rbm_structure"] = time.perf_counter() - t0  # inside "tables" too
+    counts = st.row_blocks.cpu().numpy().astype(np.int64)
+    tier2 = int(np.maximum(counts - st.bcols.shape[1], 0).sum())
+    (u, info), base, peak = _peak_of(r.solve)
+    check(info.iterations == p["iterations"], f"{tag}: a solve on the built tables takes "
+          f"{info.iterations} iterations, as the first ({p['iterations']})")
+    gib = 2**30
+    p.update({"inner_dofs": n_inner, "g": got[0], "na": got[1], "m": got[2],
+              "coarse": got[1] * got[2], "tier2_blocks": tier2,
+              "tier2_share": tier2 / p["stored_blocks"], "peak_gib": peak / gib,
+              "solve_peak_over_resident_gib": (peak - base) / gib, "host_s": r.seconds})
+    log(f"{tag}: {tier2} of {p['stored_blocks']} stored blocks in tier 2 "
+        f"({p['tier2_share']:.3f}); peak {peak / gib:.3f} GiB ({(peak - base) / gib:.3f} over the "
+        f"resident {base / gib:.3f}); host s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in r.seconds.items()))
+    return p, r, u
+
+
+def phase_elasticity(card):
+    """Phase 21: the 2D plate and the 3D bubble through the rigid-body-mode
+    M, float32 with float64 twins on the card."""
+    import gc
+
+    import torch
+
+    import pytorch_fem_solver_tpu_torch as pt
+    from pytorch_fem_solver_tpu_torch.bench import (
+        _bubble_load,
+        _plate_load,
+        bubble_exact,
+        elasticity_2d,
+        elasticity_3d,
+        elasticity_form,
+        l2_error,
+        plate_exact,
+    )
+
+    def plate(p):
+        return plate_exact(p[..., 0], p[..., 1])
+
+    tag = f"elasticity plate unit_square(n={ELAST_2D_N})"
+    p2, r, u = _elasticity_case(
+        tag, _vector_make(lambda tol: elasticity_2d(ELAST_2D_N, tol=tol, device=DEVICE,
+                                                    dtype=torch.float32),
+                          lambda dtype: pt.VectorBasis(
+                              pt.MeshTri(pt.unit_square(n=ELAST_2D_N), device=DEVICE, dtype=dtype),
+                              pt.ElementTri(1, 4)),
+                          _plate_load),
+        _plate_load, ELAST_2D_SIZE, ELAST_2D_INNER, ELAST_2D_COARSE, card, ELAST_2D_F32_VS_F64)
+    V = r.basis
+    u_rbm, info_rbm = V.solve_iterative(
+        V.integrate_bilinear_form_local(elasticity_form), V.integrate_linear_form(_plate_load),
+        tol=TOL, precondition="rbm", symmetric_form=True, return_info=True)
+    diff_rbm = float((u_rbm - u).norm() / u.norm())
+    check(bool(info_rbm.converged) and abs(info_rbm.iterations - p2["iterations"]) <= 1
+          and diff_rbm <= F32_VS_F64, f"{tag}: solve_iterative(precondition='rbm') "
+          f"{info_rbm.iterations} iterations (compiled {p2['iterations']}), rel L2 {diff_rbm:.3e} "
+          f"from the compiled solve")
+    del u_rbm
+    _, info_j = V.compiled_solver(elasticity_form, _plate_load, tol=TOL, precondition="jacobi")()
+    check(bool(info_j.converged) and p2["iterations"] < RBM_VS_JACOBI * info_j.iterations,
+          f"{tag}: RBM {p2['iterations']} iterations < {RBM_VS_JACOBI} x Jacobi's "
+          f"{info_j.iterations}")
+    e_fine = l2_error(V, u, plate)
+    half = elasticity_2d(ELAST_2D_HALF, tol=TOL, device=DEVICE, dtype=torch.float32)
+    e_half = l2_error(half.basis, half.u, plate)
+    ratio = e_half / e_fine
+    check(L2_RATE[0] < ratio < L2_RATE[1], f"{tag}: L2 error against u_exact {e_fine:.4e} "
+          f"(n={ELAST_2D_HALF}: {e_half:.4e}), ratio {ratio:.3f} in {L2_RATE} (second order)")
+    p2.update({"jacobi_iterations": info_j.iterations, "solve_iterative_rbm_iterations":
+               info_rbm.iterations, "solve_iterative_rbm_vs_compiled": diff_rbm, "l2_error": e_fine,
+               "l2_error_half": e_half, "l2_ratio": ratio})
+    del r, V, u, half
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tag = f"elasticity bubble unit_cube({ELAST_3D_N})"
+    p3, r, u = _elasticity_case(
+        tag, _vector_make(lambda tol: elasticity_3d(ELAST_3D_N, tol=tol, device=DEVICE,
+                                                    dtype=torch.float32),
+                          lambda dtype: pt.VectorBasis(
+                              pt.MeshTet(pt.unit_cube(ELAST_3D_N), device=DEVICE, dtype=dtype),
+                              pt.ElementTet(1, 2)),
+                          _bubble_load),
+        _bubble_load, ELAST_3D_SIZE, ELAST_3D_INNER, ELAST_3D_COARSE, card)
+    p3["l2_error"] = l2_error(r.basis, u, bubble_exact)
+    log(f"{tag}: L2 error against u_exact {p3['l2_error']:.4e}")
+    log(json.dumps({"metric": "elasticity_solves", "tol": TOL, "cases": [p2, p3]}, default=str))
+    del r, u
+    gc.collect()
+    torch.cuda.empty_cache()
+    return p2["k2_launches"], p3["k2_launches"]
+
+
+def _newton_case(tag, make, card, tol):
+    """One compiled Newton solve of phase 22: ``make(dtype, tol)`` builds
+    the basis and its tables and solves once (``bench.NewtonRun``), in
+    float32 to ``tol``. Counts reset before it; BiCGStab's inner
+    iterations are recorded per Newton step. Checks: converged; K2 launched twice per inner iteration and once
+    per step for the start; within 1 Newton iteration and 1e-4 of a float64
+    twin at ``NEWTON_TOL_64``; K2 against its plain version on the Newton
+    structure with the float64 twin's Jacobian values at its first step and
+    at its solution; the eager ``solve_newton`` (its
+    ``"two_level"`` M, the same as ``"auto"``) in as many steps and within
+    1e-4. Returns the figures and the float32 run."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops import compiled, cuda_build
+    from pytorch_fem_solver_tpu_torch.ops.bsr import (
+        bsr_values_from_local,
+        default_max_b,
+        get_bsr_structure,
+    )
+
+    inner = []
+    plain = compiled.bicgstab
+
+    def counted(*args, **kwargs):
+        x, info = plain(*args, **kwargs)
+        inner.append(info.iterations)
+        return x, info
+
+    compiled.bicgstab = counted
+    try:
+        cuda_build.reset_launch_counts()
+        r = make(torch.float32, tol)
+        torch.cuda.synchronize()
+        k2 = cuda_build.launch_counts["bsr_spmv"]
+        steps_inner = list(inner)
+        inner.clear()
+        walls = [_timed(r.solve) for _ in range(NEWTON_REPEATS)]
+        inner.clear()
+    finally:
+        compiled.bicgstab = plain
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        profiled = _timed(r.solve)
+    kernels, device_ms = _device_kernels(prof, 1)
+    V, (k, res, conv) = r.basis, r.info
+    n_inner = int(V._basis_parameters["inner_dofs"].numel())
+    log(f"{tag}: cells={int(V._global_dofs4elements.shape[0])} dofs={V.n_dofs} inner={n_inner}")
+    check(bool(conv) and bool(torch.isfinite(r.u).all()),
+          f"{tag}: converged in {k} Newton steps to residual {float(res):.3e} (tol {tol:g} "
+          f"x max(1, res0)), solution finite")
+    expected = sum(2 * i + 1 for i in steps_inner)
+    check(len(steps_inner) == k and k2 == expected and k2 >= sum(steps_inner),
+          f"{tag}: K2 launches {k2} == 2 x inner iterations + 1 per step ({expected}), inner "
+          f"iterations per step {steps_inner}")
+    r64 = make(torch.float64, NEWTON_TOL_64)
+    k64 = r64.info[0]
+    check(bool(r64.info[2]) and abs(k - k64) <= 1, f"{tag}: f32 {k} Newton steps within 1 of "
+          f"f64's {k64} at tol {NEWTON_TOL_64:g} (converged {bool(r64.info[2])})")
+    diff = float((r.u.double() - r64.u).norm() / r64.u.norm())
+    check(diff <= F32_VS_F64, f"{tag}: f32 vs f64 solution rel L2 {diff:.3e} <= {F32_VS_F64:g}")
+    # K2 against its plain version on this Newton structure (full entry
+    # slots), on the float64 Jacobians the solve scatters: the first
+    # step's, and the one at the float64 solution, not symmetric there
+    V64 = r64.basis
+    st = get_bsr_structure(V64, max_b=default_max_b(V64), want_entry_slot=True)
+    dofs = V64._global_dofs4elements.long()
+    x64 = torch.as_tensor(np.random.default_rng(SEED + 22).standard_normal(st.n_pad),
+                          device=DEVICE)
+    k2_err = {}
+    for where, u_at in (("first step", V64.solution_tensor()), ("f64 solution", r64.u)):
+        _, j_local = V64._newton_terms(
+            lambda uc: V64._residual_local(r64.residual, uc, ()), u_at[..., 0][..., dofs])
+        asym = float((j_local - j_local.mT).norm() / j_local.norm())
+        log(f"{tag}: Jacobian at the {where}: ||J_e - J_e^T|| / ||J_e|| {asym:.3e}")
+        k2_err[where] = _check_k2(f"{tag} Jacobian at the {where}", st,
+                                  bsr_values_from_local(st, j_local), x64)
+        del j_local
+    t0 = time.perf_counter()
+    u_e, info_e = V.solve_newton(r.residual, tol=tol, precondition="two_level",
+                                 return_info=True)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    diff_e = float((u_e - r.u).norm() / r.u.norm())
+    check(info_e["converged"] and info_e["iterations"] == k and diff_e <= F32_VS_F64,
+          f"{tag}: eager solve_newton {info_e['iterations']} steps (compiled {k}), "
+          f"converged {info_e['converged']}, rel L2 {diff_e:.3e} <= {F32_VS_F64:g}")
+    wall = float(np.median(walls))
+    figures = {"case": tag, "tol": tol, "dofs": V.n_dofs, "inner_dofs": n_inner, "newton_steps": k,
+               "residual": float(res), "inner_per_step": steps_inner, "k2_launches": k2,
+               "newton_steps_f64": k64, "f32_vs_f64": diff, "eager_steps": info_e["iterations"],
+               "k2_max_abs_err_jacobian": k2_err,
+               "eager_vs_compiled": diff_e, "eager_s": eager_s,
+               "median_wall_ms": 1e3 * wall, "walls_ms": [1e3 * w for w in walls],
+               "wall_ms_per_step": 1e3 * wall / max(k, 1), "profiled_wall_ms": 1e3 * profiled,
+               "device_ms": device_ms, "idle_share": 1 - device_ms / (1e3 * profiled),
+               "launches": sum(kk[1] for kk in kernels), "host_s": r.seconds, "card": card}
+    log(f"{tag}: {k} Newton steps (f64 {k64}), inner BiCGStab iterations per step {steps_inner}, "
+        f"K2 launches {k2}; median wall {1e3 * wall:.3f} ms over {NEWTON_REPEATS} solves, "
+        f"{1e3 * wall / max(k, 1):.3f} ms per step; profiled solve: wall {1e3 * profiled:.3f} ms, "
+        f"device {device_ms:.3f} ms, idle share {figures['idle_share']:.3f}, "
+        f"{figures['launches']:.0f} launches; eager {eager_s:.3f} s; host s: "
+        + ", ".join(f"{key} {v:.3f}" for key, v in r.seconds.items()))
+    log("device ms/solve  launches/solve  kernel")
+    for us, count, name in kernels[:8]:
+        log(f"{us / 1e3:14.4f}  {count:14.1f}  {name[:110]}")
+    return figures, r
+
+
+def phase_newton(card, mesh32, mesh64):
+    """Phase 22: compiled Newton on the h=0.03 network and on the
+    strain-stiffening plate, float32 with float64 twins on the card."""
+    import gc
+
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import (
+        K0,
+        _stiffness,
+        _unit_load,
+        newton_dfn,
+        newton_elasticity,
+    )
+
+    meshes = {torch.float32: mesh32, torch.float64: mesh64}
+    tag = f"Newton DFN h={H}"
+    pd, r = _newton_case(tag, lambda dtype, tol: newton_dfn(meshes[dtype], tol=tol), card,
+                         NEWTON_TOL_DFN)
+    check(pd["dofs"] == EXPECTED_DOFS, f"{tag}: {pd['dofs']} DOFs == {EXPECTED_DOFS}")
+    u_lin, info_lin = r.basis.compiled_solver(lambda b: K0 * _stiffness(b), _unit_load, tol=TOL)()
+    nl_max, lin_max = float(r.u.max()), float(u_lin.max())
+    check(bool(info_lin.converged) and nl_max < lin_max, f"{tag}: max u nonlinear {nl_max:.6f} < "
+          f"linear {lin_max:.6f} (k(u) = {K0} + u^2 flattens the peak)")
+    pd.update({"max_u": nl_max, "max_u_linear": lin_max})
+    del r, u_lin
+    tag = f"Newton stiffening plate unit_square(n={NEWTON_ELAST_N})"
+    pv, r = _newton_case(
+        tag, lambda dtype, tol: newton_elasticity(NEWTON_ELAST_N, tol=tol, device=DEVICE,
+                                                  dtype=dtype),
+        card, NEWTON_TOL_PLATE)
+    check(pv["inner_dofs"] == NEWTON_ELAST_INNER,
+          f"{tag}: {pv['inner_dofs']} inner DOFs == {NEWTON_ELAST_INNER}")
+    log(json.dumps({"metric": "newton_solves", "tol_f64": NEWTON_TOL_64,
+                    "cases": [pd, pv]}, default=str))
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pd["k2_launches"], pv["k2_launches"]
+
+
 def phase_two_fracture():
     """Phase 10: the two-fracture RVPINN loss and one Adam step on the card,
     against the same port in float64 on the CPU."""
@@ -2749,6 +3142,10 @@ def main() -> int:
     done("19 3D RVPINN")
     chunked_k2 = phase_chunked(card)
     done("20 chunked tets")
+    elast2_k2, elast3_k2 = phase_elasticity(card)
+    done("21 elasticity")
+    newton_dfn_k2, newton_elast_k2 = phase_newton(card, mesh32, mesh64)
+    done("22 Newton")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
     ) + f"; start to tables {marks[0][1] - t_start:.1f}; total {time.perf_counter() - t_start:.1f}")
@@ -2764,7 +3161,9 @@ def main() -> int:
     k2["launches_by_path"] = {"main": launches["bsr_spmv"], "dfn_rvpinn": dfn_launches["bsr_spmv"],
                               "adaptive_dfn": adaptive_k2, "p3": p3_k2, "dfn_p2": dfn_p2_k2,
                               "tet_p1": tet_p1_k2, "tet_p2": tet_p2_k2, "fichera": fichera_k2,
-                              "tet_chunked": chunked_k2}
+                              "tet_chunked": chunked_k2, "elasticity_2d": elast2_k2,
+                              "elasticity_3d": elast3_k2, "newton_dfn": newton_dfn_k2,
+                              "newton_elasticity": newton_elast_k2}
     k5["launches"] = rvpinn_launches["p1_element_2d"]
     k5["launches_by_path"] = {"rvpinn": rvpinn_launches["p1_element_2d"],
                               "posteriori_rvpinn": posteriori_launches["p1_element_2d"],

@@ -23,6 +23,7 @@ from .basis import (
     InteriorEdgesNetworkBasis,
     InteriorFacesBasis,
     PatchesBasis,
+    VectorBasis,
 )
 from .element import ElementLine, ElementTet, ElementTri, ElementTriSurface
 from .mesh import (
@@ -52,10 +53,10 @@ from .mesh import (
 from .models import FeedForwardNeuralNetwork, Model
 from .utils import benchmark_seven_fracture_geometry, build_benchmark_network
 
-# the JAX package's list less ``VectorBasis`` (ROADMAP.md, queue A4); the
-# port's own entry points imported above (the benchmark network, the
-# adaptive refinement and marking, ``fichera_corner``) are importable by
-# name and stay out of it, as they are out of the JAX package's
+# the JAX package's list; the port's own entry points imported above (the
+# benchmark network, the adaptive refinement and marking,
+# ``fichera_corner``) are importable by name and stay out of it, as they
+# are out of the JAX package's
 __all__ = [
     "config",
     "AbstractBasis",
@@ -73,6 +74,7 @@ __all__ = [
     "InteriorEdgesBasis",
     "InteriorEdgesFractureBasis",
     "PatchesBasis",
+    "VectorBasis",
     "ElementLine",
     "ElementTet",
     "ElementTri",

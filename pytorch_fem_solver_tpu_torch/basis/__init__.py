@@ -1,6 +1,6 @@
 """Basis layer: P1-P3 assembly on triangle and tetrahedral meshes, fracture
-networks and batched patches, and the edge and face bases of the jump and
-flux terms."""
+networks and batched patches, the vector (elasticity) basis, and the edge
+and face bases of the jump and flux terms."""
 
 from .abstract_basis import AbstractBasis
 from .basis import Basis
@@ -10,6 +10,7 @@ from .fracture_network_basis import FractureNetworkBasis, InteriorEdgesNetworkBa
 from .interior_edges_basis import BoundaryEdgesBasis, InteriorEdgesBasis
 from .interior_edges_fracture_basis import InteriorEdgesFractureBasis
 from .patches_basis import PatchesBasis
+from .vector_basis import VectorBasis
 
 __all__ = [
     "AbstractBasis",
@@ -23,5 +24,6 @@ __all__ = [
     "InteriorEdgesNetworkBasis",
     "InteriorFacesBasis",
     "PatchesBasis",
+    "VectorBasis",
     "build_global_triangulation",
 ]

@@ -1,10 +1,11 @@
 """Template-method core of the basis/assembly layer.
 
 Counterpart of ``pytorch_fem_solver_tpu/basis/abstract_basis.py``: the
-forms, the dense and iterative solves (BSR, ELL and segment operators), the
-Gram solvers of RVPINN training and the compiled BSR solve. The mixed
-bilinear forms (Stokes) and ``_iterate_at_quadrature`` (Newton) are queued
-in ROADMAP.md (queue A5). All
+forms, the dense and iterative solves (BSR, ELL and segment operators, the
+rigid-body-mode preconditioner of vector bases), Newton (eager and
+compiled, the Jacobian by ``torch.func.jvp``), the Gram solvers of RVPINN
+training and the compiled BSR solve. The mixed bilinear forms (Stokes) and
+the refined and eigen solves are queued in ROADMAP.md (queue A5). All
 quadrature-evaluated tensors (shape values, physical gradients, integration
 points, weights, DOF and scatter indices) are computed once at construction
 on the mesh's device; the integrate methods are plain functions of them, and
@@ -255,9 +256,12 @@ class AbstractBasis(abc.ABC):
 
         ``precondition``: ``"jacobi"``; ``"agg_block"`` (BSR: aggregate
         blocks of the smoother plus the dense coarse level); ``"two_level"``
-        (BSR: ``auto_preconditioner``; ELL: the smoothed two-level M, its
-        tables cached on the basis). ``"mult_two_level"`` (ROADMAP.md, A6)
-        and ``"rbm"`` (A4) are queued and raise. ``symmetric_form=True`` asserts
+        (BSR: ``auto_preconditioner``, the rigid-body-mode coarse space on a
+        vector basis; ELL: the smoothed two-level M, its tables cached on
+        the basis); ``"rbm"`` (BSR, vector bases: the rigid-body-mode
+        coarse space by name; a scalar basis raises ``ValueError``).
+        ``"mult_two_level"`` is queued (ROADMAP.md, A6) and raises.
+        ``symmetric_form=True`` asserts
         symmetric local matrices and takes the canonical-pair assembly (BSR
         only). ``solver="bicgstab"`` is for non-symmetric operators. With
         ``return_info`` the result is ``(u, PCGInfo)``.
@@ -295,11 +299,10 @@ class AbstractBasis(abc.ABC):
                     "'two_level', 'agg_block', 'mult_two_level', 'rbm' or "
                     "'jacobi')"
                 )
-            if precondition in ("mult_two_level", "rbm"):
-                item = "A6" if precondition == "mult_two_level" else "A4"
+            if precondition == "mult_two_level":
                 raise NotImplementedError(
-                    f"precondition={precondition!r} is not ported; see "
-                    f"ROADMAP.md, queue {item}"
+                    "precondition='mult_two_level' is not ported; see "
+                    "ROADMAP.md, queue A6"
                 )
             from ..ops.bsr import (
                 bsr_diagonal,
@@ -314,6 +317,7 @@ class AbstractBasis(abc.ABC):
             from ..ops.precondition import (
                 agg_block_two_level_from_values,
                 auto_preconditioner,
+                rbm_two_level_setup,
             )
 
             structure = get_bsr_structure(
@@ -329,6 +333,8 @@ class AbstractBasis(abc.ABC):
                 precond = auto_preconditioner(self, structure, values, diag)
             elif precondition == "agg_block":
                 precond = agg_block_two_level_from_values(structure, values, diag)
+            elif precondition == "rbm":
+                precond = rbm_two_level_setup(self, structure)(values, diag)
             x, info = krylov(
                 lambda v: bsr_matvec(structure, values, v),
                 bsr_reduce(structure, vector),
@@ -382,6 +388,126 @@ class AbstractBasis(abc.ABC):
         inner = self._basis_parameters["inner_dofs"]
         u = solution.index_add(solution.dim() - 2, inner, x[..., None])
         return (u, info) if return_info else u
+
+    # -- Newton ---------------------------------------------------------
+
+    def _iterate_at_quadrature(self, u_cells: torch.Tensor):
+        """Evaluate a local-coefficient block (..., T, n_loc) at quadrature
+        points: values ``(..., T, q, 1, 1)`` and gradients
+        ``(..., T, q, 1, d)`` for scalar bases; ``(..., T, q, 1, nc)`` and
+        ``(..., T, q, 1, nc, d)`` for vector bases (whose ``v_grad``
+        carries the extra component axis). Newton differentiates through
+        this with ``torch.func.jvp``."""
+        vals = u_cells[..., None, :, None]
+        uh = (vals * self.v).sum(-2, keepdim=True)
+        if int(getattr(self, "n_components", 1)) >= 2:
+            ugh = (u_cells[..., None, :, None, None] * self.v_grad).sum(-3, keepdim=True)
+        else:
+            ugh = (vals * self.v_grad).sum(-2, keepdim=True)
+        return uh, ugh
+
+    def _residual_local(self, residual_form, u_cells, args):
+        """Element residual vectors (..., T, n_loc, 1) of ``residual_form``
+        at the local coefficients ``u_cells``."""
+        uh, ugh = self._iterate_at_quadrature(u_cells)
+        integrand = self._evaluate_form(residual_form, self, uh, ugh, *args)
+        return (integrand * self._dx).sum(-3)
+
+    def _newton_terms(self, residual_local, u_cells):
+        """The assembled residual and the consistent Jacobian's element
+        matrices (..., T, n_loc, n_loc): column j is the ``torch.func.jvp``
+        of ``residual_local`` against the one-hot tangent of local DOF j,
+        in the JAX package's order."""
+        n_loc = int(u_cells.shape[-1])
+        r_local, cols = None, []
+        for j in range(n_loc):
+            tangent = torch.zeros_like(u_cells)
+            tangent[..., j] = 1.0
+            primal, col = torch.func.jvp(residual_local, (u_cells,), (tangent,))
+            r_local = primal if r_local is None else r_local
+            cols.append(col)  # (..., T, n_loc, 1)
+        return self._assemble_linear_from_local(r_local), torch.cat(cols, dim=-1)
+
+    def solve_newton(
+        self,
+        residual_form: Callable[..., torch.Tensor],
+        *args: Any,
+        solution: Optional[torch.Tensor] = None,
+        tol: float = 1e-10,
+        max_iter: int = 25,
+        damping: bool = True,
+        return_info: bool = False,
+        **solve_kwargs: Any,
+    ):
+        """Newton's method for nonlinear problems F(u)[v] = 0.
+
+        ``residual_form(basis, u, u_grad, *args)`` returns the weak-residual
+        integrand against every test function, shaped ``(..., T, q, n_loc,
+        1)`` like a linear-form integrand, where ``u`` ``(..., T, q, 1, 1)``
+        and ``u_grad`` ``(..., T, q, 1, d)`` are the current iterate at the
+        quadrature points (``(..., T, q, 1, nc)`` and ``(..., T, q, 1, nc,
+        d)`` on a vector basis). The consistent Jacobian's element matrices
+        come from ``torch.func.jvp`` (``n_loc`` forward passes, each over
+        all cells) and feed :meth:`solve_iterative`, whose ``solver``
+        defaults to ``"bicgstab"`` and ``tol`` to ``min(tol, 1e-8)``.
+
+        Dirichlet data rides on ``solution`` (the initial iterate, zeros by
+        default); updates touch interior DOFs only. ``damping=True`` halves
+        the step, at most 12 times, while the reduced residual norm does not
+        decrease (``res_new >= norms[-1]``, for a finite ``norms[-1]``).
+        Stops when the reduced residual norm is at most ``tol * max(1,
+        initial norm)`` or after ``max_iter`` iterations. With
+        ``return_info=True`` also returns ``{"iterations",
+        "residual_norms", "converged"}`` (an int, a list of floats, a bool).
+        """
+        solve_kwargs.setdefault("solver", "bicgstab")
+        solve_kwargs.setdefault("tol", min(tol, 1e-8))
+        if solution is None:
+            solution = self.solution_tensor()
+        u = solution
+        dofs = self._global_dofs4elements.long()
+
+        def residual_local(u_cells):
+            return self._residual_local(residual_form, u_cells, args)
+
+        def residual_norm(u_vec):
+            r = self._assemble_linear_from_local(residual_local(u_vec[..., 0][..., dofs]))
+            return float(torch.linalg.norm(self.reduce(r)))
+
+        res0 = residual_norm(u)
+        norms = [res0]
+        target = tol * max(1.0, res0)
+        converged = res0 <= target
+        iterations = 0
+        for iterations in range(1, max_iter + 1):
+            if converged:
+                iterations -= 1
+                break
+            residual, j_local = self._newton_terms(residual_local, u[..., 0][..., dofs])
+            delta = self.solve_iterative(j_local, -residual, **solve_kwargs)
+            # backtracking: res_new always describes the step actually taken
+            step = 1.0
+            res_new = residual_norm(u + step * delta)
+            halvings = 0
+            while (
+                damping
+                and np.isfinite(norms[-1])
+                and res_new >= norms[-1]
+                and halvings < 12
+            ):
+                step *= 0.5
+                res_new = residual_norm(u + step * delta)
+                halvings += 1
+            u = u + step * delta
+            norms.append(res_new)
+            converged = res_new <= target
+        if return_info:
+            return u, {
+                "iterations": iterations,
+                "residual_norms": norms,
+                "converged": bool(converged),
+            }
+        return u
 
     def _two_level_tables(self, structure):
         """The ELL two-level tables (``leaf=32, kp=4``) of this basis's
@@ -482,6 +608,16 @@ class AbstractBasis(abc.ABC):
         from ..ops.compiled import compiled_bsr_solver
 
         return compiled_bsr_solver(self, bilinear_form, linear_form, **kwargs)
+
+    def compiled_newton(self, residual_form, **kwargs):
+        """Newton solve on built tables: the counterpart of the JAX
+        one-jit Newton (same residual-form contract as
+        :meth:`solve_newton`). Returns ``solve(u0=None, *args) -> (u,
+        (iterations, residual_norm, converged))``; see
+        :func:`ops.compiled.compiled_newton_solver` for options."""
+        from ..ops.compiled import compiled_newton_solver
+
+        return compiled_newton_solver(self, residual_form, **kwargs)
 
     # -- abstract surface -------------------------------------------------
 

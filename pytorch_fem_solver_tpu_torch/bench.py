@@ -51,6 +51,20 @@ DOFs at its n=105. ``dfn_p2_solve`` is the same compiled solve at P2 on a
 fracture network (``ElementTri(2, 4)``, the DFN stiffness and unit load of
 ``adaptive_dfn_level``). Both run K2 on every PCG iteration, on structures
 whose block-rows mostly spill into the second tier.
+
+``elasticity_2d`` and ``elasticity_3d`` are the linear-elasticity solves of
+``examples/example_elasticity.py`` (plane strain on ``unit_square(n=n)``,
+``ElementTri(1, 4)``) and ``examples/example_elasticity_3d.py`` (the bubble
+displacement on ``unit_cube(n)``, ``ElementTet(1, 2)``, its body force
+written out by hand), μ=1 and λ=2, through ``VectorBasis.compiled_solver``:
+canonical-pair assembly of the interleaved vector DOFs, the rigid-body-mode
+two-level M and PCG on K2. ``python3 -m pytorch_fem_solver_tpu_torch.bench
+elasticity_3d N`` prints one JSON line as ``tet_poisson N`` does.
+``newton_dfn`` (``examples/example_nonlinear_dfn.py``, k(u) = 0.5 + u^2 on
+a fracture network) and ``newton_elasticity`` (the strain-stiffening
+elasticity residual of the JAX package's ``tests/test_newton.py``) run
+``compiled_newton``: jvp Jacobians, BiCGStab on K2 (two launches per
+iteration) and the per-step two-level M.
 """
 
 from __future__ import annotations
@@ -62,9 +76,15 @@ import numpy as np
 import torch
 
 from . import config
-from .basis import Basis, FractureNetworkBasis, InteriorEdgesNetworkBasis, InteriorFacesBasis
+from .basis import (
+    Basis,
+    FractureNetworkBasis,
+    InteriorEdgesNetworkBasis,
+    InteriorFacesBasis,
+    VectorBasis,
+)
 from .element import ElementLine, ElementTet, ElementTri, ElementTriSurface
-from .mesh import MeshTet, MeshTri, rectangle, unit_cube
+from .mesh import MeshTet, MeshTri, rectangle, unit_cube, unit_square
 from .mesh.refinement import dorfler_mark
 from .ops.bsr import (
     BSRStructure,
@@ -508,17 +528,220 @@ def dfn_p2_solve(mesh, *, tol: float = 1e-6) -> HigherOrderSolve:
     )
 
 
+# -- linear elasticity and Newton ----------------------------------------------
+
+#: Lamé parameters of the elasticity workloads (the examples' defaults)
+MU, LAM = 1.0, 2.0
+#: base conductivity of ``newton_dfn`` (``example_nonlinear_dfn.py``'s K0)
+K0 = 0.5
+
+
+def _swap(g):
+    return g.transpose(-1, -2)
+
+
+def _trace(g):
+    return g.diagonal(dim1=-2, dim2=-1).sum(-1)
+
+
+def elasticity_form(basis):
+    """The Lamé form ∫ 2 μ ε(u):ε(v) + λ div u div v of a vector basis."""
+    g = basis.v_grad  # (T, q|1, n_vloc, nc, d)
+    eps = 0.5 * (g + _swap(g))
+    div = _trace(g)
+    return (
+        2 * MU * torch.einsum("...icd,...jcd->...ij", eps, eps)
+        + LAM * div[..., :, None] * div[..., None, :]
+    )
+
+
+def plate_exact(x, y):
+    """``example_elasticity.py``'s displacement: (sin πx sin πy, x(1-x)y(1-y))."""
+    return torch.stack(
+        [torch.sin(np.pi * x) * torch.sin(np.pi * y), x * (1 - x) * y * (1 - y)], dim=-1
+    )
+
+
+def _plate_load(basis):
+    x = basis.integration_points[..., 0]
+    y = basis.integration_points[..., 1]
+    s, c, pi = torch.sin, torch.cos, np.pi
+    f1 = MU * 2 * pi**2 * s(pi * x) * s(pi * y) + (MU + LAM) * (
+        pi**2 * s(pi * x) * s(pi * y) - (1 - 2 * x) * (1 - 2 * y)
+    )
+    f2 = MU * (2 * y * (1 - y) + 2 * x * (1 - x)) - (MU + LAM) * (
+        pi**2 * c(pi * x) * c(pi * y) - 2 * x * (1 - x)
+    )
+    return (basis.v * torch.stack([f1, f2], dim=-1)).sum(-1, keepdim=True)
+
+
+def bubble_body_force(p):
+    """f = -div σ(u) of ``example_elasticity_3d.py``'s u = w (1, 2, -1),
+    w = x(1-x) y(1-y) z(1-z), written out: f_i = -(μ a_i Δw + (μ+λ)
+    Σ_j a_j ∂_i∂_j w) with a = (1, 2, -1). ``p`` is (..., 3)."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    X, Y, Z = x * (1 - x), y * (1 - y), z * (1 - z)
+    dX, dY, dZ = 1 - 2 * x, 1 - 2 * y, 1 - 2 * z
+    hxx, hyy, hzz = -2 * Y * Z, -2 * X * Z, -2 * X * Y
+    hxy, hxz, hyz = dX * dY * Z, dX * Y * dZ, X * dY * dZ
+    lap = hxx + hyy + hzz
+    a = (1.0, 2.0, -1.0)
+    hess = ((hxx, hxy, hxz), (hxy, hyy, hyz), (hxz, hyz, hzz))
+    return torch.stack([
+        -(MU * a[i] * lap + (MU + LAM) * sum(a[j] * hess[i][j] for j in range(3)))
+        for i in range(3)
+    ], dim=-1)
+
+
+def bubble_exact(p):
+    """``example_elasticity_3d.py``'s displacement w (1, 2, -1)."""
+    w = p[..., 0] * (1 - p[..., 0]) * p[..., 1] * (1 - p[..., 1]) * p[..., 2] * (1 - p[..., 2])
+    return torch.stack([w, 2 * w, -w], dim=-1)
+
+
+def _bubble_load(basis):
+    f = bubble_body_force(basis.integration_points[..., 0, :])  # (T, q, 3)
+    return (basis.v * f[..., None, :]).sum(-1, keepdim=True)
+
+
+def l2_error(basis, u, exact):
+    """||u_h - u*||_{L2} of a vector solution against ``exact(points)``
+    (points (T, q, d), values (T, q, nc))."""
+    uh, _ = basis.interpolate(basis, u)
+    err2 = ((uh[..., 0, :] - exact(basis.integration_points[..., 0, :])) ** 2).sum(-1)
+    return float(torch.sqrt(basis.integrate_functional(lambda b: err2[..., None, None]).sum()))
+
+
+def elasticity_2d(
+    n: int, *, tol: float = 1e-6, device=None, dtype: torch.dtype | None = None
+) -> HigherOrderSolve:
+    """Plane strain on ``unit_square(n=n)`` (``example_elasticity.py``):
+    ``VectorBasis(MeshTri, ElementTri(1, 4))``, the Lamé form and the body
+    force of ``plate_exact``, zero Dirichlet data, through
+    ``compiled_solver`` (RBM ``"auto"``) to the relative residual ``tol``.
+    ``device`` defaults to the card, ``dtype`` to
+    ``config.default_dtype()``."""
+    device = config.resolve_device(device)
+
+    def make_basis():
+        mesh = MeshTri(unit_square(n=n), device=device, dtype=dtype)
+        return VectorBasis(mesh, ElementTri(1, 4))
+
+    return _compiled(make_basis, elasticity_form, _plate_load, device, tol)
+
+
+def elasticity_3d(
+    n: int, *, tol: float = 1e-6, device=None, dtype: torch.dtype | None = None
+) -> HigherOrderSolve:
+    """The bubble problem of ``example_elasticity_3d.py`` on
+    ``unit_cube(n)`` (6 n^3 tets): ``VectorBasis(MeshTet, ElementTet(1,
+    2))``, the Lamé form and ``bubble_body_force``, through
+    ``compiled_solver`` (RBM ``"auto"``, 6 modes per aggregate).
+    ``seconds["mesh"]`` is the host's ``MeshTet``."""
+    device = config.resolve_device(device)
+    t0 = _now(device)
+    mesh = MeshTet(unit_cube(n), device=device, dtype=dtype)
+    t_mesh = _now(device) - t0
+    r = _compiled(
+        lambda: VectorBasis(mesh, ElementTet(1, 2)), elasticity_form, _bubble_load, device, tol
+    )
+    r.seconds["mesh"] = t_mesh
+    return r
+
+
+class NewtonRun(NamedTuple):
+    """A compiled Newton solve: the solution, ``(iterations,
+    residual_norm, converged)``, the host seconds of its parts (``basis``,
+    ``tables``, ``solve``: the first solve), the basis, the residual form
+    and ``solve(u0=None) -> (u, info)`` on the built tables."""
+
+    u: torch.Tensor
+    info: tuple
+    seconds: dict
+    basis: object
+    residual: Callable
+    solve: Callable
+
+
+def _newton(make_basis, residual, device, tol) -> NewtonRun:
+    t0 = _now(device)
+    V = make_basis()
+    t1 = _now(device)
+    solve = V.compiled_newton(residual, tol=tol, precondition="auto")
+    t2 = _now(device)
+    u, info = solve()
+    t3 = _now(device)
+    return NewtonRun(
+        u, info, {"basis": t1 - t0, "tables": t2 - t1, "solve": t3 - t2}, V, residual, solve
+    )
+
+
+def dfn_residual(basis, u, ug):
+    """``example_nonlinear_dfn.py``: -div((K0 + u^2) grad u) = 1."""
+    return (K0 + u**2) * (basis.v_grad * ug).sum(-1, keepdim=True) - basis.v
+
+
+def newton_dfn(mesh, *, tol: float = 1e-5) -> NewtonRun:
+    """``example_nonlinear_dfn.py`` on the fracture network ``mesh``
+    (``FractureNetworkBasis``, ``ElementTri(1, 2)``, k(u) = 0.5 + u^2, f = 1,
+    zero Dirichlet data) through ``compiled_newton`` to ``tol`` (the
+    example asks 1e-10, out of float32's reach), on the mesh's device and in
+    its dtype; ``build_benchmark_network(h)`` makes the example's mesh."""
+    return _newton(
+        lambda: FractureNetworkBasis(mesh, ElementTri(1, 2)), dfn_residual, mesh.device, tol
+    )
+
+
+def stiffening_residual(basis, u, ug):
+    """The strain-stiffening elasticity residual of the JAX package's
+    ``tests/test_newton.py``: μ(u) = 1 + |u|^2, λ = 1.5 and the body force
+    (0, -1)."""
+    mu_u = 1.0 + (u**2).sum(-1, keepdim=True)
+    eps_u = 0.5 * (ug + _swap(ug))
+    eps_v = 0.5 * (basis.v_grad + _swap(basis.v_grad))
+    return (
+        2 * mu_u * torch.einsum("...ocd,...lcd->...lo", eps_u, eps_v)
+        + 1.5 * (_trace(ug)[..., None, :] * _trace(basis.v_grad)[..., :, None])
+        + basis.v[..., 1:2]  # minus the body force's work (0, -1) . v
+    )
+
+
+def newton_elasticity(
+    n: int, *, tol: float = 1e-5, device=None, dtype: torch.dtype | None = None
+) -> NewtonRun:
+    """``stiffening_residual`` on ``unit_square(n=n)`` with
+    ``VectorBasis(MeshTri, ElementTri(1, 3))`` through ``compiled_newton``
+    (``"auto"``: the rigid-body-mode M rebuilt from each step's Jacobian
+    values)."""
+    device = config.resolve_device(device)
+
+    def make_basis():
+        return VectorBasis(MeshTri(unit_square(n=n), device=device, dtype=dtype), ElementTri(1, 3))
+
+    return _newton(make_basis, stiffening_residual, device, tol)
+
+
+def _coarse_of(basis):
+    """(g, na, m) of the basis's cached rigid-body-mode coarse space."""
+    (ast,) = basis._affine_two_level_structures.values()
+    return ast.g, ast.na, ast.m
+
+
 def main(argv=None) -> int:
-    """``tet_poisson N`` (P1) on the card, float32: one JSON line."""
+    """``tet_poisson N`` (P1) or ``elasticity_3d N`` on the card, float32:
+    one JSON line."""
     import json
     import subprocess
     import sys
 
     args = list(sys.argv[1:] if argv is None else argv)
-    if len(args) != 2 or args[0] != "tet_poisson":
-        print("usage: python3 -m pytorch_fem_solver_tpu_torch.bench tet_poisson N",
-              file=sys.stderr)
+    workloads = {"tet_poisson": (tet_poisson, _sine_load_3d),
+                 "elasticity_3d": (elasticity_3d, _bubble_load)}
+    if len(args) != 2 or args[0] not in workloads:
+        print("usage: python3 -m pytorch_fem_solver_tpu_torch.bench "
+              "{tet_poisson|elasticity_3d} N", file=sys.stderr)
         return 2
+    make, load = workloads[args[0]]
     n = int(args[1])
     device = config.resolve_device(None)
     card = subprocess.run(
@@ -526,22 +749,28 @@ def main(argv=None) -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     torch.cuda.reset_peak_memory_stats()
-    r = tet_poisson(n, device=device, dtype=torch.float32)
+    r = make(n, device=device, dtype=torch.float32)
     first_peak = torch.cuda.max_memory_allocated()
     walls = []
     for _ in range(3):
         t0 = _now(device)
         u, info = r.solve()
         walls.append(_now(device) - t0)
-    b = r.basis.reduce(r.basis.integrate_linear_form(_sine_load_3d))
+    b = r.basis.reduce(r.basis.integrate_linear_form(load))
+    extra = {}
+    if args[0] == "elasticity_3d":
+        g, na, m = _coarse_of(r.basis)
+        extra = {"inner_dofs": int(r.basis._basis_parameters["inner_dofs"].numel()),
+                 "g": g, "na": na, "m": m, "coarse": na * m,
+                 "l2_error": l2_error(r.basis, u, bubble_exact)}
     print(json.dumps({
-        "metric": "tet_poisson", "n": n, "cells": int(r.basis.v_grad.shape[0]),
+        "metric": args[0], "n": n, "cells": int(r.basis.v_grad.shape[0]),
         "dofs": r.basis.n_dofs, "iterations": info.iterations,
         "rel_residual": float(info.residual_norm / b.norm()),
         "finite": bool(torch.isfinite(u).all()), "walls_s": walls,
         "median_wall_s": float(np.median(walls)), "peak_gib_first_solve": first_peak / 2**30,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "host_s": r.seconds,
-        "card": card,
+        **extra, "card": card,
     }), flush=True)
     return 0
 

@@ -3,9 +3,9 @@ aggregate-block and ELL two-level preconditioners, the Krylov solvers and
 the assemble+solve pipeline.
 
 ``__all__`` is the JAX package's less what is still queued in ROADMAP.md:
-the affine (A4) and three-level (A6) preconditioner families, the
-smoothed matrix-free two-level M (A6), and the Newton, refined, eigen and
-Stokes solvers (A5)."""
+the three-level and multiplicative preconditioner families and the
+smoothed matrix-free two-level M (A6), and the refined, eigen and Stokes
+solvers (A5)."""
 
 from .bsr import (
     bsr_diagonal,
@@ -17,15 +17,18 @@ from .bsr import (
     build_bsr_structure,
     get_bsr_structure,
 )
-from .compiled import compiled_bsr_solver
+from .compiled import compiled_bsr_solver, compiled_newton_solver
 from .operators import local_matvec, operator_diagonal, reduced_operator_from_local
 from .precondition import (
+    affine_two_level_from_values,
     auto_preconditioner,
     batched_small_inv,
     block_two_level_from_values,
+    build_affine_two_level_structure,
     build_two_level,
     build_two_level_structure,
     default_aggregate_size,
+    get_affine_two_level_structure,
     spatial_aggregates,
     two_level_from_values,
 )
@@ -42,6 +45,7 @@ from .sparse import (
 
 __all__ = [
     "compiled_bsr_solver",
+    "compiled_newton_solver",
     "local_matvec",
     "operator_diagonal",
     "reduced_operator_from_local",
@@ -72,4 +76,7 @@ __all__ = [
     "batched_small_inv",
     "default_aggregate_size",
     "auto_preconditioner",
+    "get_affine_two_level_structure",
+    "build_affine_two_level_structure",
+    "affine_two_level_from_values",
 ]

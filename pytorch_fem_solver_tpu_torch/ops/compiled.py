@@ -19,13 +19,23 @@ and ``_dx`` (the last chunk ragged) and of the structure's
 cached on the basis as ``_chunk_tables[(C, max_b)]``, where JAX caches its
 padded tables.
 
-Not ported yet (ROADMAP.md): the vector/rigid-body-mode branch (A4),
-reduced-precision preconditioner operands and reduced-precision SpMV
-values (B6).
+A vector basis (``n_components >= 2``) takes the rigid-body-mode coarse
+space under ``"auto"``: its structure (W, the aggregate-pair bins) is built
+once per basis, its numeric setup runs per solve.
+
+``compiled_newton_solver`` is the counterpart of the JAX package's one-jit
+Newton: the ``lax.while_loop`` becomes a host loop that reads the trial
+residual norm once per Newton step (and once per halving of a damped
+step), around the jvp Jacobian, the BSR scatter, the preconditioner setup
+and BiCGStab on the SpMV kernel.
+
+Not ported yet (ROADMAP.md, B6): reduced-precision preconditioner operands
+and reduced-precision SpMV values.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -44,12 +54,19 @@ from .bsr import (
 )
 from .precondition import (
     agg_block_two_level_from_values,
+    auto_preconditioner_setup,
     build_agg_block_table,
     default_aggregate_size,
 )
-from .solvers import pcg
+from .solvers import bicgstab, pcg
 
-__all__ = ["aggblock_setup", "bsr_pcg", "compiled_bsr_solver"]
+__all__ = [
+    "aggblock_setup",
+    "bsr_pcg",
+    "compiled_bsr_solver",
+    "compiled_newton_solver",
+    "preconditioner_setup",
+]
 
 
 def aggblock_setup(structure):
@@ -72,26 +89,41 @@ def aggblock_setup(structure):
     return setup
 
 
-def bsr_pcg(
-    structure,
-    precondition: str = "auto",
-    tol: float = 1e-10,
-    maxiter: Optional[int] = None,
-):
-    """Build ``run(values, b_pad) -> (x_pad, PCGInfo)`` for one structure.
-
-    ``"auto"`` (the aggregate-block two-level preconditioner) builds its
-    aggregate table here, once; each ``run`` sets the preconditioner up from
-    the assembled ``values`` and solves the padded reduced system by PCG on
-    the SpMV kernel. ``"jacobi"`` preconditions with the BSR diagonal.
-    """
+def preconditioner_setup(structure, precondition: str = "auto", basis=None):
+    """The per-solve preconditioner setup of ``precondition``: None for
+    ``"jacobi"``; for ``"auto"`` the setup of ``auto_preconditioner`` on
+    ``basis`` (the rigid-body-mode M of a vector basis, else the
+    aggregate-block one), or the aggregate-block one without a basis.
+    Host tables are built here, once."""
     if precondition not in ("auto", "jacobi"):
         raise ValueError(
             f"unknown precondition: {precondition!r} (expected 'auto' or "
             "'jacobi')"
         )
+    if precondition == "jacobi":
+        return None
+    if basis is None:
+        return aggblock_setup(structure)
+    return auto_preconditioner_setup(basis, structure)
+
+
+def bsr_pcg(
+    structure,
+    precondition: str = "auto",
+    tol: float = 1e-10,
+    maxiter: Optional[int] = None,
+    basis=None,
+):
+    """Build ``run(values, b_pad) -> (x_pad, PCGInfo)`` for one structure.
+
+    ``"auto"`` builds the preconditioner's host tables here, once (the
+    aggregate-block two-level M, or on a vector ``basis`` the rigid-body-
+    mode one); each ``run`` sets the preconditioner up from the assembled
+    ``values`` and solves the padded reduced system by PCG on the SpMV
+    kernel. ``"jacobi"`` preconditions with the BSR diagonal.
+    """
     st = structure
-    setup = aggblock_setup(st) if precondition == "auto" else None
+    setup = preconditioner_setup(st, precondition, basis)
 
     def run(values, b_pad):
         diag = bsr_diagonal(st, values)
@@ -179,12 +211,14 @@ def compiled_bsr_solver(
     """Build ``solve() -> (u, info)`` for a fixed basis + forms.
 
     Args:
-      basis: a scalar cell basis with interior DOFs; structures are built
-        for its mesh once, on the host, and live on the basis's device.
+      basis: a cell basis (2D tri / 3D tet / DFN / vector) with interior
+        DOFs; structures are built for its mesh once, on the host, and live
+        on the basis's device.
       bilinear_form: closure ``basis -> (T, q, n_loc, n_loc)`` integrand.
       linear_form: closure for the right-hand side; if None the returned
         callable takes an assembled global vector ``b`` instead.
-      precondition: ``"auto"`` (aggregate-block two-level) or ``"jacobi"``.
+      precondition: ``"auto"`` (aggregate-block two-level; the
+        rigid-body-mode coarse space for vector bases) or ``"jacobi"``.
       symmetric_form: enable the canonical-pair scatter (6/9 entries for P1
         triangles); only valid for symmetric forms.
       max_b: tier-1 block cap; None picks ``default_max_b`` (8 in 2D, 24
@@ -203,12 +237,6 @@ def compiled_bsr_solver(
             f"unknown precondition: {precondition!r} (expected 'auto' or "
             "'jacobi'); use solve_iterative for the full option surface"
         )
-    if int(getattr(basis, "n_components", 1)) >= 2:
-        raise NotImplementedError(
-            "the vector (rigid-body-mode) branch of compiled_bsr_solver is "
-            "not ported yet; see ROADMAP.md, queue A4"
-        )
-
     n_cells = int(basis.v_grad.shape[0])
     if chunk_cells and not symmetric_form:
         raise ValueError(
@@ -254,7 +282,7 @@ def compiled_bsr_solver(
         max_b = default_max_b(basis)
     st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=not symmetric_form)
     chunks = _chunk_table(basis, st, int(chunk_cells), max_b) if chunk_cells else None
-    solve_padded = bsr_pcg(st, precondition, tol=tol, maxiter=maxiter)
+    solve_padded = bsr_pcg(st, precondition, tol=tol, maxiter=maxiter, basis=basis)
 
     # direct-to-padded rhs scatter (flat single-index linear layouts): the
     # load-vector targets pre-mapped through the inverse inner permutation
@@ -302,5 +330,112 @@ def compiled_bsr_solver(
 
         def solve(b):
             return _run(b)
+
+    return solve
+
+
+def _bsr_setup(basis, max_b, precondition):
+    """Shared construction of the compiled Newton solve: the full-entry-slot
+    BSR structure (the Jacobians are not symmetric) and the per-step
+    preconditioner setup of ``precondition`` (``preconditioner_setup``),
+    its host tables built once."""
+    if max_b is None:
+        max_b = default_max_b(basis)
+    st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=True)
+    return st, preconditioner_setup(st, precondition, basis)
+
+
+def compiled_newton_solver(
+    basis,
+    residual_form: Callable,
+    *,
+    tol: float = 1e-10,
+    max_newton: int = 25,
+    solve_tol: float = 1e-8,
+    solve_maxiter: Optional[int] = None,
+    precondition: str = "jacobi",
+    damping: bool = True,
+    max_b: Optional[int] = None,
+):
+    """Newton's method for F(u)[v] = 0, the counterpart of the JAX
+    package's one-jit ``compiled_newton_solver`` (same
+    ``residual_form(basis, u, u_grad, *args)`` contract as
+    ``AbstractBasis.solve_newton``).
+
+    Each step assembles the residual, takes the consistent Jacobian's
+    element matrices by ``torch.func.jvp`` against the ``n_loc`` one-hot
+    local tangents, scatters them into the BSR layout, sets the
+    preconditioner up from those values and solves the update by BiCGStab
+    on the SpMV kernel. The JAX ``lax.while_loop`` is a host loop here.
+
+    Args:
+      precondition: ``"jacobi"`` (the default) or ``"auto"`` (the
+        aggregate-block two-level M, or the rigid-body-mode one on a vector
+        basis, built from each step's Jacobian values; the host tables
+        once, here).
+      damping: the JAX compiled rule, kept as written: halve the step (at
+        most 12 times) while ``not (rn < res)``, so a NaN trial norm keeps
+        damping; a step whose trial norm is still non-finite, or (with
+        damping) not below the current norm after the halvings, is a
+        stall: the iterate stays, the iteration count jumps to
+        ``max_newton`` and the loop stops.
+
+    Returns ``solve(u0=None, *args) -> (u, (iterations, residual_norm,
+    converged))``: ``iterations`` a Python int, ``residual_norm`` a 0-dim
+    tensor and ``converged`` a 0-dim bool tensor, on the CPU and on the
+    card alike. ``u0`` seeds non-homogeneous Dirichlet values; ``args`` go
+    to ``residual_form``.
+    """
+    st, setup = _bsr_setup(basis, max_b, precondition)
+    n_dofs = basis.n_dofs
+    dofs = basis._global_dofs4elements.long()
+
+    def solve(u0=None, *args):
+        if u0 is None:
+            u0 = basis.solution_tensor()
+
+        def residual_local(u_cells):
+            return basis._residual_local(residual_form, u_cells, args)
+
+        def res_norm(u):
+            r = basis._assemble_linear_from_local(residual_local(u[..., 0][..., dofs]))
+            return torch.linalg.norm(basis.reduce(r))
+
+        u = u0
+        res = res_norm(u)
+        target = tol * torch.clamp(res, min=1.0)
+        res_h, target_h = (float(v) for v in torch.stack([res, target]).cpu())
+        k = 0
+        while res_h > target_h and k < max_newton:
+            u_cells = u[..., 0][..., dofs]
+            r, j_local = basis._newton_terms(residual_local, u_cells)
+            values = bsr_values_from_local(st, j_local)
+            diag = bsr_diagonal(st, values)
+            x, _ = bicgstab(
+                lambda v: bsr_matvec(st, values, v),
+                bsr_reduce(st, -r),
+                precond_diag=diag,
+                precond=None if setup is None else setup(values, diag),
+                tol=solve_tol,
+                maxiter=solve_maxiter,
+            )
+            delta = bsr_expand(st, x, n_dofs)
+            step, halvings = 1.0, 0
+            rn = res_norm(u + step * delta)
+            rn_h = float(rn)
+            # not (rn < res): a NaN trial norm keeps damping
+            while damping and not rn_h < res_h and halvings < 12:
+                step *= 0.5
+                rn = res_norm(u + step * delta)
+                rn_h = float(rn)
+                halvings += 1
+            bad = not math.isfinite(rn_h) or (damping and rn_h >= res_h)
+            if bad:
+                k = max_newton
+            else:
+                u = u + step * delta
+                res, res_h = rn, rn_h
+                k += 1
+        return u, (k, res, res <= target)
 
     return solve

@@ -11,14 +11,16 @@ coarse solve is one dense matvec against a precomputed inverse, and D_g is
 the block diagonal over the same groups. The additive combination of SPD
 terms is SPD, so CG theory applies unchanged.
 
-The ELL family follows: the smoothed two-level preconditioner of the
-hybrid-ELL operator (``TwoLevelStructure`` host tables built once,
-``two_level_from_values`` per assembly: gather-only restriction and
-prolongation and a dense coarse inverse), the plain block two-level
-``build_two_level``, and the scalar branch of ``auto_preconditioner``. The
-other preconditioners of the JAX package are queued in ROADMAP.md: the
-affine/rigid-body-mode family in A4, the three-level and multiplicative
-families in A6.
+The affine / rigid-body-mode family follows (``AffineTwoLevelStructure``
+host tables with W from NumPy's float64 QR, ``affine_two_level_from_values``
+per assembly): the coarse space of vector bases, which
+``auto_preconditioner`` picks for ``n_components >= 2``. Then the ELL
+family: the smoothed two-level preconditioner of the hybrid-ELL operator
+(``TwoLevelStructure`` host tables built once, ``two_level_from_values``
+per assembly: gather-only restriction and prolongation and a dense coarse
+inverse) and the plain block two-level ``build_two_level``. The
+three-level and multiplicative families of the JAX package are queued in
+ROADMAP.md (A6), and so are its reduced-precision operands (B6).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import config
 from .sparse import ELLStructure, invert_scatter_map
 
 
@@ -151,6 +154,7 @@ def batched_small_inv(a: torch.Tensor) -> torch.Tensor:
 
 MAX_COARSE = 4096  # dense coarse-level cap (inverse + per-iteration matvec)
 BASE_AGGREGATE_BLOCKS = 4  # one aggregate = 4 blocks (32 DOFs) minimum
+AFFINE_MAX_VECTORS = 4  # [1, x, y, z]: m = 1 + d <= 4 (the BSR padding's sizing)
 
 
 def _bounded_divisor_search(n_pad: int, base: int, mult0: int) -> int:
@@ -235,13 +239,19 @@ def block_two_level_from_values(
     )
 
     safe = torch.where(diag != 0, diag, torch.ones_like(diag))
-    blk_inv = None
-    if fine == "block_jacobi":
-        blk = v1[:, 0]  # the diagonal block always lives at tier-1 slot b=0
-        blk_inv = batched_small_inv(_pin_zero_diagonal(blk))
-    elif fine != "jacobi":
-        raise ValueError(f"unknown fine smoother: {fine!r}")
+    blk_inv = _fine_block_smoother(v1, fine)
     return BlockTwoLevel(inv_diag=1.0 / safe, coarse_inv=coarse_inv, g=g, blk_inv=blk_inv)
+
+
+def _fine_block_smoother(v1, fine: str = "block_jacobi"):
+    """Diagonal-block inverses of the fine smoother (None for point
+    Jacobi). The diagonal block of a block-row always lives at tier-1 slot
+    b=0; padded rows' all-zero blocks are pinned to identity."""
+    if fine == "jacobi":
+        return None
+    if fine != "block_jacobi":
+        raise ValueError(f"unknown fine smoother: {fine!r}")
+    return batched_small_inv(_pin_zero_diagonal(v1[:, 0]))
 
 
 def _pin_zero_diagonal(d: torch.Tensor) -> torch.Tensor:
@@ -362,19 +372,319 @@ def aggregate_block_inverses(structure, values, gs: int, table=None):
     return batched_small_inv(_pin_zero_diagonal(D))
 
 
-def auto_preconditioner(basis, structure, values, diag):
-    """The aggregate-block two-level M for a scalar basis's BSR operator
-    (``g`` from ``default_aggregate_size``, ``gs = min(g, 128)``), its
-    aggregate table built once per basis and layout and held on the device.
+# -- the affine / rigid-body-mode family ----------------------------------------
 
-    The vector branch of the JAX package (the rigid-body-mode coarse space
-    for ``n_components >= 2``) is queued in ROADMAP.md (A4) and raises.
+
+class AffineTwoLevelStructure(NamedTuple):
+    """Host-built tables of the affine-coarse two-level preconditioner.
+
+    Coarse space: per contiguous aggregate of ``g`` fine DOFs, the m = 1+k
+    vectors [1, columns...] (the coordinates [x, y, (z)] by default, or
+    given mode columns such as the rigid body modes), centred and scaled
+    per aggregate and orthonormalised per aggregate by NumPy's batched QR
+    in float64 on the host, as in the JAX package (so W carries JAX's
+    column signs). Transfers stay reshape + einsum.
     """
-    if int(getattr(basis, "n_components", 1)) >= 2:
-        raise NotImplementedError(
-            "the rigid-body-mode two-level preconditioner of vector bases "
-            "is not ported; see ROADMAP.md, queue A4"
+
+    W: torch.Tensor  # (na, g, m) orthonormal per-aggregate basis
+    Wb: torch.Tensor  # (nb, block, m) the same rows grouped per 8-block
+    bins1: torch.Tensor  # (nb*B,) aggregate-pair segment id per tier-1 block
+    bins2: torch.Tensor  # (nh*B2,) same for spilled tier-2 blocks
+    na: int
+    g: int
+    m: int
+
+
+class AffineTwoLevel(NamedTuple):
+    """M^{-1} = S + P (P^T A P)^{-1} P^T with P the per-aggregate W and S
+    the 8x8 block-Jacobi (``blk_inv``), point-Jacobi or, with ``inv_agg``,
+    the (gs x gs) aggregate-block smoother."""
+
+    inv_diag: torch.Tensor
+    coarse_inv: torch.Tensor  # (na*m, na*m)
+    W: torch.Tensor  # (na, g, m)
+    blk_inv: torch.Tensor | None = None
+    inv_agg: torch.Tensor | None = None  # (ns, gs, gs) aggregate smoother
+    gs: int = 0
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        na, g, m = self.W.shape
+        r_c = torch.einsum("agm,ag->am", self.W, r.reshape(na, g)).reshape(-1)
+        z_c = self.coarse_inv @ r_c
+        z = torch.einsum("agm,am->ag", self.W, z_c.reshape(na, m)).reshape(-1)
+        if self.inv_agg is not None:
+            fine = torch.einsum(
+                "rij,rj->ri", self.inv_agg, r.reshape(-1, self.gs)
+            ).reshape(-1)
+        else:
+            fine = _apply_fine(self.blk_inv, self.inv_diag, r)
+        return fine + z
+
+
+def default_affine_aggregate_size(
+    structure, m: int = AFFINE_MAX_VECTORS, max_coarse: int = MAX_COARSE
+):
+    """Aggregate size for the affine space: na*m <= max_coarse, where the
+    divisor search allows (it falls back downward, so na*m may exceed the
+    cap: JAX's behaviour, kept)."""
+    base = BASE_AGGREGATE_BLOCKS * structure.block
+    mult0 = -(-structure.n_pad * m // (max_coarse * base))
+    return _bounded_divisor_search(structure.n_pad, base, mult0)
+
+
+def elasticity_rbm_modes(
+    coords: np.ndarray,
+    components: np.ndarray,
+    include_stretch: bool = False,
+) -> np.ndarray:
+    """Per-DOF rigid-body-mode columns for an interleaved vector basis
+    (``basis.VectorBasis``): the (n, k) non-constant columns to pass to
+    ``build_affine_two_level_structure(modes=...)``, which prepends the
+    ones column.
+
+    * component indicators for c = 1..nc-1 (translations),
+    * one rotation column per coordinate pair (a, b): ``-x_b`` on
+      component-a DOFs, ``x_a`` on component-b DOFs,
+    * with ``include_stretch``: per-component coordinate columns.
+
+    Args:
+      coords: (n, d) coordinates of the (interior) DOFs.
+      components: (n,) component index of each DOF (``inner_ids % nc``).
+    """
+    coords = np.asarray(coords, dtype=np.float64)
+    components = np.asarray(components)
+    n, d = coords.shape
+    nc = int(components.max(initial=0)) + 1
+    cols = []
+    for c in range(1, nc):
+        cols.append((components == c).astype(np.float64))
+    for a in range(min(nc, d)):
+        for b in range(a + 1, min(nc, d)):
+            col = np.zeros(n)
+            sel_a = components == a
+            sel_b = components == b
+            col[sel_a] = -coords[sel_a, b]
+            col[sel_b] = coords[sel_b, a]
+            cols.append(col)
+    if include_stretch:
+        for c in range(nc):
+            sel = components == c
+            for j in range(d):
+                col = np.zeros(n)
+                col[sel] = coords[sel, j]
+                cols.append(col)
+    return np.stack(cols, axis=1)
+
+
+def build_affine_two_level_structure(
+    structure, coords, g: int | None = None, modes: np.ndarray | None = None,
+    *, dtype: torch.dtype | None = None,
+) -> AffineTwoLevelStructure:
+    """Host-side W (float64 QR) and aggregate-pair bins, value-independent,
+    moved to the structure's device once: W in ``dtype`` (default
+    ``config.default_dtype()``), the bins int32 as in the JAX package.
+
+    Args:
+      structure: the BSR layout.
+      coords: (n_inner, d) coordinates of the interior DOFs in ORIGINAL
+        reduced order (the array the spatial ordering was built from).
+      modes: optional (n_inner, k) columns replacing the coordinate
+        columns, each centred and scaled per aggregate; the constant column
+        is always prepended (``elasticity_rbm_modes`` for vector problems).
+    """
+    coords = np.asarray(coords) if modes is None else np.asarray(modes)
+    d = coords.shape[1]
+    m = 1 + d
+    if g is None:
+        g = default_affine_aggregate_size(structure, m=m)
+    if g % structure.block or structure.n_pad % g:
+        raise ValueError(
+            f"affine aggregate size {g} must be a multiple of "
+            f"{structure.block} and divide n_pad {structure.n_pad}"
         )
+    n_pad = structure.n_pad
+    na = n_pad // g
+
+    cp = np.zeros((n_pad, d), dtype=np.float64)
+    cp[: structure.n_inner] = coords[structure.perm]
+    X = cp.reshape(na, g, d)
+    X = X - X.mean(axis=1, keepdims=True)
+    span = np.maximum(np.abs(X).max(axis=1, keepdims=True), 1e-12)
+    cols = np.concatenate([np.ones((na, g, 1)), X / span], axis=-1)
+    # batched reduced QR; rank-deficient aggregates get arbitrary
+    # orthonormal tail columns, harmless extra directions of an SPD coarse
+    # space. NumPy's, not torch.linalg.qr: the column signs are JAX's.
+    W, _ = np.linalg.qr(cols)
+
+    block = structure.block
+    gb = g // block
+    nb, B = structure.bcols.shape
+    bcols = structure.bcols.cpu().numpy().astype(np.int64)
+    rows_c = np.repeat(np.arange(nb) // gb, B)
+    bins1 = rows_c * na + (bcols // gb).reshape(-1)
+    heavy = structure.heavy_rows.cpu().numpy().astype(np.int64)
+    bcols2 = structure.bcols2.cpu().numpy().astype(np.int64)
+    if heavy.size:
+        bins2 = (
+            np.repeat(heavy // gb, bcols2.shape[1]) * na
+            + (bcols2 // gb).reshape(-1)
+        )
+    else:
+        bins2 = np.zeros((0,), dtype=np.int64)
+
+    device = structure.bcols.device
+    Wt = torch.as_tensor(W, dtype=dtype or config.default_dtype(), device=device)
+
+    def index(a):
+        return torch.as_tensor(
+            a.astype(np.int32), dtype=config.index_dtype(), device=device
+        )
+
+    return AffineTwoLevelStructure(
+        W=Wt,
+        Wb=Wt.reshape(nb, block, m),
+        bins1=index(bins1),
+        bins2=index(bins2),
+        na=int(na),
+        g=int(g),
+        m=int(m),
+    )
+
+
+def get_affine_two_level_structure(
+    basis,
+    structure,
+    g: int | None = None,
+    rbm: bool = False,
+    mode_kind: str | None = None,
+) -> AffineTwoLevelStructure:
+    """Cached-per-basis affine / rigid-body-mode / component coarse tables,
+    W in the basis's dtype.
+
+    ``mode_kind`` selects the per-aggregate column set (``rbm=True`` is a
+    shorthand for ``mode_kind="rbm"``):
+
+    * ``"affine"`` (default): [1, x, y, (z)], scalar problems;
+    * ``"rbm"``: constants + per-component translations + rotations
+      (``elasticity_rbm_modes``), coupled vector problems (elasticity);
+    * ``"components"``: constants + component indicators only (m =
+      n_components), the near-nullspace of a component-decoupled vector
+      operator.
+    """
+    if mode_kind is None:
+        mode_kind = "rbm" if rbm else "affine"
+    if mode_kind not in ("affine", "rbm", "components"):
+        raise ValueError(f"unknown mode_kind: {mode_kind!r}")
+    cache = getattr(basis, "_affine_two_level_structures", None)
+    if cache is None:
+        cache = {}
+        basis._affine_two_level_structures = cache
+    key = (structure.nb, structure.bcols.shape[1],
+           structure.heavy_rows.shape[0], g, mode_kind)
+    ast = cache.get(key)
+    if ast is None:
+        inner = basis._as_host_index(basis._basis_parameters["inner_dofs"])
+        coords = basis._coords4global_dofs.cpu().numpy()[inner]
+        modes = None
+        if mode_kind in ("rbm", "components"):
+            nc = int(getattr(basis, "n_components", 1))
+            if nc < 2:
+                raise ValueError(
+                    f"{mode_kind} coarse space requires a vector basis "
+                    "(n_components >= 2)"
+                )
+            if mode_kind == "rbm":
+                modes = elasticity_rbm_modes(coords, inner % nc)
+            else:
+                comp = inner % nc
+                modes = np.stack(
+                    [(comp == c).astype(np.float64) for c in range(1, nc)],
+                    axis=1,
+                )
+        ast = build_affine_two_level_structure(
+            structure, coords, g=g, modes=modes, dtype=basis.dtype
+        )
+        cache[key] = ast
+    return ast
+
+
+def affine_two_level_from_values(
+    ast: AffineTwoLevelStructure,
+    structure,
+    values,
+    diag,
+    fine: str = "block_jacobi",
+    gs: int | None = None,
+    agg_table=None,
+) -> AffineTwoLevel:
+    """Numeric setup of the affine-coarse two-level M, on the device.
+
+    Galerkin coarse matrix per aggregate pair:
+        A_c[I, J] = sum over blocks (r, b) with r in I, bcols[r,b] in J of
+                    Wb[r]^T A[r,b] Wb[bcols[r,b]]
+    two small einsums over the tier values and one (m, m)-row segment sum
+    (``index_add_``; on the card its float atomics vary the summation
+    order of A_c). Symmetrised, shifted by 1e-7 max(trace / (na m), 1) and
+    inverted by Cholesky.
+
+    ``fine="agg_block"`` swaps the 8x8 block-Jacobi smoother for the
+    (gs x gs) aggregate diagonal-block inverses of ``AggBlockTwoLevel``;
+    ``gs`` defaults to min(default_aggregate_size, 128), ``agg_table`` to
+    the device table of ``build_agg_block_table``.
+    """
+    v1, v2 = values
+    na, m = ast.na, ast.m
+    Wb = ast.Wb.to(v1.dtype)
+
+    Wc = Wb[structure.bcols.long()]  # (nb, B, block, m) row gathers
+    t1 = torch.einsum("rbij,rbjm->rbim", v1, Wc)
+    G1 = torch.einsum("rin,rbim->rbnm", Wb, t1).reshape(-1, m, m)
+    coarse = v1.new_zeros((na * na, m, m)).index_add_(0, ast.bins1, G1)
+    if structure.heavy_rows.shape[0]:
+        Wh = Wb[structure.heavy_rows.long()]
+        t2 = torch.einsum("rbij,rbjm->rbim", v2, Wb[structure.bcols2.long()])
+        G2 = torch.einsum("rin,rbim->rbnm", Wh, t2).reshape(-1, m, m)
+        coarse.index_add_(0, ast.bins2, G2)
+    Ac = coarse.reshape(na, na, m, m).permute(0, 2, 1, 3).reshape(na * m, na * m)
+    Ac = 0.5 * (Ac + Ac.T)
+    shift_scale = torch.clamp(torch.trace(Ac) / (na * m), min=1.0)
+    eye = torch.eye(na * m, dtype=Ac.dtype, device=Ac.device)
+    coarse_inv = spd_inverse(Ac + 1e-7 * shift_scale * eye)
+
+    safe = torch.where(diag != 0, diag, torch.ones_like(diag))
+    inv_agg = None
+    if fine == "agg_block":
+        if gs is None:
+            gs = min(default_aggregate_size(structure), 128)
+        inv_agg = aggregate_block_inverses(structure, values, gs, table=agg_table)
+        blk_inv = None
+    else:
+        blk_inv = _fine_block_smoother(v1, fine)
+    return AffineTwoLevel(
+        inv_diag=1.0 / safe,
+        coarse_inv=coarse_inv,
+        W=ast.W.to(v1.dtype),
+        blk_inv=blk_inv,
+        inv_agg=inv_agg,
+        gs=0 if gs is None else int(gs),
+    )
+
+
+def rbm_two_level_setup(basis, structure):
+    """The rigid-body-mode coarse tables of a vector basis, built once and
+    cached on the basis (``get_affine_two_level_structure``, with its
+    ``ValueError`` on a scalar basis); returns ``setup(values, diag) ->
+    AffineTwoLevel`` of assembled ``values`` (8x8 block-Jacobi smoother)."""
+    ast = get_affine_two_level_structure(basis, structure, rbm=True)
+    return lambda values, diag: affine_two_level_from_values(ast, structure, values, diag)
+
+
+def auto_preconditioner_setup(basis, structure):
+    """The host tables of ``auto_preconditioner``, built once per basis and
+    layout and cached on the basis; returns ``setup(values, diag) -> M``
+    of assembled ``values``."""
+    if int(getattr(basis, "n_components", 1)) >= 2:
+        return rbm_two_level_setup(basis, structure)
     g = default_aggregate_size(structure)
     gs = min(g, 128)
     cache = getattr(basis, "_agg_block_tables", None)
@@ -388,9 +698,21 @@ def auto_preconditioner(basis, structure, values, diag):
             build_agg_block_table(structure, gs), device=structure.bcols.device
         )
         cache[key] = table
-    return agg_block_two_level_from_values(
+    return lambda values, diag: agg_block_two_level_from_values(
         structure, values, diag, g=g, gs=gs, table=table
     )
+
+
+def auto_preconditioner(basis, structure, values, diag):
+    """Size-appropriate aggregate preconditioner for the BSR operator.
+
+    A scalar basis gets the aggregate-block two-level M (``g`` from
+    ``default_aggregate_size``, ``gs = min(g, 128)``), its aggregate table
+    built once per basis and layout and held on the device. A vector basis
+    (``n_components >= 2``, elasticity) gets the rigid-body-mode coarse
+    space with the 8x8 block-Jacobi smoother (``rbm_two_level_setup``).
+    """
+    return auto_preconditioner_setup(basis, structure)(values, diag)
 
 
 # -- the ELL family ----------------------------------------------------------

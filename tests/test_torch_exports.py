@@ -35,13 +35,9 @@ F2 = [[0, 0, -1], [0, 0, 1], [0, 1, 1], [0, 1, -1]]
 
 # names of the JAX package's namespaces still queued in ROADMAP.md
 UNPORTED = {
-    "": {"VectorBasis"},  # A4
-    "basis": {"VectorBasis"},  # A4
+    "": set(),
+    "basis": set(),
     "ops": {
-        # A4: the affine / rigid-body-mode family
-        "affine_two_level_from_values",
-        "build_affine_two_level_structure",
-        "get_affine_two_level_structure",
         # A6: the three-level and multiplicative families, the smoothed
         # matrix-free two-level M
         "build_three_level_structure",
@@ -51,8 +47,7 @@ UNPORTED = {
         "mult_two_level_from_values",
         "build_smoothed_two_level",
         "smoothed_two_level_matrix_free",
-        # A5: the Newton, refined, eigen and Stokes solvers
-        "compiled_newton_solver",
+        # A5: the refined, eigen and Stokes solvers
         "compiled_refined_solver",
         "RefineInfo",
         "compiled_eigsh_solver",

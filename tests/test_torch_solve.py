@@ -138,8 +138,9 @@ def test_compiled_solver_jacobi_nonsymmetric_and_assembled_rhs():
 
 
 def test_unported_options_raise(monkeypatch):
-    """The vector (rigid-body-mode) branch of the JAX compiled_bsr_solver
-    raises at construction (ROADMAP.md, queue A4). Above 2M cells a
+    """The vector branch of compiled_bsr_solver builds the rigid-body-mode
+    tables at construction, before any solve (m = 3 in 2D), and no
+    aggregate-block table; with ``"jacobi"`` it builds neither. Above 2M cells a
     symmetric form picks the chunked assembly, 2^18 cells per chunk, as the
     JAX package does (a stub basis; the structure and the solver are stubs
     too, so nothing is built), and a non-symmetric one stays unchunked. An
@@ -147,8 +148,17 @@ def test_unported_options_raise(monkeypatch):
     import pytorch_fem_solver_tpu_torch.ops.compiled as compiled
 
     a_p = lambda b: b.v_grad @ b.v_grad.mT  # noqa: E731
-    with pytest.raises(NotImplementedError, match="queue A4"):
-        compiled_bsr_solver(SimpleNamespace(n_components=2), a_p, lambda b: b.v)
+    def vector_laplacian(b):
+        return torch.einsum("...icd,...jcd->...ij", b.v_grad, b.v_grad)
+
+    mesh = pt.MeshTri(pt.unit_square(n=4), device="cpu")
+    for precondition, kinds in (("jacobi", set()), ("auto", {"rbm"})):
+        V = pt.VectorBasis(mesh, pt.ElementTri(1, 2))
+        compiled_bsr_solver(V, vector_laplacian, None, precondition=precondition)
+        tables = getattr(V, "_affine_two_level_structures", {})
+        assert {key[-1] for key in tables} == kinds
+        assert all(ast.m == 3 for ast in tables.values())
+        assert not hasattr(V, "_agg_block_tables")
     n_cells = 2_000_001
     slots = torch.zeros((), dtype=torch.int32).expand(10 * n_cells)  # no memory
     monkeypatch.setattr(compiled, "get_bsr_structure",

@@ -162,11 +162,41 @@ def test_auto_preconditioner_matches_jax_and_caches_its_table(system):
 
 
 def test_auto_preconditioner_vector_branch_raises():
-    class Vector:
-        n_components = 2
+    """The vector branch: the rigid-body-mode M of the JAX package (a
+    scalar basis asking for the rbm coarse space raises its ValueError)."""
+    def lame(b):  # μ = 1, λ = 1.5 (the JAX package's tests/test_elasticity.py)
+        g = b.v_grad
+        m = torch if isinstance(g, torch.Tensor) else jnp
+        eps = 0.5 * (g + m.swapaxes(g, -1, -2))
+        div = m.diagonal(g, 0, -2, -1).sum(-1)
+        return 2 * m.einsum("...icd,...jcd->...ij", eps, eps) + 1.5 * div[..., :, None] * div[..., None, :]
 
-    with pytest.raises(NotImplementedError, match="queue A4"):
-        pp.auto_preconditioner(Vector(), None, None, None)
+    # n=12: 242 inner DOFs of n_pad 256. On unit_square(n=8) (98 of 128)
+    # the last aggregate is nearly all padding, its shifted coarse rows
+    # near-singular (entries ~5e5), and both packages' roundoff in A_c
+    # shows at 1e-10 in coarse_inv
+    jV = fem.VectorBasis(fem.MeshTri(fem.unit_square(n=12)), fem.ElementTri(1, 2))
+    pV = pt.VectorBasis(pt.MeshTri(pt.unit_square(n=12), device="cpu"), pt.ElementTri(1, 2))
+    jst, pst = jb.get_bsr_structure(jV, max_b=8), pb.get_bsr_structure(pV, max_b=8)
+    jvals = jb.bsr_values_from_local(jst, jV.integrate_bilinear_form_local(lame))
+    pvals = pb.bsr_values_from_local(pst, pV.integrate_bilinear_form_local(lame))
+    ref = jp.auto_preconditioner(jV, jst, jvals, jb.bsr_diagonal(jst, jvals))
+    ours = pp.auto_preconditioner(pV, pst, pvals, pb.bsr_diagonal(pst, pvals))
+    assert isinstance(ours, pp.AffineTwoLevel) and ours.W.shape == ref.W.shape
+    assert _rel(ours.coarse_inv, ref.coarse_inv) <= REL
+    assert _rel(ours.blk_inv, ref.blk_inv) <= REL
+    r = np.random.default_rng(4).standard_normal(pst.n_pad)
+    assert _rel(ours(torch.from_numpy(r)), ref(jnp.asarray(r))) <= REL
+    (ast,) = pV._affine_two_level_structures.values()
+    pp.auto_preconditioner(pV, pst, pvals, pb.bsr_diagonal(pst, pvals))
+    assert next(iter(pV._affine_two_level_structures.values())) is ast
+    jS = fem.Basis(fem.MeshTri(fem.unit_square(n=4)), fem.ElementTri(1, 2))
+    pS = pt.Basis(pt.MeshTri(pt.unit_square(n=4), device="cpu"), pt.ElementTri(1, 2))
+    with pytest.raises(ValueError) as ref_err:
+        jp.get_affine_two_level_structure(jS, jb.get_bsr_structure(jS, max_b=8), rbm=True)
+    with pytest.raises(ValueError, match="requires a vector basis") as err:
+        pp.get_affine_two_level_structure(pS, pb.get_bsr_structure(pS, max_b=8), rbm=True)
+    assert str(err.value) == str(ref_err.value)
 
 
 def _pair(system, precond):
