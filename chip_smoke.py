@@ -243,7 +243,48 @@ Phases (any failure exits non-zero and prints no result):
     nonlinear maximum below the linear solve's; Newton steps, BiCGStab
     iterations per step, the wall per step and one profiled solve (device
     ms by kernel, launches, the idle share; a JSON ``newton_solves``
-    line).
+    line);
+23. the mixed-precision refined solve (``refined_dfn`` and
+    ``refined_elasticity`` of the port's ``bench.py``, ``compiled_refined``
+    on a float64 basis): ``tools/exp_refine_tpu.py`` on phase 1's h=0.03
+    network (stiffness and unit load, float32 PCG stages to 1e-6 with the
+    aggregate-block M) and the explicit-rhs vector case of the JAX
+    package's ``tests/test_refine.py`` on ``rectangle(256, 256)`` (the
+    vector Laplacian, stages to 1e-5, the rigid-body-mode M), each with 2
+    passes and with none (the control): counts reset before each solve, K2
+    launched sum(inner iterations + 1) times in float32 and 1 + passes
+    times in float64 (counted by dtype as well); with 2 passes the last
+    true float64 residual below 1e-11, ``converged``, and the solution
+    within 1e-9 (max norm, relative) of the card's float64
+    ``compiled_bsr_solver`` at 1e-12, which the control must fail, by more
+    than 10 x the refined error; a float32 right-hand side refused; K2
+    against its plain version on the refined values in float64 and
+    float32; per case and pass count the inner iterations per stage, the
+    true residuals, the median wall of 5 solves (in turns) and one
+    profiled solve (device ms, launches, host reads, the idle share; a
+    JSON ``refined_solves`` line);
+24. the generalized eigensolvers (``eigsh_square``, ``eigsh_dfn`` and
+    ``eigsh_elasticity`` of the port's ``bench.py``, ``compiled_eigsh``),
+    float32 with float64 LOBPCG twins at 1e-9 on the card:
+    ``tools/exp_solver_tier.py``'s "eigsh" phase (``rectangle(316, 316)``,
+    P1, 100,489 DOFs, the 6 smallest Laplace modes to a relative change of
+    1e-5, inner solves to 1e-6) by LOBPCG and by subspace iteration, and
+    LOBPCG on phase 1's network and on the elastic modes of the JAX
+    package's ``tests/test_eigen.py`` (mu 1, lam 1.5) on phase 22's
+    ``unit_square(n=128)`` (to 1e-4, held within 1e-3 of float64: the
+    float32 floor of the method there, ~2e-4; at n=256 it stalls near
+    1e-3): counts reset before each, converged, finite,
+    ascending, max |X^T M X - I| <= 1e-4, K2 launched 2 m + 6 m x rounds
+    times by LOBPCG (m = 9, the block width) and 3 m per round plus every
+    inner PCG's iterations + 1 by subspace iteration, the eigenvalues
+    within 1e-4 (relative; the elastic modes 1e-3) of the float64 twin's,
+    on the square the two
+    methods within 1e-4 of each other and a LOBPCG stopped after 3 rounds
+    (the control) failing the f32-vs-f64 bound; K2 against its plain
+    version on the eigen structure (full entry slots) with the stiffness
+    and the mass; rounds, K2 launches per round, the median wall, and one
+    profiled solve (device ms, launches and host reads per round, the idle
+    share; a JSON ``eigsh_solves`` line).
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
@@ -437,6 +478,49 @@ NEWTON_TOL_64 = 1e-10
 NEWTON_ELAST_N = 128
 NEWTON_ELAST_INNER = 32_258
 NEWTON_REPEATS = 3
+# phase 23: the refined solve of tools/exp_refine_tpu.py on phase 1's h=0.03
+# network (a float64 basis; float32 PCG stages to 1e-6, 2 passes) and the
+# explicit-rhs vector case of the JAX package's tests/test_refine.py (the
+# vector Laplacian, stages to 1e-5) on rectangle(256, 256), the plate's
+# size. The bounds are that test's: the last true residual below 1e-11, the
+# solution within 1e-9 (max norm) of the float64 solve (compiled_bsr_solver
+# at 1e-12 on the card), which the refine=0 control must fail by 10x
+REFINE_PASSES = 2
+REFINE_TOL32 = 1e-6
+REFINE_ELAST_N = 256
+REFINE_ELAST_TOL32 = 1e-5
+REFINE_RESIDUAL = 1e-11
+REFINE_VS_F64 = 1e-9
+REFINE_F64_TOL = 1e-12
+REFINE_REPEATS = 5
+# phase 24: tools/exp_solver_tier.py's "eigsh" phase: rectangle(316, 316),
+# P1 ElementTri(1, 3) (100,489 DOFs), the smallest 6 Laplace modes to a
+# relative eigenvalue change of 1e-5, inner solves to 1e-6, both methods;
+# LOBPCG on phase 1's network and on the elastic modes of the JAX
+# package's tests/test_eigen.py (mu 1, lam 1.5, vector mass). Float64
+# twins by LOBPCG at 1e-9 on the card; a LOBPCG stopped after 3 rounds is
+# the control of the f32-vs-f64 bound. The elastic modes run on phase 22's
+# unit_square(n=128) (32,258 inner DOFs) to 1e-4 and are held within 1e-3
+# of float64: float32 LOBPCG (the JAX package's as well) stops improving at
+# 1.9-2.0e-4 from float64 there, whatever the tolerance (the CPU's float32
+# runs of both packages, 73 rounds at 1e-5, 19 at 1e-4), and at the
+# plate's n=256 it stalls near 1e-3 (change 4.7e-4 after 200 rounds on an
+# H100, 7.9e-4 from float64), while at n=128 the float32 Rayleigh quotients
+# of the float64 modes lie within 2e-6 of theirs (CPU)
+EIGSH_N = 316
+EIGSH_DOFS = 100_489
+EIGSH_K = 6
+EIGSH_TOL = 1e-5
+EIGSH_SOLVE_TOL = 1e-6
+EIGSH_F64_TOL = 1e-9
+EIGSH_VS_F64 = 1e-4  # max relative eigenvalue difference, f32 vs f64 and method vs method
+EIGSH_ORTHO = 1e-4  # max |X^T M X - I| of the float32 eigenvectors
+EIGSH_CONTROL_ROUNDS = 3
+EIGSH_REPEATS = 3
+EIGSH_SUBSPACE_REPEATS = 2
+EIGSH_ELAST_N = 128
+EIGSH_ELAST_TOL = 1e-4
+EIGSH_ELAST_VS_F64 = 1e-3
 
 failures: list[str] = []
 # name -> one launch at the benchmark shapes, registered by the phases for
@@ -2938,6 +3022,446 @@ def phase_newton(card, mesh32, mesh64):
     return pd["k2_launches"], pv["k2_launches"]
 
 
+def _profiled(solve, per: int = 1):
+    """One profiled call of ``solve``: (wall ms, device ms, launches,
+    device-to-host copies, kernels by device time, K2's us per launch and
+    launches by dtype: ``{"float32": (us, n), "float64": (us, n)}``, the
+    call's result)."""
+    import torch
+
+    out = []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall = _timed(lambda: out.append(solve()))
+    kernels, device_ms = _device_kernels(prof, per)
+    dtoh = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "Memcpy DtoH" in e.name) / per
+    k2 = {("float64" if "double" in name else "float32"): (us / count, count)
+          for us, count, name in kernels if "bsr_spmv" in name}
+    return 1e3 * wall, device_ms, sum(k[1] for k in kernels), dtoh, kernels, k2, out[0]
+
+
+def _refined_case(tag, first, again, reference, card):
+    """Phase 23 on one problem. ``first()`` builds the float64 basis and the
+    refined solve with ``REFINE_PASSES`` passes and solves once
+    (``bench.RefinedSolve``); ``again(basis, passes)`` is ``solve`` of
+    another refined solver on that basis; ``reference(basis)`` the float64
+    ``compiled_bsr_solver`` solution at ``REFINE_F64_TOL``. Counts reset
+    before each first solve: K2 = sum(inner iterations + 1) launches in
+    float32 plus 1 + passes in float64. Returns the figures and the run."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build, refine
+
+    by_dtype = {torch.float32: 0, torch.float64: 0}
+    plain = refine.bsr_matvec
+
+    def counted(st, values, x):
+        by_dtype[x.dtype] += 1
+        return plain(st, values, x)
+
+    runs = {}
+    for passes in (REFINE_PASSES, 0):
+        by_dtype.update({torch.float32: 0, torch.float64: 0})
+        cuda_build.reset_launch_counts()
+        refine.bsr_matvec = counted
+        try:
+            if passes == REFINE_PASSES:
+                r = first()
+                solve, (u, info) = r.solve, (r.u, r.info)
+            else:
+                solve = again(r.basis, passes)
+                u, info = solve()
+            torch.cuda.synchronize()
+        finally:
+            refine.bsr_matvec = plain
+        k2 = cuda_build.launch_counts["bsr_spmv"]
+        its = list(info.inner_iterations)
+        f32_expected = sum(i + 1 for i in its)
+        check(k2 == f32_expected + 1 + passes
+              and by_dtype == {torch.float32: f32_expected, torch.float64: 1 + passes},
+              f"{tag} refine={passes}: K2 launches {k2} == sum(inner iterations + 1) "
+              f"{f32_expected} in float32 + {1 + passes} in float64 (counted by dtype: "
+              f"{by_dtype[torch.float32]} / {by_dtype[torch.float64]})")
+        runs[passes] = (solve, u, info, k2)
+    V = r.basis
+    u_ref, info_ref = reference(V)
+    torch.cuda.synchronize()
+    check(bool(info_ref.converged), f"{tag}: float64 compiled_bsr_solver at {REFINE_F64_TOL:g} "
+          f"converged in {info_ref.iterations} iterations")
+    err = {p: _rel_err(runs[p][1], u_ref) for p in runs}
+    res = {p: runs[p][2].residuals.tolist() for p in runs}
+    _, u2, info2, _ = runs[REFINE_PASSES]
+    check(bool(torch.isfinite(u2).all()) and u2.dtype == torch.float64
+          and res[REFINE_PASSES][-1] < REFINE_RESIDUAL and bool(info2.converged),
+          f"{tag} refine={REFINE_PASSES}: true float64 residuals {res[REFINE_PASSES]}, the last "
+          f"< {REFINE_RESIDUAL:g}, converged {bool(info2.converged)}")
+    check(err[REFINE_PASSES] <= REFINE_VS_F64, f"{tag} refine={REFINE_PASSES}: max |u - u64| / "
+          f"max |u64| {err[REFINE_PASSES]:.3e} <= {REFINE_VS_F64:g}")
+    check(err[0] > REFINE_VS_F64 and err[0] > 10 * err[REFINE_PASSES],
+          f"{tag} refine=0 (the control): {err[0]:.3e} fails the {REFINE_VS_F64:g} bound and "
+          f"exceeds 10 x the refined {err[REFINE_PASSES]:.3e}")
+    walls = {p: [] for p in runs}
+    for _ in range(REFINE_REPEATS):  # in turns
+        for p in runs:
+            walls[p].append(_timed(runs[p][0]))
+    figures = {"case": tag, "dofs": V.n_dofs, "f64_reference_iterations": info_ref.iterations,
+               "host_s": r.seconds, "card": card}
+    for p in runs:
+        wall_ms, device_ms, launches, dtoh, kernels, k2_us, _ = _profiled(runs[p][0])
+        check(set(k2_us) == {"float32", "float64"}, f"{tag} refine={p}: the profiled solve shows "
+              f"K2 in float32 and float64 on the device ({sorted(k2_us)})")
+        median = 1e3 * float(np.median(walls[p]))
+        figures[f"refine{p}"] = {
+            "inner_iterations": list(runs[p][2].inner_iterations), "true_residuals": res[p],
+            "converged": bool(runs[p][2].converged), "rel_err_vs_f64": err[p],
+            "k2_launches": runs[p][3], "median_wall_ms": median,
+            "walls_ms": [1e3 * w for w in walls[p]], "profiled_wall_ms": wall_ms,
+            "device_ms": device_ms, "idle_share": 1 - device_ms / wall_ms,
+            "launches": launches, "host_reads": dtoh, "k2_us_per_launch_in_solve": k2_us,
+        }
+        log(f"{tag} refine={p}: inner iterations {figures[f'refine{p}']['inner_iterations']}, "
+            f"true residuals {res[p]}, rel err vs f64 {err[p]:.3e}, K2 {runs[p][3]}; median wall "
+            f"{median:.3f} ms over {REFINE_REPEATS}; profiled: wall {wall_ms:.3f} ms, device "
+            f"{device_ms:.3f} ms, idle {1 - device_ms / wall_ms:.3f}, {launches:.0f} launches, "
+            f"{dtoh:.0f} host reads; K2 us per launch in the solve (launches): {k2_us}")
+        log("device ms/solve  launches/solve  kernel")
+        for us, count, name in kernels[:6]:
+            log(f"{us / 1e3:14.4f}  {count:14.1f}  {name[:110]}")
+    return figures, r
+
+
+def phase_refined(card, mesh64):
+    """Phase 23: the mixed-precision refined solve, float32 inner PCG on K2
+    in float32 and the true residual on K2 in float64."""
+    import gc
+
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import (
+        _component_sum_load,
+        _stiffness,
+        _unit_load,
+        refined_dfn,
+        refined_elasticity,
+        vector_laplacian,
+    )
+    from pytorch_fem_solver_tpu_torch.ops.bsr import (
+        bsr_matvec,
+        bsr_values_from_local_symmetric,
+        default_max_b,
+        get_bsr_structure,
+    )
+
+    tag = f"refined DFN h={H}"
+    pd, r = _refined_case(
+        tag, lambda: refined_dfn(mesh64, refine=REFINE_PASSES, tol32=REFINE_TOL32),
+        lambda V, p: V.compiled_refined(_stiffness, _unit_load, refine=p, tol32=REFINE_TOL32),
+        lambda V: V.compiled_solver(_stiffness, _unit_load, tol=REFINE_F64_TOL)(), card)
+    check(pd["dofs"] == EXPECTED_DOFS, f"{tag}: {pd['dofs']} DOFs == {EXPECTED_DOFS}")
+    # K2 against its plain version on the values the refined solve
+    # assembles (float64, and their float32 copy)
+    V = r.basis
+    st = get_bsr_structure(V, max_b=default_max_b(V), want_entry_slot=False)
+    values64 = bsr_values_from_local_symmetric(st, V.integrate_bilinear_form_local(_stiffness))
+    x64 = torch.as_tensor(np.random.default_rng(SEED + 23).standard_normal(st.n_pad),
+                          device=DEVICE)
+    pd["k2_max_abs_err"] = _check_k2(tag, st, values64, x64)
+    # the float64 launch alone, behind the write flush, beside its byte
+    # bound: every stored block (64 doubles) and its column, the two row
+    # tables, x read and y written
+    n_stored = int(st.blk_id_host.size)
+    f64_bytes = n_stored * (64 * 8 + 4) + 2 * st.nb * 4 + 2 * st.n_pad * 8
+    pd["k2_f64_ms"] = time_ms(lambda: bsr_matvec(st, values64, x64))
+    pd["k2_f64_bound_ms"] = 1e3 * f64_bytes / HBM_BYTES_PER_S
+    log(f"{tag}: K2 float64 alone {1e3 * pd['k2_f64_ms']:.3f} us, bound "
+        f"{1e3 * pd['k2_f64_bound_ms']:.3f} us ({f64_bytes / 1e6:.2f} MB over 3.35 TB/s)")
+    del r, V, values64
+
+    def plate_b(V):
+        return V.integrate_linear_form(_component_sum_load)
+
+    tag = f"refined vector Laplacian rectangle({REFINE_ELAST_N}) explicit rhs"
+    pv, r = _refined_case(
+        tag, lambda: refined_elasticity(REFINE_ELAST_N, refine=REFINE_PASSES,
+                                        tol32=REFINE_ELAST_TOL32, device=DEVICE),
+        lambda V, p: (lambda s, b: lambda: s(b))(
+            V.compiled_refined(vector_laplacian, refine=p, tol32=REFINE_ELAST_TOL32), plate_b(V)),
+        lambda V: V.compiled_solver(vector_laplacian, tol=REFINE_F64_TOL)(plate_b(V)), card)
+    try:
+        r.basis.compiled_refined(vector_laplacian, tol32=REFINE_ELAST_TOL32)(
+            plate_b(r.basis).to(torch.float32))
+        rejected = False
+    except ValueError as e:
+        rejected = "f64 right-hand side" in str(e)
+    check(rejected, f"{tag}: a float32 right-hand side is refused")
+    log(json.dumps({"metric": "refined_solves", "refine": REFINE_PASSES, "cases": [pd, pv]},
+                   default=str))
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pd[f"refine{REFINE_PASSES}"]["k2_launches"], pv[f"refine{REFINE_PASSES}"]["k2_launches"]
+
+
+def _m_orthonormality(V, vecs, m_form):
+    """max |X^T M X - I| of the eigenvectors ``vecs`` (n_dofs, k), M the
+    basis's mass form assembled in float64 from its element matrices and
+    applied by K2 in float64."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops.bsr import (
+        bsr_matvec,
+        bsr_reduce,
+        bsr_values_from_local,
+        default_max_b,
+        get_bsr_structure,
+    )
+
+    st = get_bsr_structure(V, max_b=default_max_b(V), want_entry_slot=True)
+    vm = bsr_values_from_local(st, V.integrate_bilinear_form_local(m_form).double())
+    x = torch.stack([bsr_reduce(st, vecs[:, j].double()) for j in range(vecs.shape[1])], dim=1)
+    mx = torch.stack([bsr_matvec(st, vm, c.contiguous()) for c in x.T], dim=1)
+    g = x.T @ mx
+    return float((g - torch.eye(g.shape[0], dtype=g.dtype, device=g.device)).abs().max())
+
+
+def _eigsh_case(tag, run, card, method, twin=None, repeats=EIGSH_REPEATS, tol=EIGSH_TOL,
+                vs_f64=EIGSH_VS_F64):
+    """Phase 24 on one eigensolve. ``run()`` builds the float32 solve and
+    solves once (``bench.EigshRun``), counts reset before it; ``twin(V)``
+    is the float64 LOBPCG solve at ``EIGSH_F64_TOL`` on a float64 basis of
+    the same mesh. Checks: converged (to ``tol``), finite, ascending,
+    M-orthonormal within ``EIGSH_ORTHO``; K2 = 2 m + 6 m x rounds for
+    LOBPCG, 3 m per round plus every inner PCG's iterations + 1 for
+    subspace iteration; the eigenvalues within ``vs_f64`` of the twin's.
+    Returns the figures and the run."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build, eigen
+
+    inner = []
+    plain_pcg = eigen.pcg
+
+    def pcg(*args, **kwargs):
+        x, info = plain_pcg(*args, **kwargs)
+        inner.append(info.iterations)
+        return x, info
+
+    eigen.pcg = pcg
+    try:
+        cuda_build.reset_launch_counts()
+        r = run()
+        torch.cuda.synchronize()
+        k2 = cuda_build.launch_counts["bsr_spmv"]
+        inner_first = list(inner)
+    finally:
+        eigen.pcg = plain_pcg
+    V, (rounds, change, conv) = r.basis, r.info
+    k = r.vals.shape[0]
+    n_inner = int(V._basis_parameters["inner_dofs"].numel())
+    m = min(k + max(2, k // 2), n_inner)
+    vals = r.vals.double().cpu().numpy()
+    check(bool(conv) and bool(torch.isfinite(r.vecs).all()) and bool(np.all(np.diff(vals) >= 0)),
+          f"{tag} {method}: converged in {rounds} rounds (change {float(change):.3e} <= "
+          f"{tol:g}), finite, ascending: {vals.tolist()}")
+    if method == "lobpcg":
+        expected = 2 * m + 6 * m * rounds
+        rule = f"2 m + 6 m x rounds (m={m})"
+    else:
+        expected = 3 * m * rounds + sum(i + 1 for i in inner_first)
+        rule = (f"3 m x rounds + sum(inner iterations + 1) (m={m}, {len(inner_first)} inner "
+                f"solves, {sum(inner_first)} iterations)")
+    check(k2 == expected, f"{tag} {method}: K2 launches {k2} == {rule} = {expected}")
+    ortho = _m_orthonormality(V, r.vecs, r.forms[1])
+    check(ortho <= EIGSH_ORTHO, f"{tag} {method}: max |X^T M X - I| {ortho:.3e} <= {EIGSH_ORTHO:g}")
+    # a solve's rounds vary from solve to solve near the float32 floor
+    # (the assembly's atomics vary the values' last bits), so each timed
+    # and the profiled solve keep their own count
+    walls, walls_rounds = [], []
+    for _ in range(repeats):
+        out = []
+        walls.append(_timed(lambda: out.append(r.solve())))
+        walls_rounds.append(out[0][2][0])
+    wall_ms, device_ms, launches, dtoh, kernels, k2_us, out = _profiled(r.solve)
+    p_rounds = out[2][0]
+    median = 1e3 * float(np.median(walls))
+    figures = {"case": tag, "method": method, "tol": tol, "dofs": V.n_dofs, "inner_dofs": n_inner,
+               "k": k,
+               "m": m, "rounds": rounds, "eig_change": float(change), "vals": vals.tolist(),
+               "m_orthonormality": ortho, "k2_launches": k2, "k2_per_round": k2 / rounds,
+               "median_wall_ms": median, "walls_ms": [1e3 * w for w in walls],
+               "walls_rounds": walls_rounds, "ms_per_round": [1e3 * w / n for w, n in
+                                                              zip(walls, walls_rounds)],
+               "profiled_rounds": p_rounds, "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+               "idle_share": 1 - device_ms / wall_ms, "launches": launches,
+               "launches_per_round": launches / p_rounds, "host_reads": dtoh,
+               "host_reads_per_round": dtoh / p_rounds,
+               "device_ms_per_round": device_ms / p_rounds, "k2_us_per_launch_in_solve": k2_us,
+               "host_s": r.seconds, "card": card}
+    if method == "subspace":
+        figures["inner_iterations_per_round"] = sum(inner_first) / rounds
+    if twin is not None:
+        vals64, _, (rounds64, _, conv64) = twin(V)
+        diff = float(np.max(np.abs(vals - vals64.cpu().numpy()) / np.abs(vals64.cpu().numpy())))
+        check(bool(conv64) and diff <= vs_f64, f"{tag} {method}: f32 eigenvalues within "
+              f"{diff:.3e} <= {vs_f64:g} of the card's float64 LOBPCG ({rounds64} rounds at "
+              f"{EIGSH_F64_TOL:g}, converged {bool(conv64)})")
+        figures.update({"f64_rounds": rounds64, "f32_vs_f64": diff,
+                        "vals_f64": vals64.cpu().tolist()})
+    log(f"{tag} {method}: {rounds} rounds, K2 {k2} ({k2 / rounds:.1f} per round); median wall "
+        f"{median:.3f} ms over {repeats} (rounds {walls_rounds}); profiled ({p_rounds} rounds): "
+        f"wall {wall_ms:.3f} ms, device {device_ms:.3f} ms, idle {1 - device_ms / wall_ms:.3f}, "
+        f"{launches:.0f} launches ({launches / p_rounds:.1f} per round), {dtoh:.0f} host reads "
+        f"({dtoh / p_rounds:.2f} per round); K2 us per launch in the solve (launches): {k2_us}; "
+        f"host s: "
+        + ", ".join(f"{key} {v:.3f}" for key, v in r.seconds.items()))
+    log("device ms/solve  launches/solve  kernel")
+    for us, count, name in kernels[:8]:
+        log(f"{us / 1e3:14.4f}  {count:14.1f}  {name[:110]}")
+    return figures, r
+
+
+def _f64_twin(make_basis, forms, k):
+    """``twin(V32)`` of ``_eigsh_case``: LOBPCG at ``EIGSH_F64_TOL`` on the
+    float64 basis ``make_basis()`` (kept as ``twin.basis``), which shares
+    V32's BSR structure (integer tables only)."""
+    import torch
+
+    def twin(V32):
+        V = make_basis()
+        V._bsr_structures = V32._bsr_structures
+        twin.basis = V
+        out = V.compiled_eigsh(*forms, k=EIGSH_K, tol=EIGSH_F64_TOL)()
+        torch.cuda.synchronize()
+        return out
+
+    return twin
+
+
+def phase_eigsh(card, mesh32, mesh64):
+    """Phase 24: the generalized eigensolvers, LOBPCG and subspace
+    iteration, on the square, the network and the plate, float32 with
+    float64 twins on the card."""
+    import gc
+
+    import torch
+
+    import pytorch_fem_solver_tpu_torch as pt
+    from pytorch_fem_solver_tpu_torch.bench import (
+        _mass,
+        _stiffness,
+        eigsh_dfn,
+        eigsh_elasticity,
+        eigsh_square,
+        modal_elasticity_form,
+        vector_mass,
+    )
+    from pytorch_fem_solver_tpu_torch.ops.bsr import (
+        bsr_diagonal,
+        bsr_matvec,
+        bsr_reduce,
+        bsr_values_from_local,
+        default_max_b,
+        get_bsr_structure,
+    )
+    from pytorch_fem_solver_tpu_torch.ops.eigen import lobpcg_eigsh
+    from pytorch_fem_solver_tpu_torch.ops.precondition import auto_preconditioner
+
+    tag = f"eigsh rectangle({EIGSH_N}, {EIGSH_N})"
+    twin = _f64_twin(lambda: pt.Basis(pt.MeshTri(pt.rectangle(EIGSH_N, EIGSH_N), device=DEVICE,
+                                                 dtype=torch.float64), pt.ElementTri(1, 3)),
+                     (_stiffness, _mass), EIGSH_K)
+    vals64 = {}
+
+    def twin_once(V):
+        if not vals64:
+            vals64["out"] = twin(V)
+        return vals64["out"]
+
+    pl, r = _eigsh_case(tag, lambda: eigsh_square(EIGSH_N, EIGSH_K, tol=EIGSH_TOL, device=DEVICE,
+                                                   dtype=torch.float32),
+                        card, "lobpcg", twin_once)
+    check(pl["dofs"] == EIGSH_DOFS, f"{tag}: {pl['dofs']} DOFs == {EIGSH_DOFS}")
+    V = r.basis
+    ps, _ = _eigsh_case(tag, lambda: _eigsh_again(r, "subspace"), card, "subspace", twin_once,
+                        repeats=EIGSH_SUBSPACE_REPEATS)
+    diff = float(np.max(np.abs(np.array(pl["vals"]) - np.array(ps["vals"]))
+                        / np.abs(np.array(ps["vals"]))))
+    check(diff <= EIGSH_VS_F64, f"{tag}: LOBPCG and subspace eigenvalues within {diff:.3e} <= "
+          f"{EIGSH_VS_F64:g} of each other")
+    # the control: LOBPCG stopped after EIGSH_CONTROL_ROUNDS rounds on the
+    # same operators, preconditioner and start block
+    st = get_bsr_structure(V, max_b=default_max_b(V), want_entry_slot=True)
+    va = bsr_values_from_local(st, V.integrate_bilinear_form_local(_stiffness))
+    vm = bsr_values_from_local(st, V.integrate_bilinear_form_local(_mass))
+    m = pl["m"]
+    rand = torch.as_tensor(np.random.default_rng(0).standard_normal((V.n_dofs, m)),
+                           dtype=V.dtype, device=V.device)
+    x0 = torch.stack([bsr_reduce(st, rand[:, j]) for j in range(m)], dim=1)
+    vals_c, _, (rounds_c, _, conv_c) = lobpcg_eigsh(
+        lambda v: bsr_matvec(st, va, v), lambda v: bsr_matvec(st, vm, v), x0, EIGSH_K,
+        tol=EIGSH_TOL, max_rounds=EIGSH_CONTROL_ROUNDS,
+        precond=auto_preconditioner(V, st, va, bsr_diagonal(st, va)))
+    ref = np.array(pl["vals_f64"])
+    diff_c = float(np.max(np.abs(vals_c.double().cpu().numpy() - ref) / np.abs(ref)))
+    check(not bool(conv_c) and diff_c > EIGSH_VS_F64,
+          f"{tag}: lobpcg_eigsh(max_rounds={EIGSH_CONTROL_ROUNDS}) (the control, {rounds_c} "
+          f"rounds) fails the f32-vs-f64 bound: {diff_c:.3e} > {EIGSH_VS_F64:g}")
+    pl["control_vs_f64"] = diff_c
+    # K2 against its plain version on the eigen structure (full entry
+    # slots) with the stiffness and the mass in float64
+    V64 = twin.basis
+    x64 = torch.as_tensor(np.random.default_rng(SEED + 24).standard_normal(st.n_pad),
+                          device=DEVICE)
+    pl["k2_max_abs_err"] = {
+        name: _check_k2(f"{tag} {name}", st,
+                        bsr_values_from_local(st, V64.integrate_bilinear_form_local(form)), x64)
+        for name, form in (("stiffness", _stiffness), ("mass", _mass))}
+    del r, V, V64, va, vm, x0, twin.basis
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tag = f"eigsh DFN h={H}"
+    pd, r = _eigsh_case(
+        tag, lambda: eigsh_dfn(mesh32, EIGSH_K, tol=EIGSH_TOL), card, "lobpcg",
+        _f64_twin(lambda: pt.FractureNetworkBasis(mesh64, pt.ElementTri(1, 2)),
+                  (_stiffness, _mass), EIGSH_K))
+    check(pd["dofs"] == EXPECTED_DOFS, f"{tag}: {pd['dofs']} DOFs == {EXPECTED_DOFS}")
+    del r
+    tag = f"eigsh elastic modes unit_square(n={EIGSH_ELAST_N})"
+    pe, r = _eigsh_case(
+        tag, lambda: eigsh_elasticity(EIGSH_ELAST_N, EIGSH_K, tol=EIGSH_ELAST_TOL, device=DEVICE,
+                                      dtype=torch.float32), card, "lobpcg",
+        _f64_twin(lambda: pt.VectorBasis(pt.MeshTri(pt.unit_square(n=EIGSH_ELAST_N), device=DEVICE,
+                                                    dtype=torch.float64), pt.ElementTri(1, 2)),
+                  (modal_elasticity_form, vector_mass), EIGSH_K),
+        tol=EIGSH_ELAST_TOL, vs_f64=EIGSH_ELAST_VS_F64)
+    check(pe["inner_dofs"] == NEWTON_ELAST_INNER, f"{tag}: {pe['inner_dofs']} inner DOFs == "
+          f"{NEWTON_ELAST_INNER}")
+    log(json.dumps({"metric": "eigsh_solves", "tol": EIGSH_TOL, "cases": [pl, ps, pd, pe]},
+                   default=str))
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pl["k2_launches"], ps["k2_launches"], pd["k2_launches"], pe["k2_launches"]
+
+
+def _eigsh_again(r, method):
+    """``bench.EigshRun`` of another method on the basis of ``r``."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import EigshRun
+
+    V = r.basis
+    t0 = time.perf_counter()
+    solve = V.compiled_eigsh(*r.forms, k=r.vals.shape[0], method=method, tol=EIGSH_TOL,
+                             solve_tol=EIGSH_SOLVE_TOL)
+    t1 = time.perf_counter()
+    vals, vecs, info = solve()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return EigshRun(vals, vecs, info, {"tables": t1 - t0, "solve": t2 - t1}, V, r.forms, solve)
+
+
 def phase_two_fracture():
     """Phase 10: the two-fracture RVPINN loss and one Adam step on the card,
     against the same port in float64 on the CPU."""
@@ -3146,6 +3670,10 @@ def main() -> int:
     done("21 elasticity")
     newton_dfn_k2, newton_elast_k2 = phase_newton(card, mesh32, mesh64)
     done("22 Newton")
+    refined_dfn_k2, refined_elast_k2 = phase_refined(card, mesh64)
+    done("23 refined")
+    eig_lobpcg_k2, eig_subspace_k2, eig_dfn_k2, eig_elast_k2 = phase_eigsh(card, mesh32, mesh64)
+    done("24 eigen")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
     ) + f"; start to tables {marks[0][1] - t_start:.1f}; total {time.perf_counter() - t_start:.1f}")
@@ -3163,7 +3691,12 @@ def main() -> int:
                               "tet_p1": tet_p1_k2, "tet_p2": tet_p2_k2, "fichera": fichera_k2,
                               "tet_chunked": chunked_k2, "elasticity_2d": elast2_k2,
                               "elasticity_3d": elast3_k2, "newton_dfn": newton_dfn_k2,
-                              "newton_elasticity": newton_elast_k2}
+                              "newton_elasticity": newton_elast_k2,
+                              "refined_dfn": refined_dfn_k2,
+                              "refined_elasticity": refined_elast_k2,
+                              "eigsh_square_lobpcg": eig_lobpcg_k2,
+                              "eigsh_square_subspace": eig_subspace_k2,
+                              "eigsh_dfn": eig_dfn_k2, "eigsh_elasticity": eig_elast_k2}
     k5["launches"] = rvpinn_launches["p1_element_2d"]
     k5["launches_by_path"] = {"rvpinn": rvpinn_launches["p1_element_2d"],
                               "posteriori_rvpinn": posteriori_launches["p1_element_2d"],

@@ -609,6 +609,130 @@ class AbstractBasis(abc.ABC):
 
         return compiled_bsr_solver(self, bilinear_form, linear_form, **kwargs)
 
+    def compiled_refined(self, bilinear_form, linear_form=None, **kwargs):
+        """Mixed-precision refined solve: float32 two-level PCG inner
+        stages and float64 residuals, float64-grade answers from the
+        float32 solver. Needs a float64 basis; the operator and rhs are
+        assembled once, here. Returns ``solve(b=None) -> (u, RefineInfo)``;
+        see :func:`ops.refine.compiled_refined_solver` for options."""
+        from ..ops.refine import compiled_refined_solver
+
+        return compiled_refined_solver(self, bilinear_form, linear_form, **kwargs)
+
+    def compiled_eigsh(self, a_form, m_form, k: int = 6, **kwargs):
+        """Generalized eigensolve on built tables: the counterpart of the
+        JAX one-jit eigensolve (LOBPCG by default). Returns ``solve() ->
+        (vals, vecs, (rounds, eig_change, converged))``; see
+        :func:`ops.compiled.compiled_eigsh_solver` for options."""
+        from ..ops.compiled import compiled_eigsh_solver
+
+        return compiled_eigsh_solver(self, a_form, m_form, k, **kwargs)
+
+    def solve_eigsh(
+        self,
+        a_form: Callable[..., torch.Tensor],
+        m_form: Callable[..., torch.Tensor],
+        k: int = 6,
+        *,
+        tol: float = 1e-9,
+        max_rounds: int = 60,
+        solve_tol: float = 1e-10,
+        precondition: str = "two_level",
+        seed: int = 0,
+        return_info: bool = False,
+        method: str = "subspace",
+    ):
+        """Smallest ``k`` eigenpairs of a(u, v) = λ m(u, v) on the interior
+        (non-Dirichlet) DOFs, both forms symmetric positive definite there.
+
+        On the BSR operators (K2): shift-invert subspace iteration
+        (``ops.eigen.subspace_eigsh``, the default), whose inner A-solves
+        run the preconditioned CG of :meth:`solve_iterative`, or
+        ``method="lobpcg"`` (``ops.eigen.lobpcg_eigsh``, one preconditioner
+        application per column per round, at least 200 rounds allowed).
+        ``precondition``: ``"two_level"`` (``auto_preconditioner``) or
+        ``"jacobi"``. The start block is NumPy's ``default_rng(seed)`` over
+        ``(n_dofs, m)`` in float64, cast to the basis's dtype and reduced
+        per column, m = ``min(k + max(2, k // 2), n_inner)``.
+
+        Returns eigenvalues ascending and M-orthonormal eigenvectors as
+        full DOF vectors (zeros on Dirichlet DOFs), ``(k,)`` and ``(n_dofs,
+        k)``, and with ``return_info`` an ``EighInfo``. On the unit square
+        the Dirichlet Laplace spectrum converges to π^2 (2, 5, 5, 8) at
+        O(h^2).
+        """
+        from ..ops.bsr import (
+            bsr_diagonal,
+            bsr_expand,
+            bsr_matvec,
+            bsr_reduce,
+            bsr_values_from_local,
+            default_max_b,
+            get_bsr_structure,
+        )
+        from ..ops.eigen import EighInfo, lobpcg_eigsh, subspace_eigsh
+
+        if method not in ("subspace", "lobpcg"):
+            raise ValueError(
+                f"unknown method: {method!r} (expected 'subspace' or 'lobpcg')"
+            )
+        # validate before any assembly; the guard block must fit in the
+        # reduced space too, or the projected Gram goes singular
+        n_inner = int(self._basis_parameters["inner_dofs"].numel())
+        if k > n_inner:
+            raise ValueError(f"requested k={k} eigenpairs from an n={n_inner} system")
+        m_block = min(k + max(2, k // 2), n_inner)
+
+        structure = get_bsr_structure(self, max_b=default_max_b(self), want_entry_slot=True)
+        va = bsr_values_from_local(structure, self.integrate_bilinear_form_local(a_form))
+        vm = bsr_values_from_local(structure, self.integrate_bilinear_form_local(m_form))
+        diag = bsr_diagonal(structure, va)
+        precond = None
+        if precondition == "two_level":
+            from ..ops.precondition import auto_preconditioner
+
+            precond = auto_preconditioner(self, structure, va, diag)
+        elif precondition != "jacobi":
+            raise ValueError(
+                f"unknown precondition: {precondition!r} "
+                "(expected 'two_level' or 'jacobi')"
+            )
+
+        # the start block in the padded reduced layout: random on interior
+        # DOFs, exactly zero on padding rows
+        rand = torch.as_tensor(
+            np.random.default_rng(seed).standard_normal((self.n_dofs, m_block)),
+            dtype=self.dtype, device=self.device,
+        )
+        x0 = torch.stack([bsr_reduce(structure, rand[:, j]) for j in range(m_block)], dim=1)
+
+        def a_mv(v):
+            return bsr_matvec(structure, va, v)
+
+        def m_mv(v):
+            return bsr_matvec(structure, vm, v)
+
+        pdiag = None if precond is not None else diag
+        if method == "lobpcg":
+            vals, vecs_pad, (rounds, change, conv) = lobpcg_eigsh(
+                a_mv, m_mv, x0, k, tol=tol, max_rounds=max(max_rounds, 200),
+                precond=precond, precond_diag=pdiag,
+            )
+            info = EighInfo(iterations=rounds, eig_change=float(change), converged=bool(conv))
+        else:
+            vals, vecs_pad, info = subspace_eigsh(
+                a_mv, m_mv, n=x0.shape[0], k=k, n_extra=m_block - k, tol=tol,
+                max_rounds=max_rounds, solve_tol=solve_tol, precond=precond,
+                precond_diag=pdiag, x0=x0, dtype=self.dtype,
+            )
+        vectors = torch.stack(
+            [bsr_expand(structure, vecs_pad[:, j], self.n_dofs)[..., 0] for j in range(k)],
+            dim=1,
+        )
+        if return_info:
+            return vals, vectors, info
+        return vals, vectors
+
     def compiled_newton(self, residual_form, **kwargs):
         """Newton solve on built tables: the counterpart of the JAX
         one-jit Newton (same residual-form contract as

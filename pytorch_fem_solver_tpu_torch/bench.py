@@ -65,6 +65,21 @@ a fracture network) and ``newton_elasticity`` (the strain-stiffening
 elasticity residual of the JAX package's ``tests/test_newton.py``) run
 ``compiled_newton``: jvp Jacobians, BiCGStab on K2 (two launches per
 iteration) and the per-step two-level M.
+
+``refined_dfn`` is ``tools/exp_refine_tpu.py``: the benchmark network's
+stiffness and unit load through ``compiled_refined`` on a float64 basis,
+float32 two-level PCG stages on K2 in float32 and the true residual on K2
+in float64. ``refined_elasticity`` is the explicit-rhs vector case of the
+JAX package's ``tests/test_refine.py`` (the vector Laplacian on
+``rectangle(n, n)``, the rigid-body-mode M) at a given size.
+``eigsh_square`` is the "eigsh" phase of ``tools/exp_solver_tier.py``: the
+smallest Dirichlet Laplace modes on ``rectangle(n, n)`` (P1,
+``ElementTri(1, 3)``; 100,489 DOFs at its n=316) through
+``compiled_eigsh``, LOBPCG or subspace iteration; ``eigsh_dfn`` the same on
+a fracture network and ``eigsh_elasticity`` the elastic modes of the JAX
+package's ``tests/test_eigen.py`` (μ=1, λ=1.5, the vector mass) on
+``unit_square(n=n)``. ``python3 -m pytorch_fem_solver_tpu_torch.bench
+refined H`` and ``eigsh N`` print one JSON line each.
 """
 
 from __future__ import annotations
@@ -85,6 +100,7 @@ from .basis import (
 )
 from .element import ElementLine, ElementTet, ElementTri, ElementTriSurface
 from .mesh import MeshTet, MeshTri, rectangle, unit_cube, unit_square
+from .ops.refine import RefineInfo
 from .mesh.refinement import dorfler_mark
 from .ops.bsr import (
     BSRStructure,
@@ -721,33 +737,256 @@ def newton_elasticity(
     return _newton(make_basis, stiffening_residual, device, tol)
 
 
+# -- mixed-precision refinement and eigensolves --------------------------------
+
+
+class RefinedSolve(NamedTuple):
+    """A refined solve: the solution, the ``RefineInfo``, the host seconds
+    of its parts (``basis``, ``tables``: the float64 assembly and the
+    preconditioner's host tables, ``solve``: the first solve), the basis and
+    ``solve() -> (u, RefineInfo)`` on the built tables."""
+
+    u: torch.Tensor
+    info: RefineInfo
+    seconds: dict
+    basis: object
+    solve: Callable
+
+
+def _refined(make_basis, a_form, l_form, refine, tol32, explicit_rhs=False) -> RefinedSolve:
+    t0 = time.perf_counter()
+    V = make_basis()
+    t1 = _now(V.device)
+    if explicit_rhs:
+        b = V.integrate_linear_form(l_form)
+        solve_b = V.compiled_refined(a_form, refine=refine, tol32=tol32)
+
+        def solve():
+            return solve_b(b)
+    else:
+        solve = V.compiled_refined(a_form, l_form, refine=refine, tol32=tol32)
+    t2 = _now(V.device)
+    u, info = solve()
+    t3 = _now(V.device)
+    return RefinedSolve(
+        u, info, {"basis": t1 - t0, "tables": t2 - t1, "solve": t3 - t2}, V, solve
+    )
+
+
+def refined_dfn(mesh, *, refine: int = 2, tol32: float = 1e-6) -> RefinedSolve:
+    """``tools/exp_refine_tpu.py``: -Δu = 1 on the float64 fracture network
+    ``mesh`` (``FractureNetworkBasis``, ``ElementTri(1, 2)``) through
+    ``compiled_refined`` with ``refine`` passes and the float32 inner
+    tolerance ``tol32``, on the mesh's device;
+    ``build_benchmark_network(h, dtype=torch.float64)`` makes its mesh."""
+    return _refined(
+        lambda: FractureNetworkBasis(mesh, ElementTri(1, 2)), _stiffness, _unit_load,
+        refine, tol32,
+    )
+
+
+def vector_laplacian(basis):
+    """The vector Laplacian ∫ ∇u : ∇v of the JAX package's
+    ``tests/test_refine.py``."""
+    return torch.einsum("...icd,...jcd->...ij", basis.v_grad, basis.v_grad)
+
+
+def _component_sum_load(basis):
+    return basis.v.sum(-1, keepdim=True)
+
+
+def refined_elasticity(
+    n: int, *, refine: int = 2, tol32: float = 1e-5, device=None
+) -> RefinedSolve:
+    """The explicit-rhs vector case of the JAX package's
+    ``tests/test_refine.py`` on ``rectangle(n, n)``: ``VectorBasis``,
+    ``ElementTri(1, 2)``, ``vector_laplacian`` and the load Σ_c v_c,
+    assembled beforehand in float64 and passed to ``solve(b)`` (the
+    rigid-body-mode M). ``device`` defaults to the card."""
+    device = config.resolve_device(device)
+
+    def make_basis():
+        mesh = MeshTri(rectangle(n, n), device=device, dtype=torch.float64)
+        return VectorBasis(mesh, ElementTri(1, 2))
+
+    return _refined(make_basis, vector_laplacian, _component_sum_load, refine, tol32,
+                    explicit_rhs=True)
+
+
+class EigshRun(NamedTuple):
+    """A compiled eigensolve: the eigenvalues, the eigenvectors (n_dofs,
+    k), ``(rounds, eig_change, converged)``, the host seconds of its parts
+    (``basis``, ``tables``, ``solve``: the first solve), the basis, the
+    two forms and ``solve()`` on the built tables."""
+
+    vals: torch.Tensor
+    vecs: torch.Tensor
+    info: tuple
+    seconds: dict
+    basis: object
+    forms: tuple
+    solve: Callable
+
+
+def _mass(basis):
+    return basis.v @ basis.v.mT
+
+
+def _eigsh(make_basis, a_form, m_form, k, **kwargs) -> EigshRun:
+    t0 = time.perf_counter()
+    V = make_basis()
+    t1 = _now(V.device)
+    solve = V.compiled_eigsh(a_form, m_form, k=k, **kwargs)
+    t2 = _now(V.device)
+    vals, vecs, info = solve()
+    t3 = _now(V.device)
+    return EigshRun(vals, vecs, info, {"basis": t1 - t0, "tables": t2 - t1, "solve": t3 - t2},
+                    V, (a_form, m_form), solve)
+
+
+def eigsh_square(
+    n: int = 316, k: int = 6, *, method: str = "lobpcg", tol: float = 1e-5, device=None,
+    dtype: torch.dtype | None = None,
+) -> EigshRun:
+    """The smallest ``k`` Dirichlet Laplace modes on ``rectangle(n, n)``
+    (P1, ``ElementTri(1, 3)``) through ``compiled_eigsh`` (the aggregate
+    two-level M; subspace iteration's inner solves to 1e-6): the "eigsh"
+    phase of ``tools/exp_solver_tier.py`` at its defaults. ``device``
+    defaults to the card, ``dtype`` to ``config.default_dtype()``."""
+    device = config.resolve_device(device)
+    return _eigsh(
+        lambda: Basis(MeshTri(rectangle(n, n), device=device, dtype=dtype), ElementTri(1, 3)),
+        _stiffness, _mass, k, method=method, tol=tol, solve_tol=1e-6,
+    )
+
+
+def eigsh_dfn(mesh, k: int = 6, *, tol: float = 1e-5) -> EigshRun:
+    """The smallest ``k`` modes of the stiffness / mass pencil on the
+    fracture network ``mesh`` (``FractureNetworkBasis``, ``ElementTri(1,
+    2)``) by LOBPCG, on the mesh's device and in its dtype."""
+    return _eigsh(lambda: FractureNetworkBasis(mesh, ElementTri(1, 2)), _stiffness, _mass, k,
+                  tol=tol)
+
+
+def modal_elasticity_form(basis):
+    """The Lamé form of the JAX package's ``tests/test_eigen.py`` elastic
+    modes: μ=1, λ=1.5."""
+    g = basis.v_grad
+    eps = 0.5 * (g + _swap(g))
+    div = _trace(g)
+    return (2.0 * torch.einsum("...icd,...jcd->...ij", eps, eps)
+            + 1.5 * div[..., :, None] * div[..., None, :])
+
+
+def vector_mass(basis):
+    return torch.einsum("...ic,...jc->...ij", basis.v, basis.v)
+
+
+def eigsh_elasticity(
+    n: int, k: int = 6, *, method: str = "lobpcg", tol: float = 1e-5,
+    solve_tol: float = 1e-6, device=None, dtype: torch.dtype | None = None,
+) -> EigshRun:
+    """The smallest ``k`` elastic modes (``modal_elasticity_form``,
+    ``vector_mass``) on ``unit_square(n=n)``, ``VectorBasis`` with
+    ``ElementTri(1, 2)``, through ``compiled_eigsh`` (the rigid-body-mode
+    M)."""
+    device = config.resolve_device(device)
+
+    def make_basis():
+        return VectorBasis(MeshTri(unit_square(n=n), device=device, dtype=dtype), ElementTri(1, 2))
+
+    return _eigsh(make_basis, modal_elasticity_form, vector_mass, k, method=method, tol=tol,
+                  solve_tol=solve_tol)
+
+
 def _coarse_of(basis):
     """(g, na, m) of the basis's cached rigid-body-mode coarse space."""
     (ast,) = basis._affine_two_level_structures.values()
     return ast.g, ast.na, ast.m
 
 
+def _card_line() -> str:
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _walls(solve, device, repeats: int = 3) -> list:
+    walls = []
+    for _ in range(repeats):
+        t0 = _now(device)
+        solve()
+        walls.append(_now(device) - t0)
+    return walls
+
+
+def _main_refined(h: float, device) -> dict:
+    """``refined H``: the network at ``h`` with 0 and 2 passes, each against
+    the float64 ``compiled_bsr_solver`` at tol 1e-12 on the same basis."""
+    from .utils import build_benchmark_network
+
+    mesh = build_benchmark_network(h, device=device, dtype=torch.float64)
+    cases = {}
+    u_ref = None
+    for refine in (0, 2):
+        r = refined_dfn(mesh, refine=refine)
+        if u_ref is None:
+            u_ref, _ = r.basis.compiled_solver(_stiffness, _unit_load, tol=1e-12)()
+        walls = _walls(r.solve, device)
+        cases[f"refine{refine}"] = {
+            "inner_iterations": list(r.info.inner_iterations),
+            "residuals": r.info.residuals.tolist(), "converged": bool(r.info.converged),
+            "rel_err_vs_f64": float((r.u - u_ref).abs().max() / u_ref.abs().max()),
+            "walls_s": walls, "median_wall_s": float(np.median(walls)), "host_s": r.seconds,
+        }
+    return {"h": h, "dofs": r.basis.n_dofs, **cases}
+
+
+def _main_eigsh(n: int, device) -> dict:
+    """``eigsh N``: the square at ``n``, float32, both methods."""
+    cases = {}
+    for method in ("lobpcg", "subspace"):
+        r = eigsh_square(n, method=method, device=device, dtype=torch.float32)
+        rounds, change, conv = r.info
+        walls = _walls(r.solve, device)
+        cases[method] = {
+            "rounds": rounds, "eig_change": float(change), "converged": bool(conv),
+            "vals": r.vals.tolist(), "finite": bool(torch.isfinite(r.vecs).all()),
+            "walls_s": walls, "median_wall_s": float(np.median(walls)), "host_s": r.seconds,
+        }
+    return {"n": n, "dofs": r.basis.n_dofs, **cases}
+
+
 def main(argv=None) -> int:
-    """``tet_poisson N`` (P1) or ``elasticity_3d N`` on the card, float32:
+    """``tet_poisson N`` (P1), ``elasticity_3d N``, ``refined H`` or
+    ``eigsh N`` on the card (float32; the refined solve's basis float64):
     one JSON line."""
     import json
-    import subprocess
     import sys
 
     args = list(sys.argv[1:] if argv is None else argv)
     workloads = {"tet_poisson": (tet_poisson, _sine_load_3d),
                  "elasticity_3d": (elasticity_3d, _bubble_load)}
-    if len(args) != 2 or args[0] not in workloads:
+    if len(args) != 2 or args[0] not in (*workloads, "refined", "eigsh"):
         print("usage: python3 -m pytorch_fem_solver_tpu_torch.bench "
-              "{tet_poisson|elasticity_3d} N", file=sys.stderr)
+              "{tet_poisson|elasticity_3d|eigsh} N | refined H", file=sys.stderr)
         return 2
-    make, load = workloads[args[0]]
-    n = int(args[1])
     device = config.resolve_device(None)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = _card_line()
+    if args[0] == "refined":
+        out = {"metric": "refined_dfn", **_main_refined(float(args[1]), device)}
+    elif args[0] == "eigsh":
+        out = {"metric": "eigsh_square", **_main_eigsh(int(args[1]), device)}
+    else:
+        out = _main_solve(args[0], *workloads[args[0]], int(args[1]), device)
+    print(json.dumps({**out, "card": card}), flush=True)
+    return 0
+
+
+def _main_solve(name, make, load, n, device) -> dict:
     torch.cuda.reset_peak_memory_stats()
     r = make(n, device=device, dtype=torch.float32)
     first_peak = torch.cuda.max_memory_allocated()
@@ -758,21 +997,20 @@ def main(argv=None) -> int:
         walls.append(_now(device) - t0)
     b = r.basis.reduce(r.basis.integrate_linear_form(load))
     extra = {}
-    if args[0] == "elasticity_3d":
+    if name == "elasticity_3d":
         g, na, m = _coarse_of(r.basis)
         extra = {"inner_dofs": int(r.basis._basis_parameters["inner_dofs"].numel()),
                  "g": g, "na": na, "m": m, "coarse": na * m,
                  "l2_error": l2_error(r.basis, u, bubble_exact)}
-    print(json.dumps({
-        "metric": args[0], "n": n, "cells": int(r.basis.v_grad.shape[0]),
+    return {
+        "metric": name, "n": n, "cells": int(r.basis.v_grad.shape[0]),
         "dofs": r.basis.n_dofs, "iterations": info.iterations,
         "rel_residual": float(info.residual_norm / b.norm()),
         "finite": bool(torch.isfinite(u).all()), "walls_s": walls,
         "median_wall_s": float(np.median(walls)), "peak_gib_first_solve": first_peak / 2**30,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "host_s": r.seconds,
-        **extra, "card": card,
-    }), flush=True)
-    return 0
+        **extra,
+    }
 
 
 if __name__ == "__main__":

@@ -4,8 +4,7 @@ the assemble+solve pipeline.
 
 ``__all__`` is the JAX package's less what is still queued in ROADMAP.md:
 the three-level and multiplicative preconditioner families and the
-smoothed matrix-free two-level M (A6), and the refined, eigen and Stokes
-solvers (A5)."""
+smoothed matrix-free two-level M (A6), and the Stokes solvers (A5)."""
 
 from .bsr import (
     bsr_diagonal,
@@ -17,7 +16,8 @@ from .bsr import (
     build_bsr_structure,
     get_bsr_structure,
 )
-from .compiled import compiled_bsr_solver, compiled_newton_solver
+from .compiled import compiled_bsr_solver, compiled_eigsh_solver, compiled_newton_solver
+from .eigen import subspace_eigsh
 from .operators import local_matvec, operator_diagonal, reduced_operator_from_local
 from .precondition import (
     affine_two_level_from_values,
@@ -32,6 +32,7 @@ from .precondition import (
     spatial_aggregates,
     two_level_from_values,
 )
+from .refine import RefineInfo, compiled_refined_solver
 from .solvers import bicgstab, cg, dense_solve, pcg
 from .sparse import (
     build_ell_structure,
@@ -44,12 +45,16 @@ from .sparse import (
 )
 
 __all__ = [
+    "RefineInfo",
     "compiled_bsr_solver",
+    "compiled_eigsh_solver",
     "compiled_newton_solver",
+    "compiled_refined_solver",
     "local_matvec",
     "operator_diagonal",
     "reduced_operator_from_local",
     "bicgstab",
+    "subspace_eigsh",
     "cg",
     "dense_solve",
     "pcg",

@@ -29,15 +29,22 @@ residual norm once per Newton step (and once per halving of a damped
 step), around the jvp Jacobian, the BSR scatter, the preconditioner setup
 and BiCGStab on the SpMV kernel.
 
+``compiled_eigsh_solver`` is the counterpart of the one-jit generalized
+eigensolve: both forms' BSR values, the preconditioner setup and LOBPCG or
+subspace iteration (``ops.eigen``), whose host loops read the stopping test
+once per round.
+
 Not ported yet (ROADMAP.md, B6): reduced-precision preconditioner operands
 and reduced-precision SpMV values.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from .bsr import (
@@ -64,6 +71,7 @@ __all__ = [
     "aggblock_setup",
     "bsr_pcg",
     "compiled_bsr_solver",
+    "compiled_eigsh_solver",
     "compiled_newton_solver",
     "preconditioner_setup",
 ]
@@ -335,10 +343,11 @@ def compiled_bsr_solver(
 
 
 def _bsr_setup(basis, max_b, precondition):
-    """Shared construction of the compiled Newton solve: the full-entry-slot
-    BSR structure (the Jacobians are not symmetric) and the per-step
-    preconditioner setup of ``precondition`` (``preconditioner_setup``),
-    its host tables built once."""
+    """Shared construction of the compiled Newton and eigen solves: the
+    full-entry-slot BSR structure (the Jacobians are not symmetric; the
+    eigen forms are scattered entry by entry, as in the JAX package) and
+    the per-solve preconditioner setup of ``precondition``
+    (``preconditioner_setup``), its host tables built once."""
     if max_b is None:
         max_b = default_max_b(basis)
     st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=True)
@@ -437,5 +446,133 @@ def compiled_newton_solver(
                 res, res_h = rn, rn_h
                 k += 1
         return u, (k, res, res <= target)
+
+    return solve
+
+
+def _mm_precision(precision: Optional[str]):
+    """The float32 matmul precision inside an eigensolve. ``None`` and
+    ``"highest"`` keep full float32 (TF32 stays off, the package's
+    setting); ``"high"`` and ``"default"`` allow TF32 inside the call only,
+    the card's nearest counterpart of the TPU's reduced-precision passes,
+    which the JAX package measured to move float32 eigenvalues by 7.8% at
+    100k DOFs."""
+    if precision is None or precision == "highest":
+        return contextlib.nullcontext()
+    if precision not in ("high", "default"):
+        raise ValueError(
+            f"unknown matmul_precision: {precision!r} (expected None, "
+            "'highest', 'high' or 'default')"
+        )
+
+    @contextlib.contextmanager
+    def tf32():
+        before = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = before
+
+    return tf32()
+
+
+def compiled_eigsh_solver(
+    basis,
+    a_form: Callable,
+    m_form: Callable,
+    k: int = 6,
+    *,
+    tol: float = 1e-9,
+    max_rounds: int = 60,
+    solve_tol: float = 1e-10,
+    solve_maxiter: Optional[int] = None,
+    precondition: str = "two_level",
+    max_b: Optional[int] = None,
+    seed: int = 0,
+    matmul_precision: Optional[str] = "highest",
+    method: str = "lobpcg",
+    lock_tol: Optional[float] = None,
+):
+    """Generalized eigensolve on built tables: the counterpart of the JAX
+    package's one-jit ``compiled_eigsh_solver`` and of
+    :meth:`AbstractBasis.solve_eigsh`.
+
+    Each solve scatters both forms into the BSR layout (full entry slots),
+    sets the preconditioner up from A's values and runs
+    ``method="lobpcg"`` (the default; ``ops.eigen.lobpcg_eigsh`` with
+    ``max_rounds=max(max_rounds, 200)``: one A- and one M-product and one
+    preconditioner application per column per round; ``solve_tol`` and
+    ``solve_maxiter`` are unused) or ``"subspace"``
+    (``ops.eigen.subspace_eigsh_while``: shift-invert subspace iteration,
+    full inner PCG A-solves per column). Both stop on the relative change
+    of the leading ``k`` eigenvalues <= ``tol``. The start block is NumPy's
+    ``default_rng(seed)`` over ``(n_dofs, m)`` in float64, cast to the
+    basis's dtype, with m = ``min(k + max(2, k // 2), n_inner)``.
+
+    Args:
+      precondition: ``"two_level"`` (the aggregate-block M on a scalar
+        basis, the rigid-body-mode M on a vector basis) or ``"jacobi"``.
+      matmul_precision: see ``_mm_precision``.
+
+    Returns ``solve() -> (vals (k,), vecs (n_dofs, k), (rounds,
+    eig_change, converged))``: ``rounds`` a Python int, the other two 0-dim
+    tensors.
+    """
+    from .eigen import lobpcg_eigsh, subspace_eigsh_while
+
+    if precondition not in ("two_level", "jacobi"):
+        raise ValueError(
+            f"unknown precondition: {precondition!r} "
+            "(expected 'two_level' or 'jacobi')"
+        )
+    if method not in ("lobpcg", "subspace"):
+        raise ValueError(
+            f"unknown method: {method!r} (expected 'lobpcg' or 'subspace')"
+        )
+    _mm_precision(matmul_precision)  # an unknown name raises here, before any table
+    n_inner = int(basis._basis_parameters["inner_dofs"].numel())
+    if k > n_inner:
+        raise ValueError(f"requested k={k} eigenpairs from an n={n_inner} system")
+    m_block = min(k + max(2, k // 2), n_inner)
+
+    st, setup = _bsr_setup(
+        basis, max_b, "auto" if precondition == "two_level" else "jacobi"
+    )
+    n_dofs = basis.n_dofs
+    rand = torch.as_tensor(
+        np.random.default_rng(seed).standard_normal((n_dofs, m_block)),
+        dtype=basis.dtype, device=basis.device,
+    )
+
+    def solve():
+        with _mm_precision(matmul_precision):
+            va = bsr_values_from_local(st, basis.integrate_bilinear_form_local(a_form))
+            vm = bsr_values_from_local(st, basis.integrate_bilinear_form_local(m_form))
+            diag = bsr_diagonal(st, va)
+            precond = None if setup is None else setup(va, diag)
+            x0 = torch.stack([bsr_reduce(st, rand[:, j]) for j in range(m_block)], dim=1)
+            common = dict(
+                tol=tol,
+                precond=precond,
+                precond_diag=None if precond is not None else diag,
+            )
+            if method == "lobpcg":
+                vals, vecs_pad, info = lobpcg_eigsh(
+                    lambda v: bsr_matvec(st, va, v),
+                    lambda v: bsr_matvec(st, vm, v),
+                    x0, k, max_rounds=max(max_rounds, 200), lock_tol=lock_tol, **common,
+                )
+            else:
+                vals, vecs_pad, info = subspace_eigsh_while(
+                    lambda v: bsr_matvec(st, va, v),
+                    lambda v: bsr_matvec(st, vm, v),
+                    x0, k, max_rounds=max_rounds, solve_tol=solve_tol,
+                    solve_maxiter=solve_maxiter, **common,
+                )
+            vecs = torch.stack(
+                [bsr_expand(st, vecs_pad[:, j], n_dofs)[..., 0] for j in range(k)], dim=1
+            )
+        return vals, vecs, info
 
     return solve

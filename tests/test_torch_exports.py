@@ -47,11 +47,7 @@ UNPORTED = {
         "mult_two_level_from_values",
         "build_smoothed_two_level",
         "smoothed_two_level_matrix_free",
-        # A5: the refined, eigen and Stokes solvers
-        "compiled_refined_solver",
-        "RefineInfo",
-        "compiled_eigsh_solver",
-        "subspace_eigsh",
+        # A5.4: the Stokes solvers
         "compiled_stokes_solver",
         "stokes_solver",
     },
