@@ -284,7 +284,31 @@ Phases (any failure exits non-zero and prints no result):
     version on the eigen structure (full entry slots) with the stiffness
     and the mass; rounds, K2 launches per round, the median wall, and one
     profiled solve (device ms, launches and host reads per round, the idle
-    share; a JSON ``eigsh_solves`` line).
+    share; a JSON ``eigsh_solves`` line);
+25. Stokes (``compiled_stokes_solver`` through ``stokes_problem`` and
+    ``stokes_solver_of`` of the port's ``bench.py``):
+    ``tools/exp_stokes_breakdown.py``'s Taylor-Hood P2-P1 problem on
+    ``rectangle(115, 115)`` (106,722 velocity and 13,456 pressure DOFs),
+    its float64 truth on the card (tol 1e-9, inner 1e-11, f-solve and
+    recovery 1e-10) and its configurations in float32 at ``inner_maxiter``
+    400: ``base``, ``aggcomp_floor3max1`` (the TPU campaign's
+    recommendation), ``scalar`` (``a_scalar_form``: ``pcg_cols`` on the
+    scalar operator, K2 once per component column), ``aggcomp_k8`` (eight
+    fixed inner iterations, the control) and ``minres``: counts reset
+    before each first solve, K2 launched as the code implies (the sum over
+    the inner PCG calls of iterations + 1, twice that on the scalar path;
+    MINRES iterations + 1 + refreshes + 1 + the recovery's iterations + 1);
+    converged (the control and MINRES, whose float32 flag is false as the
+    JAX package's is on IEEE float32, reported); the velocity's relative
+    L2 error from the truth: base within 2e-4, the other schedules and
+    MINRES within 1.5 x base's, which the control must fail; max |B u| /
+    max |u| within 1e-5 (float64 1e-9); the pressure's lumped-mass mean
+    zero to roundoff; K2 against its plain version through
+    ``bsr_matvec_cols`` in float64 on the vector and the scalar A values;
+    per configuration the median wall of 3 solves and one profiled solve of
+    another right-hand side (no host-to-device copy; device ms, idle
+    share, launches and host reads per outer iteration, K2's us per
+    launch; a JSON ``stokes_solves`` line).
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
@@ -521,6 +545,30 @@ EIGSH_SUBSPACE_REPEATS = 2
 EIGSH_ELAST_N = 128
 EIGSH_ELAST_TOL = 1e-4
 EIGSH_ELAST_VS_F64 = 1e-3
+# phase 25: tools/exp_stokes_breakdown.py's problem, Taylor-Hood P2-P1 on
+# rectangle(115, 115) (106,722 velocity and 13,456 pressure DOFs), its
+# named configurations at inner_maxiter 400 in float32 and its float64
+# truth on the card (tol 1e-9, inner 1e-11, f-solve and recovery 1e-10).
+# The quality bar of the JAX package's campaign (docs/performance.md):
+# base within STOKES_BASE_BAR of the truth (relative L2 of the velocity),
+# the other schedules within STOKES_QUALITY x base's, which the
+# fixed-iteration control (aggcomp_k8) must fail
+STOKES_N = 115
+STOKES_SIZE = (106_722, 13_456)
+STOKES_CONTROL = "aggcomp_k8"
+# float32 MINRES (restart 50) ends with its recomputed true residual a
+# little above the tolerance after the last refresh, so it reports
+# converged=False on IEEE float32, as the JAX package does (its float32
+# MINRES on the CPU at n=64: 112 iterations, 2.06e-6 against a tolerance
+# of 1.65e-6; the port's 112 and 2.07e-6; converged on the TPU at n=115);
+# its flag is reported and its solution is held to the quality bar
+STOKES_UNCONVERGED = ("minres",)
+STOKES_BASE_BAR = 2e-4
+STOKES_QUALITY = 1.5
+STOKES_DIV32 = 1e-5  # max |B u| / max |u|, float32
+STOKES_DIV64 = 1e-9  # the same, float64
+STOKES_MEAN = 32  # |sum(mp p)| <= this x eps x sum(mp |p|): zero to roundoff
+STOKES_REPEATS = 3
 
 failures: list[str] = []
 # name -> one launch at the benchmark shapes, registered by the phases for
@@ -3024,9 +3072,9 @@ def phase_newton(card, mesh32, mesh64):
 
 def _profiled(solve, per: int = 1):
     """One profiled call of ``solve``: (wall ms, device ms, launches,
-    device-to-host copies, kernels by device time, K2's us per launch and
-    launches by dtype: ``{"float32": (us, n), "float64": (us, n)}``, the
-    call's result)."""
+    device-to-host copies, host-to-device copies, kernels by device time,
+    K2's us per launch and launches by dtype: ``{"float32": (us, n),
+    "float64": (us, n)}``, the call's result)."""
     import torch
 
     out = []
@@ -3037,7 +3085,8 @@ def _profiled(solve, per: int = 1):
                and "Memcpy DtoH" in e.name) / per
     k2 = {("float64" if "double" in name else "float32"): (us / count, count)
           for us, count, name in kernels if "bsr_spmv" in name}
-    return 1e3 * wall, device_ms, sum(k[1] for k in kernels), dtoh, kernels, k2, out[0]
+    return (1e3 * wall, device_ms, sum(k[1] for k in kernels), dtoh, _htod_per_solve(prof, per),
+            kernels, k2, out[0])
 
 
 def _refined_case(tag, first, again, reference, card):
@@ -3107,7 +3156,7 @@ def _refined_case(tag, first, again, reference, card):
     figures = {"case": tag, "dofs": V.n_dofs, "f64_reference_iterations": info_ref.iterations,
                "host_s": r.seconds, "card": card}
     for p in runs:
-        wall_ms, device_ms, launches, dtoh, kernels, k2_us, _ = _profiled(runs[p][0])
+        wall_ms, device_ms, launches, dtoh, _, kernels, k2_us, _ = _profiled(runs[p][0])
         check(set(k2_us) == {"float32", "float64"}, f"{tag} refine={p}: the profiled solve shows "
               f"K2 in float32 and float64 on the device ({sorted(k2_us)})")
         median = 1e3 * float(np.median(walls[p]))
@@ -3281,7 +3330,7 @@ def _eigsh_case(tag, run, card, method, twin=None, repeats=EIGSH_REPEATS, tol=EI
         out = []
         walls.append(_timed(lambda: out.append(r.solve())))
         walls_rounds.append(out[0][2][0])
-    wall_ms, device_ms, launches, dtoh, kernels, k2_us, out = _profiled(r.solve)
+    wall_ms, device_ms, launches, dtoh, _, kernels, k2_us, out = _profiled(r.solve)
     p_rounds = out[2][0]
     median = 1e3 * float(np.median(walls))
     figures = {"case": tag, "method": method, "tol": tol, "dofs": V.n_dofs, "inner_dofs": n_inner,
@@ -3460,6 +3509,216 @@ def _eigsh_again(r, method):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     return EigshRun(vals, vecs, info, {"tables": t1 - t0, "solve": t2 - t1}, V, r.forms, solve)
+
+
+def _stokes_k2_rule(name, info):
+    """The K2 launches a Stokes solve implies, and the rule in words."""
+    if name == "minres":
+        its, rec = info.outer_iterations, info.inner_info.iterations
+        return (its + 1 + its // 50 + 1 + rec + 1,
+                f"MINRES iterations + 1 + refreshes + 1 + recovery iterations + 1 = {its} + 1 + "
+                f"{its // 50} + 1 + {rec} + 1")
+    # one product per PCG iteration and one for each inner PCG's start: the
+    # f-solve, the initial Schur apply, one apply per outer iteration, the
+    # recovery; the scalar path launches one per component column
+    columns = 2 if name == "scalar" else 1
+    calls = info.outer_iterations + 3
+    return (columns * (info.inner_total + calls),
+            f"{columns} x (inner_total + outer + 3) = {columns} x ({info.inner_total} + "
+            f"{info.outer_iterations} + 3)")
+
+
+def _stokes_checks(tag, Vu, Vp, u, p, div_bound, control=False):
+    """The discrete divergence max |B u| / max |u| (checked against
+    ``div_bound`` unless ``control``) and the pressure's lumped-mass mean
+    (zero to roundoff); returns both figures."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import stokes_div
+    from pytorch_fem_solver_tpu_torch.ops.saddle import lumped_mass
+
+    local_b = Vp.integrate_mixed_bilinear_form_local(Vu, stokes_div)
+    bu = Vp._assemble_linear_from_local(local_b @ u[:, 0][Vu._global_dofs4elements.long()][..., None])
+    div = float(bu.abs().max() / u.abs().max())
+    if not control:
+        check(div <= div_bound, f"{tag}: max |B u| / max |u| {div:.3e} <= {div_bound:g}")
+    mp, p64 = lumped_mass(Vp).double(), p.double()
+    mean, scale = float((mp * p64).sum()), float((mp * p64.abs()).sum())
+    bound = STOKES_MEAN * torch.finfo(p.dtype).eps * scale
+    check(abs(mean) <= bound, f"{tag}: lumped-mass mean of p {mean:.3e}, |.| <= {STOKES_MEAN} eps "
+          f"sum(mp |p|) = {bound:.3e}")
+    return div, mean / scale
+
+
+def _second_stokes_load(basis):
+    """Another right-hand side: a rotation field plus a constant."""
+    import torch
+
+    pts = basis.integration_points[..., 0, :]
+    f = torch.stack([0.5 - pts[..., 1], pts[..., 0] + 0.25], dim=-1)
+    return (basis.v * f[..., None, :]).sum(-1, keepdim=True)
+
+
+def phase_stokes(card):
+    """Phase 25: Stokes, the nested Schur loop and MINRES on K2, against the
+    card's float64 truth."""
+    import gc
+
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.basis import Basis
+    from pytorch_fem_solver_tpu_torch.bench import (
+        STOKES_CONFIGS,
+        _stiffness,
+        stokes_problem,
+        stokes_solver_of,
+        stokes_viscous,
+    )
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+    from pytorch_fem_solver_tpu_torch.ops.bsr import (
+        _bsr_spmv_cols_plain,
+        bsr_matvec_cols,
+        bsr_values_from_local_symmetric,
+        default_max_b,
+        get_bsr_structure,
+    )
+
+    t0 = time.perf_counter()
+    Vu64, Vp64, f64 = stokes_problem(STOKES_N, device=DEVICE, dtype=torch.float64)
+    Vu, Vp, f = stokes_problem(STOKES_N, device=DEVICE, dtype=torch.float32)
+    f2 = Vu.integrate_linear_form(_second_stokes_load)
+    # the structure is integer tables only, the same for both dtypes
+    get_bsr_structure(Vu, max_b=default_max_b(Vu), want_entry_slot=False)
+    Vu64._bsr_structures = Vu._bsr_structures
+    torch.cuda.synchronize()
+    host_s = {"problems": time.perf_counter() - t0}
+    check((Vu.n_dofs, Vp.n_dofs) == STOKES_SIZE,
+          f"Stokes rectangle({STOKES_N}): {Vu.n_dofs} velocity, {Vp.n_dofs} pressure DOFs == "
+          f"{STOKES_SIZE}")
+
+    # the float64 truth
+    t0 = time.perf_counter()
+    truth = stokes_solver_of(Vu64, Vp64, "truth")
+    host_s["truth_tables"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cuda_build.reset_launch_counts()
+    out = []
+    truth_s = _timed(lambda: out.append(truth(f64)))
+    u_t, p_t, info_t = out[0]
+    k2 = cuda_build.launch_counts["bsr_spmv"]
+    expected, rule = _stokes_k2_rule("truth", info_t)
+    tag = "Stokes float64 truth"
+    check(bool(info_t.converged) and bool(torch.isfinite(u_t).all()),
+          f"{tag}: converged in {info_t.outer_iterations} outer, {info_t.inner_total} inner "
+          f"iterations (recovery {info_t.inner_info.iterations})")
+    check(k2 == expected, f"{tag}: K2 launches {k2} == {rule} = {expected}")
+    div64, mean64 = _stokes_checks(tag, Vu64, Vp64, u_t, p_t, STOKES_DIV64)
+    host_s["truth_solve_and_checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    figures = {"truth": {"outer": info_t.outer_iterations, "inner_total": info_t.inner_total,
+                         "recovery": info_t.inner_info.iterations, "k2_launches": k2,
+                         "wall_ms": 1e3 * truth_s, "div_rel": div64, "mean_rel": mean64}}
+
+    # K2 against its plain version through bsr_matvec_cols, float64: one
+    # column on the vector A values, the two component columns on the
+    # scalar ones
+    rng = np.random.default_rng(SEED + 25)
+    k2_err = 0.0
+    Vs64 = Basis(Vu64.mesh, Vu64._element)
+    for what, V, form, m in (("vector A", Vu64, stokes_viscous, 1),
+                             ("scalar A", Vs64, _stiffness, 2)):
+        st = get_bsr_structure(V, max_b=default_max_b(V), want_entry_slot=False)
+        values = bsr_values_from_local_symmetric(st, V.integrate_bilinear_form_local(form))
+        X = torch.as_tensor(rng.standard_normal((st.n_pad, m)), device=DEVICE)
+        before = cuda_build.launch_counts["bsr_spmv"]
+        Y = bsr_matvec_cols(st, values, X)
+        launched = cuda_build.launch_counts["bsr_spmv"] - before
+        ref = _bsr_spmv_cols_plain(st.bcols, values[0], X, st.bcols2, values[1], st.heavy_rows)
+        torch.cuda.synchronize()
+        err = float((Y - ref).norm() / ref.norm())
+        check(err <= 1e-12 and launched == m,
+              f"K2 Stokes {what} float64 through bsr_matvec_cols ({m} column(s), {launched} "
+              f"launches) vs plain: rel err {err:.3e} <= 1e-12")
+        k2_err = max(k2_err, float((Y - ref).abs().max()))
+    del Vs64
+    figures["k2_max_abs_err_f64"] = k2_err
+    host_s["k2_check"] = time.perf_counter() - t0
+
+    launches_by_path = {}
+    for name in STOKES_CONFIGS:
+        tag = f"Stokes {name}"
+        control = name == STOKES_CONTROL
+        t_config = t0 = time.perf_counter()
+        solve = stokes_solver_of(Vu, Vp, name)
+        torch.cuda.synchronize()
+        tables_s = time.perf_counter() - t0
+        cuda_build.reset_launch_counts()
+        out = []
+        first_s = _timed(lambda: out.append(solve(f)))
+        u, p, info = out[0]
+        k2 = cuda_build.launch_counts["bsr_spmv"]
+        launches_by_path[name] = k2
+        expected, rule = _stokes_k2_rule(name, info)
+        check(k2 == expected, f"{tag}: K2 launches {k2} == {rule} = {expected}")
+        held = not control and name not in STOKES_UNCONVERGED
+        check(bool(torch.isfinite(u).all()) and bool(torch.isfinite(p).all())
+              and (not held or bool(info.converged)),
+              f"{tag}: finite{', converged' if held else ''} ({info.outer_iterations} outer, "
+              f"{info.inner_total} inner, recovery {info.inner_info.iterations}; converged "
+              f"{bool(info.converged)}, true residual {float(info.schur_residual):.3e})")
+        du = float((u.double() - u_t).norm() / u_t.norm())
+        dp = float((p.double() - p_t).norm() / p_t.norm())
+        div, mean = _stokes_checks(tag, Vu, Vp, u, p, STOKES_DIV32, control)
+        walls = [_timed(lambda: solve(f)) for _ in range(STOKES_REPEATS)]
+        # the profiled solve takes another right-hand side on the built tables
+        wall_ms, device_ms, launches, dtoh, htod, kernels, k2_us, (u2, _, info2) = _profiled(
+            lambda: solve(f2))
+        check(htod == 0 and bool(torch.isfinite(u2).all()),
+              f"{tag}: a solve of another right-hand side copies no table to the card "
+              f"({htod:.0f} host-to-device copies), finite")
+        median = 1e3 * float(np.median(walls))
+        outer2 = max(info2.outer_iterations, 1)
+        figures[name] = {
+            "outer": info.outer_iterations, "inner_total": info.inner_total,
+            "recovery": info.inner_info.iterations, "converged": bool(info.converged),
+            "residual": float(info.schur_residual), "du_rel_l2": du, "dp_rel_l2": dp, "div_rel": div, "mean_rel": mean,
+            "k2_launches": k2, "first_wall_ms": 1e3 * first_s, "median_wall_ms": median,
+            "walls_ms": [1e3 * w for w in walls], "tables_s": tables_s,
+            "profiled_outer": info2.outer_iterations, "profiled_inner_total": info2.inner_total,
+            "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": 1 - device_ms / wall_ms, "launches": launches,
+            "launches_per_outer": launches / outer2, "host_reads": dtoh,
+            "host_reads_per_outer": dtoh / outer2, "host_to_device": htod,
+            "k2_us_per_launch_in_solve": k2_us, "seconds": time.perf_counter() - t_config,
+        }
+        log(f"{tag}: {info.outer_iterations} outer, {info.inner_total} inner, recovery "
+            f"{info.inner_info.iterations}, K2 {k2}; du {du:.3e}, dp {dp:.3e} (relative L2 vs the "
+            f"float64 truth), div {div:.3e}; median wall {median:.3f} ms over {STOKES_REPEATS} "
+            f"(first {1e3 * first_s:.3f}); profiled (another rhs, {info2.outer_iterations} outer): "
+            f"wall {wall_ms:.3f} ms, device {device_ms:.3f} ms, idle {1 - device_ms / wall_ms:.3f}, "
+            f"{launches:.0f} launches ({launches / outer2:.1f} per outer), {dtoh:.0f} host reads "
+            f"({dtoh / outer2:.1f} per outer); K2 us per launch in the solve (launches): {k2_us}")
+        log("device ms/solve  launches/solve  kernel")
+        for us, count, kname in kernels[:8]:
+            log(f"{us / 1e3:14.4f}  {count:14.1f}  {kname[:110]}")
+        del solve, u, p, u2
+    base = figures["base"]["du_rel_l2"]
+    check(base <= STOKES_BASE_BAR,
+          f"Stokes base: du {base:.3e} <= {STOKES_BASE_BAR:g} from the float64 truth")
+    for name in ("aggcomp_floor3max1", "scalar", "minres"):
+        du = figures[name]["du_rel_l2"]
+        check(du <= STOKES_QUALITY * base, f"Stokes {name}: du {du:.3e} <= {STOKES_QUALITY} x "
+              f"base's {base:.3e} (the campaign's quality bar)")
+    du = figures[STOKES_CONTROL]["du_rel_l2"]
+    check(du > STOKES_QUALITY * base, f"Stokes {STOKES_CONTROL} (the control): du {du:.3e} fails "
+          f"the bar {STOKES_QUALITY} x base's {base:.3e}")
+    log(json.dumps({"metric": "stokes_solves", "n": STOKES_N, "velocity_dofs": Vu.n_dofs,
+                    "pressure_dofs": Vp.n_dofs, "host_s": host_s, "card": card, **figures},
+                   default=str))
+    del Vu64, Vp64, Vu, Vp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches_by_path
 
 
 def phase_two_fracture():
@@ -3674,6 +3933,8 @@ def main() -> int:
     done("23 refined")
     eig_lobpcg_k2, eig_subspace_k2, eig_dfn_k2, eig_elast_k2 = phase_eigsh(card, mesh32, mesh64)
     done("24 eigen")
+    stokes_k2 = phase_stokes(card)
+    done("25 Stokes")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
     ) + f"; start to tables {marks[0][1] - t_start:.1f}; total {time.perf_counter() - t_start:.1f}")
@@ -3696,7 +3957,11 @@ def main() -> int:
                               "refined_elasticity": refined_elast_k2,
                               "eigsh_square_lobpcg": eig_lobpcg_k2,
                               "eigsh_square_subspace": eig_subspace_k2,
-                              "eigsh_dfn": eig_dfn_k2, "eigsh_elasticity": eig_elast_k2}
+                              "eigsh_dfn": eig_dfn_k2, "eigsh_elasticity": eig_elast_k2,
+                              "stokes_base": stokes_k2["base"],
+                              "stokes_aggcomp": stokes_k2["aggcomp_floor3max1"],
+                              "stokes_scalar": stokes_k2["scalar"],
+                              "stokes_minres": stokes_k2["minres"]}
     k5["launches"] = rvpinn_launches["p1_element_2d"]
     k5["launches_by_path"] = {"rvpinn": rvpinn_launches["p1_element_2d"],
                               "posteriori_rvpinn": posteriori_launches["p1_element_2d"],

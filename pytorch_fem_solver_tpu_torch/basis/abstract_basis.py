@@ -1,16 +1,16 @@
 """Template-method core of the basis/assembly layer.
 
 Counterpart of ``pytorch_fem_solver_tpu/basis/abstract_basis.py``: the
-forms, the dense and iterative solves (BSR, ELL and segment operators, the
-rigid-body-mode preconditioner of vector bases), Newton (eager and
-compiled, the Jacobian by ``torch.func.jvp``), the Gram solvers of RVPINN
-training and the compiled BSR solve. The mixed bilinear forms (Stokes) and
-the refined and eigen solves are queued in ROADMAP.md (queue A5). All
-quadrature-evaluated tensors (shape values, physical gradients, integration
-points, weights, DOF and scatter indices) are computed once at construction
-on the mesh's device; the integrate methods are plain functions of them, and
-the assembled forms are out-of-place scatter-adds that autograd
-differentiates (the VPINN loss differentiates them twice).
+forms (the two-space mixed forms of the Stokes solvers too), the dense and
+iterative solves (BSR, ELL and segment operators, the rigid-body-mode
+preconditioner of vector bases), Newton (eager and compiled, the Jacobian
+by ``torch.func.jvp``), the Gram solvers of RVPINN training, and the
+compiled BSR, refined and eigen solves. All quadrature-evaluated tensors
+(shape values, physical gradients, integration points, weights, DOF and
+scatter indices) are computed once at construction on the mesh's device;
+the integrate methods are plain functions of them, and the assembled forms
+are out-of-place scatter-adds that autograd differentiates (the VPINN loss
+differentiates them twice).
 
 Tensor-shape convention (identical to the JAX package): integrands broadcast
 over trailing dims (..., n_cells, n_quad, n_loc, n_dim).
@@ -133,6 +133,32 @@ class AbstractBasis(abc.ABC):
             self._evaluate_form(function, self, *args, **kwargs) * self._dx
         ).sum(-3)
 
+    def integrate_mixed_bilinear_form_local(
+        self,
+        trial_basis: "AbstractBasis",
+        function: Callable[..., torch.Tensor],
+        *args: Any,
+        **kwargs: Any,
+    ) -> torch.Tensor:
+        """Unassembled two-space element matrices ``(T, n_test_loc,
+        n_trial_loc)``: ``self`` carries the test functions and the
+        quadrature weights, ``trial_basis`` the trial functions; the form
+        receives ``(test_basis, trial_basis, *args)``. Both bases must live
+        on the same mesh object with the same integration order, so their
+        quadrature points coincide. The saddle-point operators of
+        ``ops.saddle`` apply these without assembling the coupling block."""
+        if trial_basis.mesh is not self.mesh:
+            raise ValueError("mixed forms need test and trial bases on the same mesh")
+        if trial_basis._element.integration_order != self._element.integration_order:
+            raise ValueError(
+                "mixed forms need matching integration orders (got "
+                f"{self._element.integration_order} test vs "
+                f"{trial_basis._element.integration_order} trial)"
+            )
+        return (
+            self._evaluate_form(function, self, trial_basis, *args, **kwargs) * self._dx
+        ).sum(-3)
+
     # -- assembly (differentiable scatter-add) ------------------------------
 
     def integrate_bilinear_form(
@@ -160,6 +186,27 @@ class AbstractBasis(abc.ABC):
         return values.new_zeros(n_rows * n_cols).index_add(0, flat, values).reshape(
             n_rows, n_cols
         )
+
+    def integrate_mixed_bilinear_form(
+        self,
+        trial_basis: "AbstractBasis",
+        function: Callable[..., torch.Tensor],
+        *args: Any,
+        **kwargs: Any,
+    ) -> torch.Tensor:
+        """Assembled dense two-space matrix ``(n_test, n_trial)`` of
+        :meth:`integrate_mixed_bilinear_form_local` (same contract and
+        checks; unbatched meshes): local entry (i, j) of a cell adds at
+        (test DOF i, trial DOF j), e.g. the Taylor-Hood coupling B[q, u] =
+        -∫ q div u."""
+        local = self.integrate_mixed_bilinear_form_local(trial_basis, function, *args, **kwargs)
+        rows = self._global_dofs4elements.long()
+        cols = trial_basis._global_dofs4elements.long()
+        n_cols = trial_basis.n_dofs
+        flat = (rows[..., :, None] * n_cols + cols[..., None, :]).reshape(-1)
+        return local.new_zeros(self.n_dofs * n_cols).index_add(
+            0, flat, local.reshape(-1)
+        ).reshape(self.n_dofs, n_cols)
 
     def integrate_linear_form(
         self, function: Callable[..., torch.Tensor], *args: Any, **kwargs: Any

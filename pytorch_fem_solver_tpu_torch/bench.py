@@ -80,6 +80,15 @@ a fracture network and ``eigsh_elasticity`` the elastic modes of the JAX
 package's ``tests/test_eigen.py`` (μ=1, λ=1.5, the vector mass) on
 ``unit_square(n=n)``. ``python3 -m pytorch_fem_solver_tpu_torch.bench
 refined H`` and ``eigsh N`` print one JSON line each.
+
+``stokes_problem`` is ``tools/exp_stokes_breakdown.py``'s problem
+(Taylor-Hood P2-P1 on ``rectangle(n, n)``, the full-gradient viscous form,
+``-q div u``, a solenoidal plus gradient load) and ``stokes_solver_of`` its
+named configurations through ``compiled_stokes_solver``: every inner
+A-solve runs K2 once per PCG iteration (once per column on the scalar
+path). ``python3 -m pytorch_fem_solver_tpu_torch.bench stokes N`` solves
+the float64 truth and every configuration in float32 and prints one JSON
+line.
 """
 
 from __future__ import annotations
@@ -899,6 +908,97 @@ def eigsh_elasticity(
                   solve_tol=solve_tol)
 
 
+# -- Stokes ---------------------------------------------------------------------
+
+
+def stokes_viscous(basis):
+    """The full-gradient viscous form ∫ ∇u : ∇v, component-decoupled: its
+    scalar twin is ``_stiffness``."""
+    return torch.einsum("...icd,...jcd->...ij", basis.v_grad, basis.v_grad)
+
+
+def stokes_div(test_p, trial_u):
+    """The Taylor-Hood coupling B[q, u] = -∫ q div u."""
+    div = _trace(trial_u.v_grad)
+    return -(test_p.v[..., 0][..., :, None] * div[..., None, :])
+
+
+def _stokes_load(basis):
+    """The solenoidal curl of sin(πx) sin(πy) (an O(1) velocity) plus a
+    gradient part (a nontrivial pressure)."""
+    pts = basis.integration_points[..., 0, :]
+    x, y = pts[..., 0], pts[..., 1]
+    s, c, pi = torch.sin, torch.cos, np.pi
+    fx = pi * s(pi * x) * c(pi * y) + 0.3 * s(pi * x)
+    fy = -pi * c(pi * x) * s(pi * y) + 0.3 * y**2
+    return (basis.v * torch.stack([fx, fy], dim=-1)[..., None, :]).sum(-1, keepdim=True)
+
+
+def stokes_problem(n: int = 115, *, device=None, dtype: torch.dtype | None = None):
+    """``tools/exp_stokes_breakdown.py:build_problem``: Taylor-Hood P2-P1 on
+    ``rectangle(n, n)`` (106,722 velocity and 13,456 pressure DOFs at its
+    n=115): ``(Vu, Vp, f)`` with ``VectorBasis(ElementTri(2, 4))``,
+    ``Basis(ElementTri(1, 4))`` and the assembled load. ``device`` defaults
+    to the card, ``dtype`` to ``config.default_dtype()``."""
+    device = config.resolve_device(device)
+    mesh = MeshTri(rectangle(n, n), device=device, dtype=dtype)
+    Vu = VectorBasis(mesh, ElementTri(2, 4))
+    return Vu, Basis(mesh, ElementTri(1, 4)), Vu.integrate_linear_form(_stokes_load)
+
+
+_REC = {"f_solve_tol": 1e-5, "recovery_tol": 1e-5}
+#: the breakdown's named configurations, each with ``inner_maxiter=400``:
+#: the default schedule, the campaign's recommended one, the
+#: component-decoupled scalar A, the fixed-iteration control and MINRES
+STOKES_CONFIGS = {
+    "base": {"tol": 1e-5, "inner_tol": 1e-6},
+    "aggcomp_floor3max1": {"tol": 1e-5, "inner_tol": 1e-3, "inner_tol_max": 1e-1,
+                           "precondition": "agg_comp", **_REC},
+    "scalar": {"tol": 1e-5, "inner_tol": 1e-6, "a_scalar_form": _stiffness, **_REC},
+    "aggcomp_k8": {"tol": 1e-5, "precondition": "agg_comp", "inner_iters": 8, **_REC},
+    "minres": {"tol": 1e-5, "inner_tol": 1e-6, "method": "minres"},
+}
+STOKES_INNER_MAXITER = 400
+#: the breakdown's float64 truth
+STOKES_TRUTH = {"tol": 1e-9, "inner_tol": 1e-11, "f_solve_tol": 1e-10, "recovery_tol": 1e-10}
+
+
+def stokes_solver_of(Vu, Vp, config_name: str):
+    """``compiled_stokes_solver`` of a named configuration (``"truth"`` or
+    a key of ``STOKES_CONFIGS``) on the problem's bases."""
+    from .ops.compiled import compiled_stokes_solver
+
+    if config_name == "truth":
+        kw = STOKES_TRUTH
+    else:
+        kw = {**STOKES_CONFIGS[config_name], "inner_maxiter": STOKES_INNER_MAXITER}
+    return compiled_stokes_solver(Vu, Vp, stokes_viscous, stokes_div, **kw)
+
+
+def _main_stokes(n: int, device) -> dict:
+    """``stokes N``: the float64 truth, then every configuration in
+    float32: counts, walls and the relative L2 errors against the truth."""
+    Vu64, Vp64, f64 = stokes_problem(n, device=device, dtype=torch.float64)
+    t0 = _now(device)
+    u_t, p_t, info_t = stokes_solver_of(Vu64, Vp64, "truth")(f64)
+    truth_s = _now(device) - t0
+    Vu, Vp, f = stokes_problem(n, device=device, dtype=torch.float32)
+    cases = {"truth": {"outer": info_t.outer_iterations, "inner_total": info_t.inner_total,
+                       "converged": bool(info_t.converged), "wall_s": truth_s}}
+    for name in STOKES_CONFIGS:
+        solve = stokes_solver_of(Vu, Vp, name)
+        u, p, info = solve(f)
+        walls = _walls(lambda: solve(f), device)
+        cases[name] = {
+            "outer": info.outer_iterations, "inner_total": info.inner_total,
+            "recovery": info.inner_info.iterations, "converged": bool(info.converged),
+            "du_rel_l2": float((u.double() - u_t).norm() / u_t.norm()),
+            "dp_rel_l2": float((p.double() - p_t).norm() / p_t.norm()),
+            "walls_s": walls, "median_wall_s": float(np.median(walls)),
+        }
+    return {"n": n, "velocity_dofs": Vu.n_dofs, "pressure_dofs": Vp.n_dofs, **cases}
+
+
 def _coarse_of(basis):
     """(g, na, m) of the basis's cached rigid-body-mode coarse space."""
     (ast,) = basis._affine_two_level_structures.values()
@@ -961,18 +1061,18 @@ def _main_eigsh(n: int, device) -> dict:
 
 
 def main(argv=None) -> int:
-    """``tet_poisson N`` (P1), ``elasticity_3d N``, ``refined H`` or
-    ``eigsh N`` on the card (float32; the refined solve's basis float64):
-    one JSON line."""
+    """``tet_poisson N`` (P1), ``elasticity_3d N``, ``refined H``,
+    ``eigsh N`` or ``stokes N`` on the card (float32; the refined solve's
+    basis and the Stokes truth float64): one JSON line."""
     import json
     import sys
 
     args = list(sys.argv[1:] if argv is None else argv)
     workloads = {"tet_poisson": (tet_poisson, _sine_load_3d),
                  "elasticity_3d": (elasticity_3d, _bubble_load)}
-    if len(args) != 2 or args[0] not in (*workloads, "refined", "eigsh"):
+    if len(args) != 2 or args[0] not in (*workloads, "refined", "eigsh", "stokes"):
         print("usage: python3 -m pytorch_fem_solver_tpu_torch.bench "
-              "{tet_poisson|elasticity_3d|eigsh} N | refined H", file=sys.stderr)
+              "{tet_poisson|elasticity_3d|eigsh|stokes} N | refined H", file=sys.stderr)
         return 2
     device = config.resolve_device(None)
     card = _card_line()
@@ -980,6 +1080,8 @@ def main(argv=None) -> int:
         out = {"metric": "refined_dfn", **_main_refined(float(args[1]), device)}
     elif args[0] == "eigsh":
         out = {"metric": "eigsh_square", **_main_eigsh(int(args[1]), device)}
+    elif args[0] == "stokes":
+        out = {"metric": "stokes", **_main_stokes(int(args[1]), device)}
     else:
         out = _main_solve(args[0], *workloads[args[0]], int(args[1]), device)
     print(json.dumps({**out, "card": card}), flush=True)

@@ -4,7 +4,7 @@ the assemble+solve pipeline.
 
 ``__all__`` is the JAX package's less what is still queued in ROADMAP.md:
 the three-level and multiplicative preconditioner families and the
-smoothed matrix-free two-level M (A6), and the Stokes solvers (A5)."""
+smoothed matrix-free two-level M (A6)."""
 
 from .bsr import (
     bsr_diagonal,
@@ -16,7 +16,12 @@ from .bsr import (
     build_bsr_structure,
     get_bsr_structure,
 )
-from .compiled import compiled_bsr_solver, compiled_eigsh_solver, compiled_newton_solver
+from .compiled import (
+    compiled_bsr_solver,
+    compiled_eigsh_solver,
+    compiled_newton_solver,
+    compiled_stokes_solver,
+)
 from .eigen import subspace_eigsh
 from .operators import local_matvec, operator_diagonal, reduced_operator_from_local
 from .precondition import (
@@ -33,6 +38,7 @@ from .precondition import (
     two_level_from_values,
 )
 from .refine import RefineInfo, compiled_refined_solver
+from .saddle import stokes_solver
 from .solvers import bicgstab, cg, dense_solve, pcg
 from .sparse import (
     build_ell_structure,
@@ -50,6 +56,8 @@ __all__ = [
     "compiled_eigsh_solver",
     "compiled_newton_solver",
     "compiled_refined_solver",
+    "compiled_stokes_solver",
+    "stokes_solver",
     "local_matvec",
     "operator_diagonal",
     "reduced_operator_from_local",

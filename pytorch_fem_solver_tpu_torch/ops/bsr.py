@@ -10,7 +10,9 @@ Host-side structure building is NumPy, byte-identical to the JAX package
 (same ``spatial_order``, same native pair-rank kernel or NumPy fallback);
 the finished tables move to the device once. The per-iteration SpMV is the
 hand-written CUDA kernel ``csrc/bsr_spmv.cu`` (``bsr_spmv``), with its plain
-PyTorch version (``_bsr_spmv_plain``) beside it for CPU tensors.
+PyTorch version (``_bsr_spmv_plain``) beside it for CPU tensors. The
+multi-column product of the Stokes solvers (``bsr_matvec_cols``) launches
+it once per column on the card.
 """
 
 from __future__ import annotations
@@ -472,6 +474,43 @@ def bsr_matvec(structure: BSRStructure, values, x):
     )
 
 
+def _bsr_spmv_cols_plain(bcols, v1, X, bcols2, v2, heavy_rows):
+    """Plain version of K2 on an (n_pad, m) block: the JAX
+    ``bsr_matvec_cols`` (two einsums over the column axis and the tier-2
+    rows added back at ``heavy_rows``)."""
+    nb, _, k, _ = v1.shape
+    m = X.shape[-1]
+    x2 = X.reshape(nb, k, m)
+    y = torch.einsum("rij,rjm->rim", v1[:, 0], x2)
+    y = y + torch.einsum("rbij,rbjm->rim", v1[:, 1:], x2[bcols[:, 1:].long()])
+    if heavy_rows.shape[0]:
+        y2 = torch.einsum("rbij,rbjm->rim", v2, x2[bcols2.long()])
+        y = y.index_add(0, heavy_rows.long(), y2)
+    return y.reshape(-1, m)
+
+
+def bsr_matvec_cols(structure: BSRStructure, values, X):
+    """Y = A @ X for a multi-column operand X (n_pad, m): the
+    component-decoupled Stokes A block, the scalar operator on the
+    ``n_components`` columns at once.
+
+    CPU tensors take ``_bsr_spmv_cols_plain``. CUDA tensors launch K2 once
+    per column, on a contiguous copy of it (``bsr_matvec``); a kernel that
+    reads the values once for all m columns is queued (ROADMAP.md, B8).
+    """
+    v1, _ = values
+    if v1.dtype != X.dtype:
+        raise NotImplementedError(
+            f"BSR values in {v1.dtype} with X in {X.dtype}: reduced-precision "
+            "value storage is not ported yet (ROADMAP.md, queue B6)"
+        )
+    if X.device.type == "cpu":
+        return _bsr_spmv_cols_plain(
+            structure.bcols, v1, X, structure.bcols2, values[1], structure.heavy_rows
+        )
+    return torch.stack([bsr_matvec(structure, values, c) for c in X.T.contiguous()], dim=1)
+
+
 def bsr_diagonal(structure: BSRStructure, values):
     """Operator diagonal (own block is always at b=0); padded rows -> 0."""
     return torch.diagonal(values[0][:, 0], dim1=-2, dim2=-1).reshape(-1)
@@ -481,6 +520,19 @@ def bsr_reduce(structure: BSRStructure, b):
     """Full load vector (n_dofs,...) -> permuted padded reduced rhs (n_pad,)."""
     red = b.reshape(-1)[structure.inner_perm_index]
     return torch.nn.functional.pad(red, (0, structure.n_pad - structure.n_inner))
+
+
+def bsr_reduce_cols(structure: BSRStructure, B):
+    """Multi-column twin of :func:`bsr_reduce`: (n_dofs, m) -> (n_pad, m)."""
+    red = B[structure.inner_perm_index]
+    return torch.nn.functional.pad(red, (0, 0, 0, structure.n_pad - structure.n_inner))
+
+
+def bsr_expand_cols(structure: BSRStructure, X, n_dofs: int):
+    """Multi-column twin of :func:`bsr_expand`: (n_pad, m) -> (n_dofs, m)."""
+    full = X.new_zeros((n_dofs, X.shape[-1]))
+    full[structure.inner_perm_index] = X[: structure.n_inner]
+    return full
 
 
 def inverse_inner_perm(

@@ -34,6 +34,12 @@ eigensolve: both forms' BSR values, the preconditioner setup and LOBPCG or
 subspace iteration (``ops.eigen``), whose host loops read the stopping test
 once per round.
 
+``compiled_stokes_solver`` is the counterpart of the one-jit Stokes solve:
+the host tables (the velocity BSR structure, the coarse space, the mixed B
+element matrices, the lumped pressure mass) once at construction; A's
+values, the preconditioner and the nested Schur loop (``ops.saddle``) or
+MINRES per solve, every A product on K2.
+
 Not ported yet (ROADMAP.md, B6): reduced-precision preconditioner operands
 and reduced-precision SpMV values.
 """
@@ -55,6 +61,7 @@ from .bsr import (
     bsr_reduce,
     bsr_values_from_chunks_symmetric,
     bsr_values_from_local,
+    bsr_values_from_local_symmetric,
     default_max_b,
     get_bsr_structure,
     inverse_inner_perm,
@@ -73,6 +80,7 @@ __all__ = [
     "compiled_bsr_solver",
     "compiled_eigsh_solver",
     "compiled_newton_solver",
+    "compiled_stokes_solver",
     "preconditioner_setup",
 ]
 
@@ -576,3 +584,439 @@ def compiled_eigsh_solver(
         return vals, vecs, info
 
     return solve
+
+
+def _stokes_couplings(Vu, Vp, b_form, mass_form, u_dofs):
+    """The per-solve-independent parts of a Stokes solve, built once on the
+    bases' device: ``apply_b`` (B u, (n_u, 1) -> (n_p, 1), from the mixed
+    element matrices gathered at ``u_dofs``), ``project_mean`` (the
+    constant pressure mode removed in the lumped-mass inner product),
+    ``inv_lump`` and ``mp_total``, and the local B^T."""
+    from .saddle import lumped_mass
+
+    local_b = Vp.integrate_mixed_bilinear_form_local(Vu, b_form)
+    mp_lumped = lumped_mass(Vp, mass_form)
+    mp_total = mp_lumped.sum()
+    u_dofs = u_dofs.long()
+
+    def apply_b(u_vec):
+        return Vp._assemble_linear_from_local(local_b @ u_vec[:, 0][u_dofs][..., None])
+
+    def project_mean(p_vec):
+        return p_vec - (mp_lumped * p_vec).sum() / mp_total
+
+    return apply_b, project_mean, 1.0 / mp_lumped[:, 0], mp_total, local_b.mT
+
+
+def compiled_stokes_solver(
+    velocity_basis,
+    pressure_basis,
+    a_form: Callable,
+    b_form: Callable,
+    *,
+    tol: float = 1e-8,
+    maxiter: Optional[int] = None,
+    inner_tol: float = 1e-11,
+    inner_maxiter: Optional[int] = None,
+    precondition: str = "auto",
+    mass_form: Optional[Callable] = None,
+    max_b: Optional[int] = None,
+    operand_dtype=None,
+    matmul_precision: Optional[str] = "highest",
+    method: str = "schur",
+    minres_restart: Optional[int] = 50,
+    inner_eta: float = 0.1,
+    inner_tol_max: float = 1e-2,
+    f_solve_tol: Optional[float] = None,
+    recovery_tol: Optional[float] = None,
+    inner_iters: Optional[int] = None,
+    a_scalar_form: Optional[Callable] = None,
+):
+    """Stokes solve on built tables: the counterpart of the JAX package's
+    one-jit ``compiled_stokes_solver`` (same math, same contracts, same
+    signature and defaults).
+
+    Construction builds the host tables once: the BSR structure of the
+    velocity basis (canonical-pair slots only), the affine coarse space
+    (``mode_kind="rbm"``, or ``"components"`` for ``"agg_comp"``), the
+    aggregate table of the aggregate-block smoother, the mixed element
+    matrices of B and the lumped pressure mass. Each ``solve(f, g=None,
+    x0=None)`` then runs on the bases' device: A's BSR values, the
+    preconditioner setup, and the Schur or MINRES loop on K2.
+
+    Args:
+      method: ``"schur"`` (the flexible outer CG of
+        ``ops.saddle.schur_flexible_cg`` with warm-started inner A-solves at
+        the relaxed tolerance ``clip(inner_eta * tol * ||r_0|| / ||r_k||,
+        inner_tol, inner_tol_max)``) or ``"minres"`` (block-diagonally
+        preconditioned MINRES on the whole saddle system, with a true
+        residual every ``minres_restart`` iterations, then one velocity
+        recovery solve to ``inner_tol``).
+      precondition: the A-block preconditioner: ``"auto"`` (the
+        aggregate-block two-level M on a scalar basis, the rigid-body-mode
+        one with the 8x8 block-Jacobi smoother on a vector basis),
+        ``"agg_rbm"`` / ``"agg_comp"`` (the rigid-body-mode or
+        component-indicator coarse space with the aggregate-block smoother,
+        gs = min(g, 128)) or ``"jacobi"``.
+      inner_maxiter: cap of the inner and recovery A-solves (default
+        max(10 n, 100)).
+      f_solve_tol, recovery_tol: the tolerances of the one initial f-solve
+        and the one final velocity recovery (default ``inner_tol``).
+      inner_iters: every Schur-apply inner solve runs exactly this many PCG
+        iterations (tol 0) instead of solving to a tolerance; fast but
+        floors the attainable accuracy (the JAX package's measurements).
+      a_scalar_form: declares the viscous block component-decoupled: the
+        scalar form whose operator, applied per velocity component, equals
+        ``a_form``. Every inner solve then runs ``pcg_cols`` on the scalar
+        operator of the companion scalar basis with the components as
+        columns (schur method only; the caller owns the claim).
+      operand_dtype: reduced-precision preconditioner operands are not
+        ported (ROADMAP.md, B6); anything but None raises.
+      matmul_precision: see ``_mm_precision``.
+
+    Returns ``solve(f, g=None, x0=None) -> (u, p, StokesInfo)``; the
+    pressure has zero lumped-mass mean. ``StokesInfo.outer_iterations`` and
+    ``inner_total`` are ints (``inner_total`` None for MINRES).
+    """
+    from .precondition import affine_two_level_from_values, get_affine_two_level_structure
+    from .saddle import StokesInfo, schur_flexible_cg
+    from .solvers import minres
+
+    if precondition not in ("auto", "jacobi", "agg_rbm", "agg_comp"):
+        raise ValueError(
+            f"unknown precondition: {precondition!r} "
+            "(expected 'auto', 'agg_rbm', 'agg_comp' or 'jacobi')"
+        )
+    if method not in ("minres", "schur"):
+        raise ValueError(f"unknown method: {method!r} (expected 'minres' or 'schur')")
+    if operand_dtype is not None:
+        raise NotImplementedError(
+            "operand_dtype: reduced-precision preconditioner operands are not "
+            "ported yet (ROADMAP.md, queue B6)"
+        )
+    _mm_precision(matmul_precision)  # an unknown name raises here, before any table
+    common = dict(
+        tol=tol, maxiter=maxiter, inner_tol=inner_tol, inner_maxiter=inner_maxiter,
+        mass_form=mass_form, max_b=max_b, matmul_precision=matmul_precision,
+        inner_eta=inner_eta, inner_tol_max=inner_tol_max, f_solve_tol=f_solve_tol,
+        recovery_tol=recovery_tol, inner_iters=inner_iters,
+    )
+    if a_scalar_form is not None:
+        if method != "schur":
+            raise ValueError("a_scalar_form requires method='schur'")
+        return _compiled_stokes_scalar_a(
+            velocity_basis, pressure_basis, a_scalar_form, b_form,
+            precondition=precondition, **common,
+        )
+    Vu, Vp = velocity_basis, pressure_basis
+    if max_b is None:
+        max_b = default_max_b(Vu)
+    st = get_bsr_structure(Vu, max_b=max_b, want_entry_slot=False)
+
+    is_vector = int(getattr(Vu, "n_components", 1)) >= 2
+    ast = agg_table = None
+    g_agg = gs = None
+    if precondition != "jacobi":
+        if is_vector:
+            ast = get_affine_two_level_structure(
+                Vu, st, mode_kind="components" if precondition == "agg_comp" else "rbm"
+            )
+            if precondition in ("agg_rbm", "agg_comp"):
+                # for agg_comp the smoother aggregate follows the coarse
+                # aggregate of the component space
+                gs = (
+                    min(ast.W.shape[1], 128)
+                    if precondition == "agg_comp"
+                    else min(default_aggregate_size(st), 128)
+                )
+        else:
+            g_agg = default_aggregate_size(st)
+            gs = min(g_agg, 128)
+        if gs is not None:
+            agg_table = torch.as_tensor(build_agg_block_table(st, gs), device=Vu.device)
+
+    apply_b, project_mean, inv_lump, mp_total, local_bt = _stokes_couplings(
+        Vu, Vp, b_form, mass_form, Vu._global_dofs4elements
+    )
+    p_dofs = Vp._global_dofs4elements.long()
+    n_u, n_p = Vu.n_dofs, Vp.n_dofs
+
+    def apply_bt(p_vec):
+        return Vu._assemble_linear_from_local(local_bt @ p_vec[:, 0][p_dofs][..., None])
+
+    def preconditioner(values, diag):
+        if precondition == "jacobi":
+            return None
+        if not is_vector:
+            return agg_block_two_level_from_values(
+                st, values, diag, g=g_agg, gs=gs, table=agg_table
+            )
+        return affine_two_level_from_values(
+            ast, st, values, diag,
+            fine="block_jacobi" if precondition == "auto" else "agg_block",
+            gs=gs, agg_table=agg_table,
+        )
+
+    def _run(f, g, x0):
+        values = bsr_values_from_local_symmetric(st, Vu.integrate_bilinear_form_local(a_form))
+        diag = bsr_diagonal(st, values)
+        precond = preconditioner(values, diag)
+
+        def matvec(v):
+            return bsr_matvec(st, values, v)
+
+        def solve_a_reduced(rhs_red, x0_red, tol_inner, maxiter_inner=inner_maxiter):
+            """Inner A-solve in the reduced padded layout from ``x0_red`` to
+            the relative tolerance ``tol_inner`` (a float or a 0-dim tensor)."""
+            return pcg(matvec, rhs_red, x0=x0_red, precond_diag=diag, precond=precond,
+                       tol=tol_inner, maxiter=maxiter_inner)
+
+        if method == "minres":
+            # the whole saddle system, block-diagonal preconditioner: one
+            # A-preconditioner application per iteration; the velocity block
+            # in the reduced padded layout, where bsr_reduce / bsr_expand are
+            # exact adjoints, so K stays symmetric
+            nr = st.n_pad
+            safe_diag = torch.where(diag != 0, diag, torch.ones_like(diag))
+            precond_u = precond if precond is not None else (lambda r: r / safe_diag)
+
+            def k_op(xall):
+                xu, xp = xall[:nr], xall[nr:]
+                yu = matvec(xu) + bsr_reduce(st, apply_bt(xp[:, None]))
+                yp = apply_b(bsr_expand(st, xu, n_u))[:, 0]
+                return torch.cat([yu, yp])
+
+            def p_op(rall):
+                ru, rp = rall[:nr], rall[nr:]
+                # the pressure block: the mean-projected lumped-mass inverse
+                zp = inv_lump * rp - torch.sum(rp) / mp_total
+                return torch.cat([precond_u(ru), zp])
+
+            rhs = torch.cat([bsr_reduce(st, f), g[:, 0]])
+            xall, mr_info = minres(
+                k_op, rhs, x0=torch.cat([rhs.new_zeros(nr), x0]), precond=p_op, tol=tol,
+                maxiter=maxiter, restart=minres_restart,
+            )
+            p = project_mean(xall[nr:][:, None])
+            # the velocity recovery at inner_tol, from zero
+            x, info_u = solve_a_reduced(bsr_reduce(st, f - apply_bt(p)), None, inner_tol)
+            info = StokesInfo(
+                outer_iterations=mr_info.iterations,
+                schur_residual=mr_info.residual_norm,
+                converged=mr_info.converged,
+                inner_info=info_u,
+            )
+            return bsr_expand(st, x, n_u), p, info
+
+        if inner_iters is None:
+            solve_a_schur = solve_a_reduced
+        else:
+            # fixed-iteration inexact applies: tol 0 never meets the
+            # residual test (but on an exactly zero rhs)
+            def solve_a_schur(rhs_red, x0_red, tol_inner):
+                return solve_a_reduced(rhs_red, x0_red, 0.0, inner_iters)
+
+        zeros_red = f.new_zeros(st.n_pad)
+        u_f_red, info_f = solve_a_reduced(
+            bsr_reduce(st, f), zeros_red, f_solve_tol if f_solve_tol is not None else inner_tol
+        )
+        rhs_p = project_mean(apply_b(bsr_expand(st, u_f_red, n_u)) - g)
+        outer_cap = maxiter if maxiter is not None else 10 * n_p
+        p_flat, res_fin, k_out, atol, inner_schur, u_bt = schur_flexible_cg(
+            rhs_p[:, 0],
+            x0,
+            apply_bt_w=lambda d: bsr_reduce(st, apply_bt(d[:, None])),
+            solve_a=solve_a_schur,
+            schur_out=lambda y: project_mean(apply_b(bsr_expand(st, y, n_u)))[:, 0],
+            precond_p=lambda r: project_mean((inv_lump * r)[:, None])[:, 0],
+            dot_w=lambda a, b: torch.sum(a * b),
+            zeros_red=zeros_red,
+            tol=tol,
+            inner_tol=inner_tol,
+            inner_eta=inner_eta,
+            inner_tol_max=inner_tol_max,
+            outer_cap=outer_cap,
+        )
+        p = project_mean(p_flat[:, None])
+        # the velocity recovery, warm-started from the outer CG's free
+        # by-product u_f - u_bt ~ A^{-1}(f - B^T p)
+        u_red, info_u = solve_a_reduced(
+            bsr_reduce(st, f - apply_bt(p)),
+            u_f_red - u_bt,
+            recovery_tol if recovery_tol is not None else inner_tol,
+        )
+        info = StokesInfo(
+            outer_iterations=k_out,
+            schur_residual=res_fin,
+            converged=res_fin <= atol,
+            inner_info=info_u,
+            inner_total=info_f.iterations + inner_schur + info_u.iterations,
+        )
+        return bsr_expand(st, u_red, n_u), p, info
+
+    return _stokes_entry(_run, Vp, matmul_precision)
+
+
+def _stokes_entry(run, Vp, matmul_precision):
+    """``solve(f, g=None, x0=None)`` of a compiled Stokes solve: a zero
+    ``g`` and ``x0`` by default, on the pressure basis's device and in its
+    dtype, made once; ``x0`` is (n_p, 1)."""
+    zero_g = Vp.solution_tensor()
+    zero_x0 = zero_g[:, 0]
+
+    def solve(f, g=None, x0=None):
+        with _mm_precision(matmul_precision):
+            return run(f, zero_g if g is None else g, zero_x0 if x0 is None else x0[:, 0])
+
+    return solve
+
+
+def _compiled_stokes_scalar_a(
+    Vu,
+    Vp,
+    a_scalar_form: Callable,
+    b_form: Callable,
+    *,
+    tol: float,
+    maxiter: Optional[int],
+    inner_tol: float,
+    inner_maxiter: Optional[int],
+    precondition: str,
+    mass_form: Optional[Callable],
+    max_b: Optional[int],
+    matmul_precision: Optional[str],
+    inner_eta: float,
+    inner_tol_max: float,
+    f_solve_tol: Optional[float],
+    recovery_tol: Optional[float],
+    inner_iters: Optional[int],
+):
+    """The component-decoupled Stokes schur solve (``a_scalar_form``).
+
+    A is ``blkdiag(A_s, ..., A_s)`` with A_s the scalar operator of
+    ``a_scalar_form`` on the companion scalar basis; every inner solve runs
+    ``pcg_cols`` on A_s with the ``nc`` components as columns
+    (``bsr_matvec_cols``: K2 once per column on the card). The interleaved
+    vector layout (DOF i * nc + c) makes the vector <-> columns mapping a
+    reshape. The preconditioner of the columns applies the scalar M to each
+    column alone (the JAX ``vmap``). B^T scatters into the vector layout
+    through the flattened vector DOF table, as the JAX package does.
+    """
+    from ..basis.basis import Basis
+    from .bsr import bsr_expand_cols, bsr_matvec_cols, bsr_reduce_cols
+    from .eigen import _block
+    from .saddle import StokesInfo, schur_flexible_cg
+    from .solvers import pcg_cols
+
+    nc = int(getattr(Vu, "n_components", 1))
+    if nc < 2:
+        raise ValueError("a_scalar_form requires a vector velocity basis")
+    if getattr(Vu, "_dirichlet_components", None) is not None:
+        raise ValueError(
+            "a_scalar_form requires all components Dirichlet-clamped "
+            "together (dirichlet_components=None): per-component "
+            "constraints break the shared scalar reduction"
+        )
+    Vs = Basis(Vu.mesh, Vu._element)
+    n_s, n_u, n_p = int(Vs.n_dofs), int(Vu.n_dofs), int(Vp.n_dofs)
+    if n_s * nc != n_u:
+        raise ValueError(
+            f"scalar companion basis has {n_s} DOFs but the vector basis "
+            f"has {n_u} != {nc} * {n_s}: non-interleaved layout?"
+        )
+    if max_b is None:
+        max_b = default_max_b(Vs)
+    st = get_bsr_structure(Vs, max_b=max_b, want_entry_slot=False)
+    g_agg = gs = agg_table = None
+    if precondition != "jacobi":
+        g_agg = default_aggregate_size(st)
+        gs = min(g_agg, 128)
+        agg_table = torch.as_tensor(build_agg_block_table(st, gs), device=Vs.device)
+
+    u_dofs = Vu._global_dofs4elements
+    apply_b, project_mean, inv_lump, _, local_bt = _stokes_couplings(
+        Vu, Vp, b_form, mass_form, u_dofs
+    )
+    u_dofs_flat = u_dofs.reshape(-1).long()
+    p_dofs = Vp._global_dofs4elements.long()
+
+    def apply_bt(p_vec):
+        # the mixed element blocks scattered straight into the vector layout
+        out = p_vec.new_zeros(n_u)
+        return out.index_add(
+            0, u_dofs_flat, (local_bt @ p_vec[:, 0][p_dofs][..., None])[..., 0].reshape(-1)
+        )[:, None]
+
+    def reduce_cols_f(u_flat):
+        return bsr_reduce_cols(st, u_flat.reshape(n_s, nc))
+
+    def expand_to_vec(X):
+        return bsr_expand_cols(st, X, n_s).reshape(-1)
+
+    def _run(f, g, x0):
+        values = bsr_values_from_local_symmetric(
+            st, Vs.integrate_bilinear_form_local(a_scalar_form)
+        )
+        diag = bsr_diagonal(st, values)
+        if precondition != "jacobi":
+            precond_cols = _block(
+                agg_block_two_level_from_values(st, values, diag, g=g_agg, gs=gs, table=agg_table)
+            )
+        else:
+            inv_diag = 1.0 / torch.where(diag != 0, diag, torch.ones_like(diag))
+
+            def precond_cols(R):
+                return inv_diag[:, None] * R
+
+        def solve_a_cols(rhs_red, x0_red, tol_inner, maxiter_inner=inner_maxiter):
+            return pcg_cols(
+                lambda X: bsr_matvec_cols(st, values, X), rhs_red, x0=x0_red,
+                precond=precond_cols, tol=tol_inner, maxiter=maxiter_inner,
+            )
+
+        if inner_iters is None:
+            solve_a_schur = solve_a_cols
+        else:
+            def solve_a_schur(rhs_red, x0_red, tol_inner):
+                return solve_a_cols(rhs_red, x0_red, 0.0, inner_iters)
+
+        zeros_red = f.new_zeros((st.n_pad, nc))
+        u_f_red, info_f = solve_a_cols(
+            reduce_cols_f(f[:, 0]), zeros_red,
+            f_solve_tol if f_solve_tol is not None else inner_tol,
+        )
+        rhs_p = project_mean(apply_b(expand_to_vec(u_f_red)[:, None]) - g)
+        outer_cap = maxiter if maxiter is not None else 10 * n_p
+        p_flat, res_fin, k_out, atol, inner_schur, u_bt = schur_flexible_cg(
+            rhs_p[:, 0],
+            x0,
+            apply_bt_w=lambda d: reduce_cols_f(apply_bt(d[:, None])[:, 0]),
+            solve_a=solve_a_schur,
+            schur_out=lambda y: project_mean(apply_b(expand_to_vec(y)[:, None]))[:, 0],
+            precond_p=lambda r: project_mean((inv_lump * r)[:, None])[:, 0],
+            dot_w=lambda a, b: torch.sum(a * b),
+            zeros_red=zeros_red,
+            tol=tol,
+            inner_tol=inner_tol,
+            inner_eta=inner_eta,
+            inner_tol_max=inner_tol_max,
+            outer_cap=outer_cap,
+        )
+        p = project_mean(p_flat[:, None])
+        # the recovery, warm-started from the outer CG's free by-product
+        u_red, info_u = solve_a_cols(
+            reduce_cols_f((f - apply_bt(p))[:, 0]),
+            u_f_red - u_bt,
+            recovery_tol if recovery_tol is not None else inner_tol,
+        )
+        info = StokesInfo(
+            outer_iterations=k_out,
+            schur_residual=res_fin,
+            converged=res_fin <= atol,
+            # per-column recovery info as the scalar summary of StokesInfo
+            inner_info=info_u._replace(residual_norm=torch.max(info_u.residual_norm)),
+            inner_total=info_f.iterations + inner_schur + info_u.iterations,
+        )
+        return expand_to_vec(u_red)[:, None], p, info
+
+    return _stokes_entry(_run, Vp, matmul_precision)

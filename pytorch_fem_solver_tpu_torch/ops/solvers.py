@@ -1,7 +1,8 @@
-"""Linear solvers: dense direct, preconditioned CG and BiCGStab.
+"""Linear solvers: dense direct, preconditioned CG, MINRES and BiCGStab.
 
-Counterpart of ``dense_solve``, ``pcg``, ``cg``, ``bicgstab`` and
-``PCGInfo`` in ``pytorch_fem_solver_tpu/ops/solvers.py``. The JAX loops are
+Counterpart of ``dense_solve``, ``pcg``, ``cg``, ``pcg_cols``, ``minres``,
+``bicgstab`` and ``PCGInfo`` in ``pytorch_fem_solver_tpu/ops/solvers.py``
+(the multi-column PCG and MINRES serve the Stokes solvers). The JAX loops are
 ``lax.while_loop``s on the device; here the loops run on the host with one
 device-to-host read of the stopping test per iteration. ``pcg_steps`` is
 the fixed-length loop with no host read, which ``bench.make_fused_pcg``
@@ -105,6 +106,156 @@ def cg(matvec, b, **kwargs):
     """Unpreconditioned CG (Jacobi disabled)."""
     kwargs.setdefault("precond_diag", None)
     return pcg(matvec, b, **kwargs)
+
+
+def pcg_cols(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    B: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    tol=1e-10,
+    maxiter: Optional[int] = None,
+):
+    """Block-diagonal multi-rhs PCG: m independent CG recurrences on the
+    same operator, advanced in lockstep on (n, m) column stacks (not
+    block-CG: each column keeps its own alpha and beta).
+
+    Converged columns are frozen (their alpha, beta and p masked), so the
+    loop runs to the last column's convergence without perturbing finished
+    ones; one host read per iteration, of ``any(active)``. ``tol`` is the
+    per-column relative tolerance (a float, a 0-dim or an (m,) tensor).
+    Returns ``(X, PCGInfo)`` with ``iterations`` the shared loop count
+    (an int) and ``residual_norm`` per column; ``converged`` is the 0-dim
+    test that every column met its tolerance.
+    """
+    n, m = B.shape
+    if maxiter is None:
+        maxiter = max(10 * n, 100)
+    if precond is None:
+        precond = lambda r: r  # noqa: E731
+    zero, one = B.new_zeros(()), B.new_ones(())
+    tol = tol.to(B.dtype) if isinstance(tol, torch.Tensor) else B.new_full((), tol)
+
+    def dot(u, v):
+        return torch.sum(u * v, dim=0)  # (m,)
+
+    atol2 = tol**2 * torch.clamp(dot(B, B), min=torch.finfo(B.dtype).tiny)
+    x = torch.zeros_like(B) if x0 is None else x0
+    r = B - matvec(x)
+    p = precond(r)
+    rz = dot(r, p)
+    active = dot(r, r) > atol2
+    k = 0
+    while k < maxiter and bool(active.any()):
+        ap = matvec(p)
+        denom = dot(p, ap)
+        alpha = torch.where(active, rz / torch.where(denom == 0, one, denom), zero)
+        x = x + alpha[None, :] * p
+        r = r - alpha[None, :] * ap
+        z = precond(r)
+        rz_new = dot(r, z)
+        beta = torch.where(active, rz_new / torch.where(rz == 0, one, rz), zero)
+        p = torch.where(active[None, :], z + beta[None, :] * p, p)
+        rz = torch.where(active, rz_new, rz)
+        k += 1
+        active = dot(r, r) > atol2
+    res = torch.sqrt(dot(r, r))
+    return x, PCGInfo(iterations=k, residual_norm=res, converged=torch.all(res * res <= atol2))
+
+
+def minres(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    tol: float = 1e-10,
+    maxiter: Optional[int] = None,
+    restart: Optional[int] = None,
+):
+    """Preconditioned MINRES (Paige & Saunders) for symmetric, possibly
+    indefinite operators, such as the Stokes saddle-point system.
+
+    Args:
+      precond: an SPD preconditioner M^{-1} (or a PSD one whose nullspace
+        is orthogonal to the residuals, e.g. the mean-projected pressure
+        mass inverse); the identity when omitted.
+      tol: relative tolerance on the M^{-1}-norm residual, the norm the
+        Lanczos recurrence tracks.
+      restart: when set, every ``restart`` iterations the true residual
+        ``b - K x`` is recomputed and the recurrence re-seeded from it
+        (the float32 cure for a tracked residual that drifts from the true
+        one); the final ``residual_norm`` and ``converged`` then come from
+        the true residual too. ``restart=None`` means no restarts; a value
+        below 1 raises ``ValueError`` before any work.
+
+    One host read per iteration, of the two-part stopping test (the
+    tracked residual above ``tol`` and no Lanczos breakdown). The JAX
+    ``lax.cond`` of the refresh is a Python ``if`` on the iteration count.
+    Returns ``(x, PCGInfo)``; ``residual_norm`` is the preconditioned norm.
+    """
+    n = b.shape[-1]
+    if restart is not None and int(restart) < 1:
+        raise ValueError(f"restart must be >= 1 (or None), got {restart}")
+    if maxiter is None:
+        maxiter = max(10 * n, 100)
+    dot = torch.dot
+    if precond is None:
+        precond = lambda r: r  # noqa: E731
+    eps = torch.finfo(b.dtype).eps
+    tiny = torch.finfo(b.dtype).tiny
+    zero, one = b.new_zeros(()), b.new_ones(())
+
+    def seed(x):
+        """A fresh recurrence from the residual at ``x``: (r1, r2, y, oldb,
+        beta, dbar, epsln, phibar, cs, sn, w, w2)."""
+        r = b - matvec(x)
+        y = precond(r)
+        # the PSD contract keeps <r, y> >= 0; clamp its float32 rounding
+        beta = torch.sqrt(torch.clamp(dot(r, y), min=0.0))
+        return (r, r, y, zero, beta, zero, zero, beta, -one, zero,
+                torch.zeros_like(b), torch.zeros_like(b))
+
+    x = torch.zeros_like(b) if x0 is None else x0
+    r1, r2, y, oldb, beta, dbar, epsln, phibar, cs, sn, w, w2 = seed(x)
+    beta1 = beta
+    rtol = tol * torch.clamp(beta1, min=tiny)
+    breakdown = eps * torch.clamp(beta1, min=tiny)
+    k = 0
+    while k < maxiter and bool((phibar > rtol) & (beta > breakdown)):
+        v = y / beta
+        av = matvec(v)
+        # three-term Lanczos: subtract the previous direction (none at k=0
+        # and right after a true-residual refresh, both oldb == 0)
+        has_prev = oldb > 0
+        av = av - torch.where(has_prev, beta / torch.where(has_prev, oldb, one), zero) * r1
+        alfa = dot(v, av)
+        av = av - (alfa / beta) * r2
+        r1, r2 = r2, av
+        y = precond(r2)
+        oldb = beta
+        beta = torch.sqrt(torch.clamp(dot(r2, y), min=0.0))
+        # the previous rotation applied to the new tridiagonal column
+        oldeps = epsln
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln = sn * beta
+        dbar = -cs * beta
+        gamma = torch.clamp(torch.sqrt(gbar**2 + beta**2), min=eps)
+        cs = gbar / gamma
+        sn = beta / gamma
+        phi = cs * phibar
+        phibar = sn * phibar
+        w1, w2 = w2, w
+        w = (v - oldeps * w1 - delta * w2) / gamma
+        x = x + phi * w
+        k += 1
+        if restart is not None and k % restart == 0:
+            r1, r2, y, oldb, beta, dbar, epsln, phibar, cs, sn, w, w2 = seed(x)
+    if restart is not None:
+        # the reported result is the true residual's, not the recurrence's
+        r_true = b - matvec(x)
+        phibar = torch.sqrt(torch.clamp(dot(r_true, precond(r_true)), min=0.0))
+    return x, PCGInfo(iterations=k, residual_norm=phibar, converged=phibar <= rtol)
 
 
 def bicgstab(

@@ -47,9 +47,6 @@ UNPORTED = {
         "mult_two_level_from_values",
         "build_smoothed_two_level",
         "smoothed_two_level_matrix_free",
-        # A5.4: the Stokes solvers
-        "compiled_stokes_solver",
-        "stokes_solver",
     },
     # A8 (StepTimer, trace, write_vtk); the raw seven-fractures loaders
     # read data this host does not have (not queued)
