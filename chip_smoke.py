@@ -309,6 +309,36 @@ Phases (any failure exits non-zero and prints no result):
     another right-hand side (no host-to-device copy; device ms, idle
     share, launches and host reads per outer iteration, K2's us per
     launch; a JSON ``stokes_solves`` line).
+26. the remaining scalar preconditioners and the reduced-precision knobs:
+    ``make_bsr_solve(precond=...)`` of the port's ``bench.py`` (the
+    repo-root ``bench.py``'s ``BENCH_PRECOND`` names) on phase 1's network
+    for jacobi, two_level, aggblock, affine, smoothed, mult, mult3,
+    three_level and auto, and aggblock, two_level, three_level and mult
+    with bf16 operands, float32 against each configuration's float64 twin:
+    converged to 1e-6, at most the float64 count + 3 iterations, within
+    1e-4 + 2 x the float32 floor of the float64 solution (the float32
+    affine M, whose coarse inverse loses its near-null directions in
+    float32, within 5e-3 and its 1e-4 distance reported), K2 launched
+    exactly (iterations + 1) x (1 + 2 for the cycles and the smoothed M)
+    + 12 for ``omega="auto"``; per configuration the median wall of 3, one
+    profiled solve (device ms, idle share, K2's us per launch) and the
+    distance from the float64 aggblock solution; aggblock (float32 and
+    bf16 operands), mult and three_level at h=0.02 (the host seconds of
+    its mesh; bf16 operands and mult reported if they do not converge in
+    600); K2's bf16-values instantiation against its plain version on the
+    network's and ``unit_cube(64)``'s values (float32 x within 1e-6 of
+    max |y|, float64 x 1e-12, bitwise repeatable, counted under
+    ``bsr_spmv_bf16``, float16 values refused) and its time behind the
+    write flush against its byte bound; ``compiled_bsr_solver(values_dtype=
+    torch.bfloat16)`` at ``unit_cube(64)`` and on the network beside
+    float32 (every PCG product through the bf16 kernel, the solution more
+    than 1e-5 from float32's); ``solve_iterative(precondition=
+    "mult_two_level")`` on the h=0.1 network (fewer iterations than
+    two_level, K2 as the cycle implies) and the scipy smoothed M of
+    ``build_smoothed_two_level`` on its ELL operator (fewer iterations than
+    Jacobi); ``probe`` of 100,000 seeded points after a P1 solve on
+    ``unit_square(256)``, within 1e-5 of max |ref| of the float64 CPU
+    probe (a JSON ``preconditioners_and_reduced_precision`` line).
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
@@ -569,6 +599,49 @@ STOKES_DIV32 = 1e-5  # max |B u| / max |u|, float32
 STOKES_DIV64 = 1e-9  # the same, float64
 STOKES_MEAN = 32  # |sum(mp p)| <= this x eps x sum(mp |p|): zero to roundoff
 STOKES_REPEATS = 3
+
+# phase 26: the scalar preconditioners of the repo-root bench.py
+# (BENCH_PRECOND x BENCH_PRECOND_DTYPE) through the port's
+# bench.make_bsr_solve on the h=0.03 network, float32 against each
+# configuration's float64 twin on the card (maxiter raised so that Jacobi
+# converges); four of them at h=0.02 (maxiter 600: bf16 operands and mult
+# failing to converge there is reported, not held); bf16 SpMV values
+# (compiled_bsr_solver(values_dtype=torch.bfloat16)) at unit_cube(64) and on
+# the network; solve_iterative("mult_two_level") and the scipy smoothed M
+# on the h=0.1 network; probe after a P1 solve on unit_square(256)
+PRECOND_CONFIGS = (
+    ("jacobi", False), ("two_level", False), ("aggblock", False), ("affine", False),
+    ("smoothed", False), ("mult", False), ("mult3", False), ("three_level", False),
+    ("auto", False), ("aggblock", True), ("two_level", True), ("three_level", True),
+    ("mult", True),
+)
+PRECOND_MAXITER = 5000
+PRECOND_H2 = 0.02
+PRECOND_H2_CONFIGS = (("aggblock", False), ("aggblock", True), ("mult", False),
+                      ("three_level", False))
+PRECOND_H2_HELD = (("aggblock", False), ("three_level", False))  # must converge
+PRECOND_H2_MAXITER = 600
+PRECOND_REPEATS = 3
+# the float32 affine M's own bar beside F32_VS_F64: its coarse inverse (a
+# Cholesky inverse of a coarse matrix whose 1e-7-shifted near-null
+# directions, the rank-deficient [1, x, y, z] of planar fractures, reach
+# 3-5e6) applies about 20 % from the float64 one in both packages (the JAX
+# package's float32 M 22 % at h=0.03 on the CPU, the port's 21 %), and
+# the card's atomic sums move that inverse from solve to solve, so its
+# float32 PCG stops 1.0e-4 (CPU), 3.9e-4 and 7.6e-4 (two card runs) from
+# the float64 solution where the other Ms stop 1e-5 away (ROADMAP.md,
+# queue C); the distance is reported beside the 1e-4 bar and held within
+# this one, which a broken coarse apply or smoother would still fail
+PRECOND_F32_BAR = {"affine": 5e-3}
+SPMV_PER_APPLY = {"mult": 2, "mult3": 2, "smoothed": 2}  # K2 launches per M apply
+POWER_STEPS = {"mult": 12, "mult3": 12}  # K2 launches of omega="auto" at setup
+VALUES_BF16_TET_N = 64
+VALUES_BF16_MIN = 1e-5  # bf16 values must move the solution more than this
+K2_BF16_TOL = 1e-6  # max |kernel - plain| / max |plain|, float32 x
+SMOOTHED_H = 0.1
+PROBE_N = 256
+PROBE_POINTS = 100_000
+PROBE_TOL = 1e-5  # float32 card probe vs float64 CPU probe, relative to max |ref|
 
 failures: list[str] = []
 # name -> one launch at the benchmark shapes, registered by the phases for
@@ -3074,7 +3147,8 @@ def _profiled(solve, per: int = 1):
     """One profiled call of ``solve``: (wall ms, device ms, launches,
     device-to-host copies, host-to-device copies, kernels by device time,
     K2's us per launch and launches by dtype: ``{"float32": (us, n),
-    "float64": (us, n)}``, the call's result)."""
+    "float64": (us, n)}``, ``"bf16_float32"`` for the bf16-values
+    instantiation; the call's result)."""
     import torch
 
     out = []
@@ -3083,8 +3157,8 @@ def _profiled(solve, per: int = 1):
     kernels, device_ms = _device_kernels(prof, per)
     dtoh = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and "Memcpy DtoH" in e.name) / per
-    k2 = {("float64" if "double" in name else "float32"): (us / count, count)
-          for us, count, name in kernels if "bsr_spmv" in name}
+    k2 = {("bf16_" if "bfloat16" in name else "") + ("float64" if "double" in name else "float32"):
+          (us / count, count) for us, count, name in kernels if "bsr_spmv" in name}
     return (1e3 * wall, device_ms, sum(k[1] for k in kernels), dtoh, _htod_per_solve(prof, per),
             kernels, k2, out[0])
 
@@ -3721,6 +3795,418 @@ def phase_stokes(card):
     return launches_by_path
 
 
+def _k2_rule(name, iterations):
+    """K2 launches of one make_bsr_solve / compiled solve: the PCG's
+    iterations + 1 A products, 2 per M apply (one apply for r0 and one
+    per iteration) for the cycles and the smoothed M, 12 at setup for
+    omega="auto"."""
+    per_apply = SPMV_PER_APPLY.get(name, 0)
+    expected = (iterations + 1) * (1 + per_apply) + POWER_STEPS.get(name, 0)
+    rule = f"(iterations + 1) x {1 + per_apply}" + (
+        f" + {POWER_STEPS[name]}" if name in POWER_STEPS else "")
+    return expected, rule
+
+
+def _precond_case(tag, name, bf16, V32, V64, ref64, card, maxiter, held=True):
+    """One configuration of phase 26 at one size: ``make_bsr_solve(precond=
+    name)`` in float32 and float64 (bf16 operands in both with ``bf16``),
+    the K2 count of the first float32 solve by key, the median wall of
+    ``PRECOND_REPEATS``, one profiled solve, the distance from the
+    configuration's float64 solution and from ``ref64`` (the float64
+    aggblock solution). ``held``: hold convergence, the count and the
+    distance (else report them)."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import make_bsr_solve
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+
+    od = torch.bfloat16 if bf16 else None
+    label = f"{tag} {name}{' bf16 operands' if bf16 else ''}"
+    t0 = time.perf_counter()
+    solve = make_bsr_solve(V32, tol=TOL, maxiter=maxiter, precond=name, operand_dtype=od)
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    cuda_build.reset_launch_counts()
+    out = []
+    first_s = _timed(lambda: out.append(solve()))
+    x, iterations, rel = out[0]
+    k2 = {k: cuda_build.launch_counts[k] for k in ("bsr_spmv", "bsr_spmv_bf16")}
+    x64, it64, rel64 = make_bsr_solve(V64, tol=TOL, maxiter=maxiter, precond=name,
+                                      operand_dtype=od)()
+    converged = bool(torch.isfinite(x).all()) and float(rel) <= TOL
+    expected, rule = _k2_rule(name, iterations)
+    check(k2 == {"bsr_spmv": expected, "bsr_spmv_bf16": 0},
+          f"{label}: K2 launches {k2} == {{float32: {rule} = {expected}, bf16 values: 0}}")
+    d64 = float((x.double() - x64).norm() / x64.norm())
+    d_ref = float((x.double() - ref64).norm() / ref64.norm())
+    walls = [_timed(solve) for _ in range(PRECOND_REPEATS)]
+    wall_ms, device_ms, launches, dtoh, htod, kernels, k2_us, _ = _profiled(solve)
+    fig = {"iterations": iterations, "iterations_f64": it64, "rel_residual": float(rel),
+           "converged": converged, "k2_launches": k2, "k2_rule": rule,
+           "vs_own_f64": d64, "vs_f64_aggblock": d_ref, "first_wall_ms": 1e3 * first_s,
+           "median_wall_ms": 1e3 * float(np.median(walls)),
+           "walls_ms": [1e3 * w for w in walls], "tables_s": tables_s,
+           "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+           "idle_share": 1 - device_ms / wall_ms, "launches": launches, "host_reads": dtoh,
+           "host_to_device": htod, "k2_us_per_launch_in_solve": k2_us,
+           "top_kernels": [(round(us / 1e3, 4), c, n[:80]) for us, c, n in kernels[:4]]}
+    log(f"{label}: {iterations} iterations (float64 {it64}), residual {float(rel):.3e}, "
+        f"K2 {k2}; vs own float64 {d64:.3e}, vs float64 aggblock {d_ref:.3e}; median wall "
+        f"{fig['median_wall_ms']:.3f} ms (first {1e3 * first_s:.3f}); profiled: wall "
+        f"{wall_ms:.3f} ms, device {device_ms:.3f} ms, idle {1 - device_ms / wall_ms:.3f}, "
+        f"{launches:.0f} launches, {dtoh:.0f} host reads; K2 us per launch {k2_us}")
+    if held:
+        check(converged, f"{label}: converged to {TOL:g} in {iterations} <= {maxiter}")
+        check(iterations <= it64 + ITER_GAP,
+              f"{label}: {iterations} float32 iterations <= float64's {it64} + {ITER_GAP}")
+    return fig, x
+
+
+def _precond_sweep(tag, configs, held_configs, V32, V64, card, maxiter):
+    """Phase 26's configurations at one size, after the float32 floor:
+    the float64 solve of the float32-rounded operator and load beside the
+    float64 solve, both aggblock to 1e-12."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import _assembly, make_bsr_solve
+    from pytorch_fem_solver_tpu_torch.ops.bsr import get_bsr_structure
+    from pytorch_fem_solver_tpu_torch.ops.compiled import bsr_pcg
+
+    st = get_bsr_structure(V32, max_b=8, want_entry_slot=False)
+    values32, b32 = _assembly(V32, st)()
+    values64, b64 = _assembly(V64, st)()
+    exact = bsr_pcg(st, "aggblock", tol=1e-12)
+    x_true = exact(values64, b64)[0]
+    x_floor = exact(tuple(v.double() for v in values32), b32.double())[0]
+    floor = float((x_floor - x_true).norm() / x_true.norm())
+    del values32, values64
+    ref64 = make_bsr_solve(V64, tol=TOL, maxiter=maxiter)()[0]
+    figures = {"float32_floor": floor}
+    for name, bf16 in configs:
+        held = (name, bf16) in held_configs
+        fig, x = _precond_case(tag, name, bf16, V32, V64, ref64, card, maxiter, held)
+        key = f"{name}{'_bf16' if bf16 else ''}"
+        figures[key] = fig
+        if held and fig["converged"]:
+            bar = F32_VS_F64 + 2 * floor
+            text = (f"{tag} {key}: {fig['vs_own_f64']:.3e} from its float64 solution <= "
+                    f"{F32_VS_F64:g} + 2 x the float32 floor {floor:.3e}")
+            if key in PRECOND_F32_BAR:
+                log(f"{text}: {fig['vs_own_f64'] <= bar} (reported: the float32 {key} M's bar "
+                    f"is {PRECOND_F32_BAR[key]:g})")
+                bar, text = PRECOND_F32_BAR[key], (
+                    f"{tag} {key}: {fig['vs_own_f64']:.3e} from its float64 solution <= "
+                    f"{PRECOND_F32_BAR[key]:g}, the float32 {key} M's bar")
+            check(fig["vs_own_f64"] <= bar, text)
+        elif not held:
+            log(f"{tag} {key} (reported, not held): converged {fig['converged']} in "
+                f"{fig['iterations']} of {maxiter} iterations")
+        del x
+    torch.cuda.empty_cache()
+    return figures
+
+
+def _check_k2_bf16(tag, st, values, x32, time_it):
+    """K2's bf16-values instantiation against its plain version on the
+    bf16 copy of ``values``: float32 x (<= K2_BF16_TOL of max |y|) and
+    float64 x (1e-12), two launches bitwise equal, one launch counted
+    under its own key per product; with ``time_it`` its time behind the
+    write flush beside the plain version's and its byte bound. Returns the
+    figure (float32 x)."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+    from pytorch_fem_solver_tpu_torch.ops.bsr import _bsr_spmv_plain, bsr_matvec
+
+    vb = tuple(v.to(torch.bfloat16).contiguous() for v in values)
+    fig = {}
+    for x, tol in ((x32, K2_BF16_TOL), (x32.double(), 1e-12)):
+        before = dict(cuda_build.launch_counts)
+        y = bsr_matvec(st, vb, x)
+        counted = {k: cuda_build.launch_counts[k] - before[k] for k in before}
+        again = bsr_matvec(st, vb, x)
+        ref = _bsr_spmv_plain(st.bcols, vb[0], x, st.bcols2, vb[1], st.heavy_rows)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max() / ref.abs().max())
+        check(y.dtype == x.dtype and bool(torch.isfinite(y).all()) and err <= tol,
+              f"K2 bf16 values {tag}, {x.dtype} x vs plain: {err:.3e} of max |y| <= {tol:g}")
+        check(torch.equal(y, again) and counted["bsr_spmv_bf16"] == 1
+              and counted["bsr_spmv"] == 0,
+              f"K2 bf16 values {tag}, {x.dtype} x: two launches bitwise equal, one launch "
+              f"counted under bsr_spmv_bf16 per product ({counted['bsr_spmv_bf16']})")
+        if x.dtype == torch.float32:
+            fig["max_abs_err"] = float((y - ref).abs().max())
+    # the same product through float32 values: what the cast saves
+    try:
+        bsr_matvec(st, (vb[0].half(), vb[1].half()), x32)
+        check(False, f"K2 {tag}: float16 values with float32 x raise TypeError")
+    except TypeError as err:
+        check("float16" in str(err), f"K2 {tag}: float16 values with float32 x raise ({err})")
+    if time_it:
+        n_stored = int(st.blk_id_host.size)
+        n_bytes = n_stored * (64 * 2 + 4) + 2 * st.nb * 4 + 2 * st.n_pad * 4
+        b_ms, by = bound_ms(n_bytes, 2 * 64 * n_stored)
+        v32 = tuple(v.to(torch.float32).contiguous() for v in values)
+        fig.update({
+            "ms": time_ms(lambda: bsr_matvec(st, vb, x32)),
+            "float32_values_ms": time_ms(lambda: bsr_matvec(st, v32, x32)),
+            "plain_ms": time_ms(lambda: _bsr_spmv_plain(st.bcols, vb[0], x32, st.bcols2, vb[1],
+                                                        st.heavy_rows)),
+            "bound_ms": b_ms, "bound_by": by, "bytes": n_bytes, "stored_blocks": n_stored,
+            "library_ms": None,
+        })
+        log(f"K2 bf16 values {tag}: {fig['ms']:.4f} ms behind the write flush (float32 values "
+            f"{fig['float32_values_ms']:.4f} ms, plain {fig['plain_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {by}: {n_bytes} bytes, {n_stored} stored blocks); no single "
+            "PyTorch call takes bf16 values with a float32 x")
+    return fig
+
+
+def _values_bf16_case(tag, solve32, solve_bf16, u32, info32, card):
+    """``compiled_bsr_solver(values_dtype=torch.bfloat16)`` beside the
+    float32 solve on the same tables: iterations, walls, K2 by key (every
+    PCG product through the bf16 instantiation), K2's us per launch in a
+    profiled solve, and the solution's distance from float32 (held above
+    VALUES_BF16_MIN: the cast happened)."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+
+    cuda_build.reset_launch_counts()
+    out = []
+    first_s = _timed(lambda: out.append(solve_bf16()))
+    u, info = out[0]
+    k2 = {k: cuda_build.launch_counts[k] for k in ("bsr_spmv", "bsr_spmv_bf16")}
+    check(bool(info.converged) and bool(torch.isfinite(u).all()),
+          f"{tag} bf16 values: converged in {info.iterations} iterations "
+          f"(float32 {info32.iterations})")
+    check(k2 == {"bsr_spmv": 0, "bsr_spmv_bf16": info.iterations + 1},
+          f"{tag} bf16 values: K2 launches {k2} == {{float32: 0, bf16 values: iterations + 1 = "
+          f"{info.iterations + 1}}}")
+    du = float((u - u32).norm() / u32.norm())
+    check(du > VALUES_BF16_MIN,
+          f"{tag} bf16 values: the solution lies {du:.3e} from float32's (> {VALUES_BF16_MIN:g}: "
+          "the values were cast)")
+    walls = {"float32": [_timed(solve32) for _ in range(PRECOND_REPEATS)],
+             "bf16_values": [_timed(solve_bf16) for _ in range(PRECOND_REPEATS)]}
+    prof = {}
+    for key, solve in (("float32", solve32), ("bf16_values", solve_bf16)):
+        wall_ms, device_ms, launches, _, _, _, k2_us, _ = _profiled(solve)
+        prof[key] = {"profiled_wall_ms": wall_ms, "device_ms": device_ms,
+                     "idle_share": 1 - device_ms / wall_ms, "launches": launches,
+                     "k2_us_per_launch_in_solve": k2_us}
+    fig = {"iterations": info.iterations, "iterations_f32": info32.iterations,
+           "k2_launches": k2, "vs_float32": du, "first_wall_ms": 1e3 * first_s,
+           "median_wall_ms": {k: 1e3 * float(np.median(w)) for k, w in walls.items()},
+           "profiled": prof}
+    log(f"{tag} bf16 values: {info.iterations} iterations (float32 {info32.iterations}), "
+        f"{du:.3e} from float32; median wall {fig['median_wall_ms']}; profiled {prof}")
+    return fig
+
+
+def _smoothed_and_mult(card):
+    """solve_iterative(precondition="mult_two_level") on the h=0.1 network
+    and the scipy smoothed M on its ELL operator (phase 13's layout,
+    max_k=8), beside the ELL two-level M and Jacobi."""
+    import torch
+
+    import pytorch_fem_solver_tpu_torch as pt
+    from pytorch_fem_solver_tpu_torch.bench import _stiffness, _unit_load, benchmark_basis
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+    from pytorch_fem_solver_tpu_torch.ops.precondition import build_smoothed_two_level
+    from pytorch_fem_solver_tpu_torch.ops.solvers import pcg
+    from pytorch_fem_solver_tpu_torch.ops.sparse import (
+        ell_diagonal,
+        ell_matvec,
+        ell_values_from_local,
+        get_ell_structure,
+    )
+
+    V = benchmark_basis(pt.build_benchmark_network(SMOOTHED_H, device=DEVICE,
+                                                    dtype=torch.float32))
+    local = V.integrate_bilinear_form_local(_stiffness)
+    b = V.integrate_linear_form(_unit_load)
+    fig = {"dofs": V.n_dofs}
+    for precondition in ("mult_two_level", "two_level", "jacobi"):
+        cuda_build.reset_launch_counts()
+        out = []
+        wall = _timed(lambda: out.append(V.solve_iterative(
+            local, b, tol=TOL, precondition=precondition, return_info=True)))
+        u, info = out[0]
+        k2 = cuda_build.launch_counts["bsr_spmv"]
+        fig[f"bsr_{precondition}"] = {"iterations": info.iterations, "k2_launches": k2,
+                                      "wall_ms": 1e3 * wall}
+        check(bool(info.converged), f"solve_iterative h={SMOOTHED_H} {precondition}: converged "
+              f"in {info.iterations} iterations")
+        if precondition == "mult_two_level":
+            expected, rule = _k2_rule("mult", info.iterations)
+            check(k2 == expected, f"solve_iterative mult_two_level: K2 launches {k2} == {rule} "
+                  f"= {expected}")
+    check(fig["bsr_mult_two_level"]["iterations"] < fig["bsr_two_level"]["iterations"],
+          f"solve_iterative mult_two_level: {fig['bsr_mult_two_level']['iterations']} < "
+          f"two_level's {fig['bsr_two_level']['iterations']} iterations")
+
+    st = get_ell_structure(V, max_k=8)
+    values = ell_values_from_local(st, local)
+    diag = ell_diagonal(st, values)
+    inner = V._as_host_index(V._basis_parameters["inner_dofs"])
+    coords = V._coords4global_dofs.cpu().numpy()[inner]
+    t0 = time.perf_counter()
+    M = build_smoothed_two_level(st, values, coords)
+    torch.cuda.synchronize()
+    fig["smoothed_setup_host_s"] = time.perf_counter() - t0
+    rhs = V.reduce(b).reshape(-1)
+    for name, kw in (("smoothed", {"precond": M}), ("jacobi", {"precond_diag": diag})):
+        _, info = pcg(lambda v: ell_matvec(st, values, v), rhs, tol=TOL, **kw)
+        fig[f"ell_{name}"] = info.iterations
+    _, info = V.solve_iterative(local, b, tol=TOL, method="ell", precondition="two_level",
+                                return_info=True)
+    fig["ell_two_level"] = info.iterations
+    check(fig["ell_smoothed"] < fig["ell_jacobi"],
+          f"ELL h={SMOOTHED_H}: the smoothed M takes {fig['ell_smoothed']} < Jacobi's "
+          f"{fig['ell_jacobi']} iterations (two_level {fig['ell_two_level']}; scipy setup "
+          f"{fig['smoothed_setup_host_s']:.2f} s on the host)")
+    log(json.dumps({"metric": "mult_and_smoothed", "h": SMOOTHED_H, **fig}, default=str))
+    return fig
+
+
+def _probe(card):
+    """probe after a P1 solve on unit_square(PROBE_N), float32 on the card,
+    against the float64 CPU probe of the same u (the vertices k/n are
+    exact in float32, so both locate every point in the same cell)."""
+    import torch
+
+    import pytorch_fem_solver_tpu_torch as pt
+    from pytorch_fem_solver_tpu_torch.bench import _sine_load, _stiffness
+
+    V = pt.Basis(pt.MeshTri(pt.unit_square(n=PROBE_N), device=DEVICE, dtype=torch.float32),
+                 pt.ElementTri(1, 2))
+    u, info = V.compiled_solver(_stiffness, _sine_load, tol=TOL)()
+    check(bool(info.converged), f"probe: the P1 solve on unit_square({PROBE_N}) converged")
+    pts = np.random.default_rng(SEED + 26).uniform(0.0, 1.0, size=(PROBE_POINTS, 2))
+    t0 = time.perf_counter()
+    V._locate_cells(pts, 1e-10)
+    locate_s = time.perf_counter() - t0
+    out = []
+    wall_ms, device_ms, launches, _, _, _, _, _ = _profiled(lambda: out.append(V.probe(pts, u)))
+    values, grads = out[0]
+    V64 = pt.Basis(pt.MeshTri(pt.unit_square(n=PROBE_N), device="cpu", dtype=torch.float64),
+                   pt.ElementTri(1, 2))
+    ref_v, ref_g = V64.probe(pts, u.double().cpu())
+    dv = float((values.double().cpu() - ref_v).abs().max() / ref_v.abs().max())
+    dg = float((grads.double().cpu() - ref_g).abs().max() / ref_g.abs().max())
+    check(values.shape == (PROBE_POINTS,) and grads.shape == (PROBE_POINTS, 2)
+          and dv <= PROBE_TOL and dg <= PROBE_TOL,
+          f"probe {PROBE_POINTS} points: values {dv:.3e}, gradients {dg:.3e} of max |ref| from "
+          f"the float64 CPU probe (<= {PROBE_TOL:g})")
+    fig = {"points": PROBE_POINTS, "cells": int(V.v_grad.shape[0]), "locate_host_s": locate_s,
+           "probe_wall_ms": wall_ms, "evaluation_device_ms": device_ms,
+           "launches": launches, "values_vs_f64": dv, "gradients_vs_f64": dg}
+    log(json.dumps({"metric": "probe", **fig}))
+    return fig
+
+
+def phase_precond(card, st, V32, V64):
+    """Phase 26: the remaining scalar preconditioners and the
+    reduced-precision knobs on the card, then probe."""
+    import gc
+
+    import torch
+
+    import pytorch_fem_solver_tpu_torch as pt
+    from pytorch_fem_solver_tpu_torch.bench import (
+        _sine_load_3d,
+        _stiffness,
+        _unit_load,
+        benchmark_basis,
+        tet_poisson,
+    )
+    from pytorch_fem_solver_tpu_torch.ops.bsr import (
+        bsr_values_from_local_symmetric,
+        get_bsr_structure,
+    )
+    from pytorch_fem_solver_tpu_torch.ops.compiled import compiled_bsr_solver
+
+    figures, launches_by_path, seconds = {"card": card}, {}, {}
+    t0 = time.perf_counter()
+    figures[f"h{H}"] = _precond_sweep(f"h={H}", PRECOND_CONFIGS, PRECOND_CONFIGS, V32, V64,
+                                      card, PRECOND_MAXITER)
+    for key, fig in figures[f"h{H}"].items():
+        if isinstance(fig, dict):
+            launches_by_path[f"precond_{key}"] = fig["k2_launches"]["bsr_spmv"]
+    seconds["h0.03"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mesh64 = pt.build_benchmark_network(PRECOND_H2, device=DEVICE, dtype=torch.float64)
+    mesh_s = time.perf_counter() - t0
+    W32, W64 = benchmark_basis(mesh64.to(dtype=torch.float32)), benchmark_basis(mesh64)
+    get_bsr_structure(W32, max_b=8, want_entry_slot=False)
+    W64._bsr_structures = W32._bsr_structures
+    log(f"h={PRECOND_H2}: {W32.n_dofs} DOFs, mesh {mesh_s:.2f} s on the host")
+    figures[f"h{PRECOND_H2}"] = {"dofs": W32.n_dofs, "mesh_host_s": mesh_s, **_precond_sweep(
+        f"h={PRECOND_H2}", PRECOND_H2_CONFIGS, PRECOND_H2_HELD, W32, W64, card,
+        PRECOND_H2_MAXITER)}
+    del mesh64, W32, W64
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["h0.02"] = time.perf_counter() - t0
+
+    # K2's bf16-values instantiation and compiled_bsr_solver(values_dtype=bf16)
+    t0 = time.perf_counter()
+    values32 = bsr_values_from_local_symmetric(st, V32.integrate_bilinear_form_local(_stiffness))
+    x32 = torch.as_tensor(np.random.default_rng(SEED + 27).standard_normal(st.n_pad),
+                          dtype=torch.float32, device=DEVICE)
+    k2_dfn = _check_k2_bf16(f"h={H}", st, values32, x32, time_it=True)
+    del values32
+    solve32 = compiled_bsr_solver(V32, _stiffness, _unit_load, tol=TOL)
+    solve_bf = compiled_bsr_solver(V32, _stiffness, _unit_load, tol=TOL,
+                                   values_dtype=torch.bfloat16)
+    u32, info32 = solve32()
+    figures["values_bf16_dfn"] = _values_bf16_case(f"h={H}", solve32, solve_bf, u32, info32, card)
+
+    r = tet_poisson(VALUES_BF16_TET_N, device=DEVICE, dtype=torch.float32)
+    tst = get_bsr_structure(r.basis, max_b=24, want_entry_slot=False)
+    check(int(tst.n_inner) == TET_STRUCTURE[0],
+          f"unit_cube({VALUES_BF16_TET_N}): {tst.n_inner} inner DOFs == {TET_STRUCTURE[0]}")
+    tvalues = bsr_values_from_local_symmetric(
+        tst, r.basis.integrate_bilinear_form_local(_stiffness))
+    tx = torch.as_tensor(np.random.default_rng(SEED + 28).standard_normal(tst.n_pad),
+                         dtype=torch.float32, device=DEVICE)
+    k2_tet = _check_k2_bf16(f"unit_cube({VALUES_BF16_TET_N})", tst, tvalues, tx, time_it=True)
+    del tvalues
+    solve_bf = r.basis.compiled_solver(_stiffness, _sine_load_3d, tol=TOL,
+                                       values_dtype=torch.bfloat16)
+    figures["values_bf16_tet"] = _values_bf16_case(
+        f"unit_cube({VALUES_BF16_TET_N})", r.solve, solve_bf, r.u, r.info, card)
+    del r, solve_bf
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["values_bf16"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    figures["mult_and_smoothed"] = _smoothed_and_mult(card)
+    launches_by_path["solve_iterative_mult"] = (
+        figures["mult_and_smoothed"]["bsr_mult_two_level"]["k2_launches"])
+    seconds["mult_and_smoothed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    figures["probe"] = _probe(card)
+    seconds["probe"] = time.perf_counter() - t0
+    figures["seconds"] = seconds
+    log(json.dumps({"metric": "preconditioners_and_reduced_precision", **figures}, default=str))
+    bf16_record = {
+        "shape": f"unit_cube({VALUES_BF16_TET_N}), {k2_tet['stored_blocks']} stored blocks",
+        "us": 1e3 * k2_tet["ms"], "bound_us": 1e3 * k2_tet["bound_ms"],
+        "plain_us": 1e3 * k2_tet["plain_ms"], "float32_values_us": 1e3 * k2_tet["float32_values_ms"],
+        "dfn_us": 1e3 * k2_dfn["ms"], "dfn_bound_us": 1e3 * k2_dfn["bound_ms"],
+        "max_abs_err": max(k2_tet["max_abs_err"], k2_dfn["max_abs_err"]),
+        "library_us": None,
+        "launches_by_path": {
+            "values_bf16_dfn": figures["values_bf16_dfn"]["k2_launches"]["bsr_spmv_bf16"],
+            "values_bf16_tet": figures["values_bf16_tet"]["k2_launches"]["bsr_spmv_bf16"]},
+    }
+    return bf16_record, launches_by_path
+
+
 def phase_two_fracture():
     """Phase 10: the two-fracture RVPINN loss and one Adam step on the card,
     against the same port in float64 on the CPU."""
@@ -3935,6 +4421,8 @@ def main() -> int:
     done("24 eigen")
     stokes_k2 = phase_stokes(card)
     done("25 Stokes")
+    bf16_record, precond_k2 = phase_precond(card, st, V32, V64)
+    done("26 preconditioners")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
     ) + f"; start to tables {marks[0][1] - t_start:.1f}; total {time.perf_counter() - t_start:.1f}")
@@ -3961,7 +4449,8 @@ def main() -> int:
                               "stokes_base": stokes_k2["base"],
                               "stokes_aggcomp": stokes_k2["aggcomp_floor3max1"],
                               "stokes_scalar": stokes_k2["scalar"],
-                              "stokes_minres": stokes_k2["minres"]}
+                              "stokes_minres": stokes_k2["minres"], **precond_k2}
+    k2["bf16_values"] = bf16_record
     k5["launches"] = rvpinn_launches["p1_element_2d"]
     k5["launches_by_path"] = {"rvpinn": rvpinn_launches["p1_element_2d"],
                               "posteriori_rvpinn": posteriori_launches["p1_element_2d"],

@@ -306,8 +306,10 @@ class AbstractBasis(abc.ABC):
         (BSR: ``auto_preconditioner``, the rigid-body-mode coarse space on a
         vector basis; ELL: the smoothed two-level M, its tables cached on
         the basis); ``"rbm"`` (BSR, vector bases: the rigid-body-mode
-        coarse space by name; a scalar basis raises ``ValueError``).
-        ``"mult_two_level"`` is queued (ROADMAP.md, A6) and raises.
+        coarse space by name; a scalar basis raises ``ValueError``);
+        ``"mult_two_level"`` (BSR: the symmetrized multiplicative V(1,1)
+        cycle over the block two-level M, its smoother damped by 12
+        power-iteration SpMVs at setup; 3 SpMVs per iteration).
         ``symmetric_form=True`` asserts
         symmetric local matrices and takes the canonical-pair assembly (BSR
         only). ``solver="bicgstab"`` is for non-symmetric operators. With
@@ -346,11 +348,6 @@ class AbstractBasis(abc.ABC):
                     "'two_level', 'agg_block', 'mult_two_level', 'rbm' or "
                     "'jacobi')"
                 )
-            if precondition == "mult_two_level":
-                raise NotImplementedError(
-                    "precondition='mult_two_level' is not ported; see "
-                    "ROADMAP.md, queue A6"
-                )
             from ..ops.bsr import (
                 bsr_diagonal,
                 bsr_expand,
@@ -364,6 +361,7 @@ class AbstractBasis(abc.ABC):
             from ..ops.precondition import (
                 agg_block_two_level_from_values,
                 auto_preconditioner,
+                mult_two_level_from_values,
                 rbm_two_level_setup,
             )
 
@@ -380,6 +378,8 @@ class AbstractBasis(abc.ABC):
                 precond = auto_preconditioner(self, structure, values, diag)
             elif precondition == "agg_block":
                 precond = agg_block_two_level_from_values(structure, values, diag)
+            elif precondition == "mult_two_level":
+                precond = mult_two_level_from_values(structure, values, diag)
             elif precondition == "rbm":
                 precond = rbm_two_level_setup(self, structure)(values, diag)
             x, info = krylov(

@@ -1,10 +1,11 @@
 """Cell-volume basis on a single triangle or tetrahedral mesh.
 
 Counterpart of ``pytorch_fem_solver_tpu/basis/basis.py``: the P1, P2 and
-P3 DOF maps of triangles and tetrahedra, with point probing queued
-(ROADMAP.md, queue A7). ``interpolate`` evaluates on the basis's own
-quadrature points and takes the two-sided and one-sided traces onto the
-facet bases (the edges of a triangle mesh, the faces of a tet mesh). Local
+P3 DOF maps of triangles and tetrahedra. ``interpolate`` evaluates on the
+basis's own quadrature points and takes the two-sided and one-sided traces
+onto the facet bases (the edges of a triangle mesh, the faces of a tet
+mesh); ``probe`` evaluates at scattered points (located on the host with
+scipy's kd-tree, evaluated on the basis's device). Local
 entry (i, j) lands at global (row_i, col_j); the DOF tables and
 interior-DOF lists are computed on the host once (NumPy, float64) and move
 to the mesh's device.
@@ -116,6 +117,104 @@ class Basis(AbstractBasis):
     def _compute_jacobian_map(self, mesh, element):
         coords = self._cell_coordinates(mesh)
         return coords.mT @ element.barycentric_grad.to(coords)
+
+    def _locate_cells(self, points: np.ndarray, tol: float) -> np.ndarray:
+        """Host-side point location: the containing cell's id per query
+        point (int64 NumPy), as the JAX package finds it.
+
+        A kd-tree over the cell centroids, then a barycentric inside-test
+        over the nearest 8, then 64 candidates, then all cells in chunks of
+        2^16 one point at a time. Raises ``ValueError`` for a point outside
+        the mesh (beyond ``tol`` in barycentric terms).
+        """
+        from scipy.spatial import cKDTree
+
+        coords = host(self.mesh["cells", "coordinates"]).astype(np.float64)  # (T, k, d)
+        n_cells, k, d = coords.shape
+        if k != d + 1:
+            raise NotImplementedError(
+                "probe needs a flat simplex mesh (dim == ambient dim); "
+                "embedded fracture bases are not supported"
+            )
+        pts = np.asarray(points, dtype=np.float64).reshape(-1, d)
+        tree = cKDTree(coords.mean(axis=1))
+        found = np.full(pts.shape[0], -1, dtype=np.int64)
+        # barycentric via the affine system [1; x] = [[1..1]; V^T] lam
+        a_mat = np.concatenate([np.ones((n_cells, 1, k)), coords.transpose(0, 2, 1)], axis=1)
+
+        def _try(miss, cand):
+            rhs = np.concatenate([np.ones((miss.size, 1)), pts[miss]], axis=1)  # (M, k)
+            lam = np.linalg.solve(a_mat[cand], rhs[:, None, :, None])  # (M, kk, k, 1)
+            inside = (lam[..., 0] >= -tol).all(axis=-1)  # (M, kk)
+            hit = inside.any(axis=1)
+            first = inside.argmax(axis=1)
+            found[miss[hit]] = cand[np.arange(miss.size), first][hit]
+
+        for k_try in (8, 64):
+            miss = np.flatnonzero(found < 0)
+            if miss.size == 0:
+                break
+            kk = min(k_try, n_cells)
+            _, cand = tree.query(pts[miss], k=kk)
+            _try(miss, cand.reshape(miss.size, kk))
+        chunk = 1 << 16
+        for p_idx in np.flatnonzero(found < 0):
+            for start in range(0, n_cells, chunk):
+                _try(np.asarray([p_idx]), np.arange(start, min(start + chunk, n_cells))[None, :])
+                if found[p_idx] >= 0:
+                    break
+        if (found < 0).any():
+            bad = pts[np.flatnonzero(found < 0)[0]]
+            raise ValueError(f"probe point outside the mesh (first offender: {bad})")
+        return found
+
+    def probe(self, points, tensor: torch.Tensor, tol: float = 1e-10):
+        """Evaluate a DOF vector at arbitrary physical points.
+
+        The points are located on the host (``_locate_cells``); the inverse
+        affine map, the shape functions and the sums run on the basis's
+        device, in its dtype, through the element's own functions (as the
+        traces of ``interpolate`` do).
+
+        Args:
+          points: (P, d) physical coordinates inside the mesh.
+          tensor: (n_dofs, 1) DOF vector (e.g. a solve result).
+          tol: barycentric tolerance for the inside test.
+
+        Returns ``(values, grads)`` with shapes ``(P,)`` and ``(P, d)`` for
+        scalar bases, ``(P, nc)`` and ``(P, nc, d)`` for vector bases.
+        """
+        coords = self.mesh["vertices", "coordinates"]
+        d = int(coords.shape[-1])
+        pts = np.asarray(points, dtype=np.float64).reshape(-1, d)
+        cells = torch.as_tensor(self._locate_cells(pts, tol), device=coords.device)
+        pts_t = torch.as_tensor(pts, dtype=coords.dtype, device=coords.device)
+
+        first_vertex = self.mesh["cells", "coordinates"][cells][:, None, [0], :]  # (P, 1, 1, d)
+        inv_jac = self._inv_map_jacobian[cells]  # (P, 1, d, d)
+        ref = self._element.compute_inverse_map(
+            first_vertex, pts_t[:, None, None, :], inv_jac
+        )  # (P, 1, 1, d)
+        bar = self._element.compute_barycentric_coordinates(ref.squeeze(-2))  # (P, 1, n_bar, 1)
+        v, v_grad = self._element.compute_shape_functions(bar, inv_jac)
+        dof_vals = tensor[self._global_dofs4elements.long()[cells]][:, None]  # (P, 1, n_loc[*nc], 1)
+        nc = int(getattr(self, "n_components", 1))
+        if nc >= 2:
+            # lift the scalar shape tables to the vector layout exactly as
+            # VectorBasis.__init__ does (phi_l e_c, interleaved)
+            eye = torch.eye(nc, dtype=v.dtype, device=v.device)
+            p_n, one, n_loc, _ = v.shape
+            v = torch.einsum("polu,cC->polcC", v, eye).reshape(p_n, one, n_loc * nc, nc)
+            dd = v_grad.shape[-1]
+            v_grad = torch.einsum("pold,cC->polcCd", v_grad, eye.to(v_grad.dtype)).reshape(
+                p_n, one, n_loc * nc, nc, dd
+            )
+            values = (dof_vals * v).sum(-2)[:, 0]  # (P, nc)
+            grads = (dof_vals[..., None] * v_grad).sum(-3)[:, 0]  # (P, nc, d)
+        else:
+            values = (dof_vals * v).sum(-2)[:, 0, 0]  # (P,)
+            grads = (dof_vals * v_grad).sum(-2)[:, 0]  # (P, d)
+        return values, grads
 
     def _cell_coordinates(self, mesh):
         return mesh["cells", "coordinates"]

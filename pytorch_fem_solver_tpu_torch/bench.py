@@ -1,10 +1,16 @@
 """The DFN benchmark's assemble+solve path on the port.
 
-Counterpart of the repo-root ``bench.py:tpu_run_bsr`` with its defaults
-``BENCH_SOA=1``, ``BENCH_PRECOND=aggblock`` and ``BENCH_MAX_B=8``: P1
-``FractureNetworkBasis`` with ``ElementTri(1, 2)``, canonical-pair assembly
-into the hybrid 8x8 BSR layout, the aggregate-block two-level preconditioner
-and PCG to a relative residual of ``tol``.
+Counterpart of the repo-root ``bench.py:tpu_run_bsr`` with ``BENCH_SOA=1``
+and ``BENCH_MAX_B=8``: P1 ``FractureNetworkBasis`` with ``ElementTri(1,
+2)``, canonical-pair assembly into the hybrid 8x8 BSR layout, a
+preconditioner and PCG to a relative residual of ``tol``.
+``make_bsr_solve``'s ``precond`` takes the values of ``BENCH_PRECOND``
+(default ``aggblock``, the aggregate-block two-level M) branch by branch,
+with ``BENCH_PRECOND_DTYPE``, ``BENCH_AGG``, ``BENCH_AGG_SMOOTH`` and
+``BENCH_OMEGA`` as ``operand_dtype``, ``g``, ``gs`` and ``omega``.
+``python3 -m pytorch_fem_solver_tpu_torch.bench precond NAME H [bf16]``
+solves the network at ``h=H`` that way on the card and prints one JSON
+line.
 
 Where the JAX harness builds the (6, T) canonical-pair entries from
 ``v_grad`` and ``dx`` and the (3, T) load from ``v`` and ``dx`` with XLA, this
@@ -120,7 +126,7 @@ from .ops.bsr import (
     get_bsr_structure,
     inverse_inner_perm,
 )
-from .ops.compiled import aggblock_setup, bsr_pcg
+from .ops.compiled import PRECONDITIONERS, aggblock_setup, bsr_pcg
 from .ops.fused_pcg import fused_pcg, fused_pcg_steps, fused_shape
 from .ops.kernels import p1_element_3d
 from .ops.precondition import AggBlockTwoLevel
@@ -173,17 +179,38 @@ def _assembly(basis, st):
     return assemble
 
 
-def make_bsr_solve(basis, *, max_b: int = 8, tol: float = 1e-6, maxiter: int = 600):
+def make_bsr_solve(
+    basis,
+    *,
+    max_b: int = 8,
+    tol: float = 1e-6,
+    maxiter: int = 600,
+    precond: str = "aggblock",
+    operand_dtype=None,
+    g: int | None = None,
+    gs: int | None = None,
+    omega: float = 0.8,
+):
     """Build the host tables once; return ``solve() -> (x_pad, iterations,
     rel_res)``.
 
     ``x_pad`` is the permuted padded solution (``n_pad``,) of the structure
     ``get_bsr_structure(basis, max_b=max_b)`` (cached on the basis), and
     ``rel_res`` the final residual norm over ``||b||`` as a tensor.
+    ``precond`` is one of the repo-root ``bench.py``'s ``BENCH_PRECOND``
+    names (``aggblock``, ``two_level``, ``mult``, ``mult3``,
+    ``three_level``, ``affine``, ``auto``, ``smoothed``, ``jacobi``; see
+    ``ops.compiled.preconditioner_setup``), ``operand_dtype`` its
+    ``BENCH_PRECOND_DTYPE`` (``torch.bfloat16`` for ``bf16``), ``g`` and
+    ``gs`` its ``BENCH_AGG`` and ``BENCH_AGG_SMOOTH`` (None: adaptive) and
+    ``omega`` its ``BENCH_OMEGA`` (the smoothed M's damping).
     """
     st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=False)
     assemble = _assembly(basis, st)
-    solve_padded = bsr_pcg(st, "auto", tol=tol, maxiter=maxiter)
+    solve_padded = bsr_pcg(
+        st, precond, tol=tol, maxiter=maxiter, basis=basis, operand_dtype=operand_dtype,
+        g=g, gs=gs, omega=omega,
+    )
 
     def solve():
         values, b_pad = assemble()
@@ -1062,21 +1089,32 @@ def _main_eigsh(n: int, device) -> dict:
 
 def main(argv=None) -> int:
     """``tet_poisson N`` (P1), ``elasticity_3d N``, ``refined H``,
-    ``eigsh N`` or ``stokes N`` on the card (float32; the refined solve's
-    basis and the Stokes truth float64): one JSON line."""
+    ``eigsh N``, ``stokes N`` or ``precond NAME H [bf16]`` on the card
+    (float32; the refined solve's basis and the Stokes truth float64): one
+    JSON line."""
     import json
     import sys
 
     args = list(sys.argv[1:] if argv is None else argv)
     workloads = {"tet_poisson": (tet_poisson, _sine_load_3d),
                  "elasticity_3d": (elasticity_3d, _bubble_load)}
-    if len(args) != 2 or args[0] not in (*workloads, "refined", "eigsh", "stokes"):
+    precond_args = (
+        args[:1] == ["precond"] and len(args) in (3, 4) and args[1] in PRECONDITIONERS
+        and args[3:] in ([], ["bf16"])
+    )
+    if not precond_args and (
+        len(args) != 2 or args[0] not in (*workloads, "refined", "eigsh", "stokes")
+    ):
         print("usage: python3 -m pytorch_fem_solver_tpu_torch.bench "
-              "{tet_poisson|elasticity_3d|eigsh|stokes} N | refined H", file=sys.stderr)
+              "{tet_poisson|elasticity_3d|eigsh|stokes} N | refined H | "
+              f"precond {{{'|'.join(PRECONDITIONERS)}}} H [bf16]", file=sys.stderr)
         return 2
     device = config.resolve_device(None)
     card = _card_line()
-    if args[0] == "refined":
+    if precond_args:
+        out = {"metric": "precond", **_main_precond(args[1], float(args[2]), args[3:] == ["bf16"],
+                                                    device)}
+    elif args[0] == "refined":
         out = {"metric": "refined_dfn", **_main_refined(float(args[1]), device)}
     elif args[0] == "eigsh":
         out = {"metric": "eigsh_square", **_main_eigsh(int(args[1]), device)}
@@ -1086,6 +1124,34 @@ def main(argv=None) -> int:
         out = _main_solve(args[0], *workloads[args[0]], int(args[1]), device)
     print(json.dumps({**out, "card": card}), flush=True)
     return 0
+
+
+def _main_precond(name: str, h: float, bf16: bool, device) -> dict:
+    """``precond NAME H [bf16]``: ``make_bsr_solve(precond=NAME)`` on the
+    network at ``h``, float32 (bf16 preconditioner operands with ``bf16``):
+    the first solve, three timed ones and K2's launches by key in the
+    first."""
+    from .ops import cuda_build
+    from .utils import build_benchmark_network
+
+    t0 = _now(device)
+    mesh = build_benchmark_network(h, device=device, dtype=torch.float32)
+    basis = benchmark_basis(mesh)
+    t1 = _now(device)
+    solve = make_bsr_solve(basis, precond=name, operand_dtype=torch.bfloat16 if bf16 else None)
+    t2 = _now(device)
+    cuda_build.reset_launch_counts()
+    x, iterations, rel = solve()
+    t3 = _now(device)
+    k2 = {k: cuda_build.launch_counts[k] for k in ("bsr_spmv", "bsr_spmv_bf16")}
+    walls = _walls(solve, device)
+    return {
+        "precond": name, "operands": "bf16" if bf16 else "f32", "h": h,
+        "dofs": basis.n_dofs, "iterations": iterations, "rel_residual": float(rel),
+        "finite": bool(torch.isfinite(x).all()), "k2_launches": k2,
+        "first_wall_s": t3 - t2, "walls_s": walls, "median_wall_s": float(np.median(walls)),
+        "host_s": {"mesh_and_basis": t1 - t0, "tables": t2 - t1},
+    }
 
 
 def _main_solve(name, make, load, n, device) -> dict:

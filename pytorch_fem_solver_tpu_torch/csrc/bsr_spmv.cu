@@ -40,10 +40,26 @@
 //   streaming hint so they do not evict it, x through the read-only path.
 // - The 8 row sums are finished by a fixed sequence of xor shuffles, so y
 //   is bitwise the same on every run. Sums run in the dtype of x.
+//
+// bf16 values (the JAX package's values_dtype, and the bf16 inner copy of
+// the multiplicative cycle): the value type is a template parameter apart
+// from the x/y type. A 16-byte piece of bf16 is 8 values, one whole block
+// row, so a lane owns a row, 8 lanes cover a block and 4 blocks go in one
+// warp-wide load (a row's 8 tier-1 blocks are 2 such loads: kWaves is 2
+// there, so the 8 x words a lane holds per wave stay within the register
+// cap). The values' bytes halve against f32, the bound's other terms stay.
+// Each x word is rounded to bf16 first (the JAX package's x.astype(bf16);
+// a float64 x through float, as both frameworks round it), and each
+// product of the two bf16 numbers is formed and summed in the dtype of x:
+// exact products in f32, so the sums are what the plain version computes
+// up to their order.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 namespace {
 
@@ -52,40 +68,90 @@ constexpr int kBlockWords = kBlock * kBlock;
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 128;  // threads per thread block: 4 block-rows
-constexpr int kWaves = 4;  // warp-wide 16-byte loads of values in flight per lane
 constexpr int kMinBlocks = 8;  // resident blocks per SM to plan for: 64 registers
 
-// One 16-byte piece: 4 floats or 2 doubles.
-template <typename T>
-struct Piece;
+// What a lane loads and multiplies: one 16-byte piece V of values and the
+// matching x words X (4 floats, 2 doubles; for bf16 values one block row
+// of 8, against 8 words of x read as two float4 or four double2).
+template <typename TV, typename TX>
+struct Io;
 template <>
-struct Piece<float> {
-  using type = float4;
+struct Io<float, float> {
+  using V = float4;
+  using X = float4;
+  static __device__ __forceinline__ X load_x(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ float dot(const V& a, const X& b) {
+    return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+  }
 };
 template <>
-struct Piece<double> {
-  using type = double2;
+struct Io<double, double> {
+  using V = double2;
+  using X = double2;
+  static __device__ __forceinline__ X load_x(const double* p) {
+    return __ldg(reinterpret_cast<const double2*>(p));
+  }
+  static __device__ __forceinline__ double dot(const V& a, const X& b) {
+    return a.x * b.x + a.y * b.y;
+  }
 };
 
-__device__ __forceinline__ float dot(const float4& a, const float4& b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
-__device__ __forceinline__ double dot(const double2& a, const double2& b) {
-  return a.x * b.x + a.y * b.y;
+__device__ __forceinline__ double bf16_round(double v) {
+  // through float, as PyTorch and XLA round a double to bf16
+  return static_cast<double>(bf16_round(static_cast<float>(v)));
 }
 
-template <typename T>
+template <typename TX>
+struct Io<__nv_bfloat16, TX> {
+  using V = uint4;  // 8 bf16: one row of a block
+  static constexpr int kXPieces = 8 * sizeof(TX) / 16;
+  using P = typename std::conditional<sizeof(TX) == 4, float4, double2>::type;
+  struct X {
+    TX w[8];
+  };
+  static __device__ __forceinline__ X load_x(const TX* p) {
+    X out;
+#pragma unroll
+    for (int i = 0; i < kXPieces; ++i) {
+      const P q = __ldg(reinterpret_cast<const P*>(p) + i);
+      memcpy(out.w + i * (16 / sizeof(TX)), &q, 16);
+    }
+    return out;
+  }
+  static __device__ __forceinline__ TX dot(const V& a, const X& b) {
+    __nv_bfloat162 h[4];
+    memcpy(h, &a, 16);
+    TX s = TX(0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      s += static_cast<TX>(f.x) * bf16_round(b.w[2 * i]);
+      s += static_cast<TX>(f.y) * bf16_round(b.w[2 * i + 1]);
+    }
+    return s;
+  }
+};
+
+template <typename TV, typename TX>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    bsr_spmv_rows(const int* __restrict__ bcols, const T* __restrict__ v1,
-                  const int* __restrict__ bcols2, const T* __restrict__ v2,
+    bsr_spmv_rows(const int* __restrict__ bcols, const TV* __restrict__ v1,
+                  const int* __restrict__ bcols2, const TV* __restrict__ v2,
                   const int* __restrict__ row_blocks,
-                  const int* __restrict__ heavy_rank, const T* __restrict__ x,
-                  T* __restrict__ y, int64_t nb, int64_t B, int64_t B2) {
-  using V = typename Piece<T>::type;
-  constexpr int kVec = 16 / sizeof(T);              // words per piece
-  constexpr int kLanesPerRow = kBlock / kVec;       // 2 (f32) or 4 (f64)
-  constexpr int kLanesPerBlock = kBlock * kLanesPerRow;  // 16 or 32
-  constexpr int kBlocksPerWave = kWarp / kLanesPerBlock;  // 2 or 1
+                  const int* __restrict__ heavy_rank, const TX* __restrict__ x,
+                  TX* __restrict__ y, int64_t nb, int64_t B, int64_t B2) {
+  using V = typename Io<TV, TX>::V;
+  using X = typename Io<TV, TX>::X;
+  // warp-wide 16-byte loads of values in flight per lane
+  constexpr int kWaves = sizeof(TV) == 2 ? 2 : 4;
+  constexpr int kVec = 16 / sizeof(TV);             // values per piece
+  constexpr int kLanesPerRow = kBlock / kVec;       // 2 (f32), 4 (f64), 1 (bf16)
+  constexpr int kLanesPerBlock = kBlock * kLanesPerRow;  // 16, 32 or 8
+  constexpr int kBlocksPerWave = kWarp / kLanesPerBlock;  // 2, 1 or 4
 
   const int lane = threadIdx.x % kWarp;
   const int64_t r =
@@ -108,9 +174,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int64_t spill = __ldg(heavy_rank + r);
   const int in_tier1 = count < B ? count : static_cast<int>(B);
 
-  T acc = T(0);
+  TX acc = TX(0);
   for (int t0 = 0; t0 < count; t0 += kWaves * kBlocksPerWave) {
-    const T* vp[kWaves];
+    const TV* vp[kWaves];
     int col[kWaves];
     bool on[kWaves];
 #pragma unroll
@@ -131,41 +197,44 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         }
       }
     }
-    V a[kWaves], xv[kWaves];
+    V a[kWaves];
+    X xv[kWaves];
 #pragma unroll
     for (int w = 0; w < kWaves; ++w) {
       if (on[w]) {
         a[w] = __ldcs(reinterpret_cast<const V*>(vp[w]) + within);
-        xv[w] = __ldg(reinterpret_cast<const V*>(
-            x + static_cast<int64_t>(col[w]) * kBlock + x_off));
+        xv[w] = Io<TV, TX>::load_x(x + static_cast<int64_t>(col[w]) * kBlock + x_off);
       }
     }
 #pragma unroll
     for (int w = 0; w < kWaves; ++w) {
-      if (on[w]) acc += dot(a[w], xv[w]);
+      if (on[w]) acc += Io<TV, TX>::dot(a[w], xv[w]);
     }
   }
-  // lanes of one output row: the kLanesPerRow neighbours, in f32 also the
-  // other block of the wave 16 lanes away
+  // lanes of one output row: the kLanesPerRow neighbours, then the same
+  // row of the wave's other blocks, kLanesPerBlock lanes apart
 #pragma unroll
   for (int off = 1; off < kLanesPerRow; off <<= 1) {
     acc += __shfl_xor_sync(kFull, acc, off);
   }
-  if (kBlocksPerWave == 2) acc += __shfl_xor_sync(kFull, acc, kLanesPerBlock);
+#pragma unroll
+  for (int off = kLanesPerBlock; off < kWarp; off <<= 1) {
+    acc += __shfl_xor_sync(kFull, acc, off);
+  }
   if (lane < kLanesPerBlock && lane % kLanesPerRow == 0) {
     y[r * kBlock + lane / kLanesPerRow] = acc;
   }
 }
 
-template <typename T>
-int launch(const int* bcols, const T* v1, const int* bcols2, const T* v2,
-           const int* row_blocks, const int* heavy_rank, const T* x, T* y,
+template <typename TV, typename TX>
+int launch(const int* bcols, const TV* v1, const int* bcols2, const TV* v2,
+           const int* row_blocks, const int* heavy_rank, const TX* x, TX* y,
            int64_t nb, int64_t B, int64_t B2, cudaStream_t stream) {
   if (B < 1 || B2 < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (nb > 0) {
     constexpr int rows_per_block = kThreads / kWarp;
     const int64_t blocks = (nb + rows_per_block - 1) / rows_per_block;
-    bsr_spmv_rows<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+    bsr_spmv_rows<TV, TX><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
         bcols, v1, bcols2, v2, row_blocks, heavy_rank, x, y, nb, B, B2);
   }
   return static_cast<int>(cudaGetLastError());
@@ -178,8 +247,8 @@ extern "C" int bsr_spmv_f32(const int* bcols, const float* v1, const int* bcols2
                             const int* heavy_rank, const float* x, float* y,
                             int64_t nb, int64_t B, int64_t B2,
                             cudaStream_t stream) {
-  return launch<float>(bcols, v1, bcols2, v2, row_blocks, heavy_rank, x, y, nb, B,
-                       B2, stream);
+  return launch<float, float>(bcols, v1, bcols2, v2, row_blocks, heavy_rank, x, y,
+                              nb, B, B2, stream);
 }
 
 extern "C" int bsr_spmv_f64(const int* bcols, const double* v1, const int* bcols2,
@@ -187,6 +256,24 @@ extern "C" int bsr_spmv_f64(const int* bcols, const double* v1, const int* bcols
                             const int* heavy_rank, const double* x, double* y,
                             int64_t nb, int64_t B, int64_t B2,
                             cudaStream_t stream) {
-  return launch<double>(bcols, v1, bcols2, v2, row_blocks, heavy_rank, x, y, nb, B,
-                        B2, stream);
+  return launch<double, double>(bcols, v1, bcols2, v2, row_blocks, heavy_rank, x,
+                                y, nb, B, B2, stream);
+}
+
+extern "C" int bsr_spmv_bf16_f32(const int* bcols, const __nv_bfloat16* v1,
+                                 const int* bcols2, const __nv_bfloat16* v2,
+                                 const int* row_blocks, const int* heavy_rank,
+                                 const float* x, float* y, int64_t nb, int64_t B,
+                                 int64_t B2, cudaStream_t stream) {
+  return launch<__nv_bfloat16, float>(bcols, v1, bcols2, v2, row_blocks,
+                                       heavy_rank, x, y, nb, B, B2, stream);
+}
+
+extern "C" int bsr_spmv_bf16_f64(const int* bcols, const __nv_bfloat16* v1,
+                                 const int* bcols2, const __nv_bfloat16* v2,
+                                 const int* row_blocks, const int* heavy_rank,
+                                 const double* x, double* y, int64_t nb,
+                                 int64_t B, int64_t B2, cudaStream_t stream) {
+  return launch<__nv_bfloat16, double>(bcols, v1, bcols2, v2, row_blocks,
+                                       heavy_rank, x, y, nb, B, B2, stream);
 }

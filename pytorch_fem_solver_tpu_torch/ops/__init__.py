@@ -1,10 +1,9 @@
 """Device operators: element kernels, BSR and ELL assembly and SpMV, the
-aggregate-block and ELL two-level preconditioners, the Krylov solvers and
-the assemble+solve pipeline.
+two- and three-level preconditioners (aggregate-block, block-Jacobi,
+multiplicative, smoothed, affine / rigid-body-mode, ELL), the Krylov
+solvers and the assemble+solve pipelines.
 
-``__all__`` is the JAX package's less what is still queued in ROADMAP.md:
-the three-level and multiplicative preconditioner families and the
-smoothed matrix-free two-level M (A6)."""
+``__all__`` is the JAX package's."""
 
 from .bsr import (
     bsr_diagonal,
@@ -30,11 +29,18 @@ from .precondition import (
     batched_small_inv,
     block_two_level_from_values,
     build_affine_two_level_structure,
+    build_smoothed_two_level,
+    build_three_level_structure,
     build_two_level,
     build_two_level_structure,
     default_aggregate_size,
     get_affine_two_level_structure,
+    get_three_level_structure,
+    mult_three_level_from_values,
+    mult_two_level_from_values,
+    smoothed_two_level_matrix_free,
     spatial_aggregates,
+    three_level_from_values,
     two_level_from_values,
 )
 from .refine import RefineInfo, compiled_refined_solver
@@ -73,6 +79,7 @@ __all__ = [
     "get_ell_structure",
     "invert_scatter_map",
     "reduced_ell_operator",
+    "build_smoothed_two_level",
     "build_two_level",
     "build_two_level_structure",
     "spatial_aggregates",
@@ -88,8 +95,14 @@ __all__ = [
     "block_two_level_from_values",
     "batched_small_inv",
     "default_aggregate_size",
+    "smoothed_two_level_matrix_free",
     "auto_preconditioner",
+    "mult_two_level_from_values",
+    "mult_three_level_from_values",
+    "get_three_level_structure",
     "get_affine_two_level_structure",
     "build_affine_two_level_structure",
     "affine_two_level_from_values",
+    "build_three_level_structure",
+    "three_level_from_values",
 ]

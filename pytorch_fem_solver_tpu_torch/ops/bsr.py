@@ -13,6 +13,13 @@ hand-written CUDA kernel ``csrc/bsr_spmv.cu`` (``bsr_spmv``), with its plain
 PyTorch version (``_bsr_spmv_plain``) beside it for CPU tensors. The
 multi-column product of the Stokes solvers (``bsr_matvec_cols``) launches
 it once per column on the card.
+
+Values stored in a reduced dtype (bf16: ``compiled_bsr_solver(values_dtype=
+...)``, the inner copy of the multiplicative cycle) multiply an x of
+another dtype as the JAX package's ``bsr_matvec`` does: x is rounded to
+the values' dtype and the products are summed in x's dtype. On the card
+bf16 values with float32 or float64 x launch K2's bf16-values
+instantiation; no other pair of dtypes has a kernel.
 """
 
 from __future__ import annotations
@@ -401,11 +408,24 @@ def bsr_complete_symmetric(structure: BSRStructure, values):
 _SPMV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
 
 
+def _widen(v1, v2, x):
+    """The operands of a product of ``v1``/``v2`` with ``x`` in ``x``'s
+    dtype: unchanged for equal dtypes, else x rounded to the values' dtype
+    and all three widened to x's dtype (exact products for bf16 values:
+    the JAX package's ``preferred_element_type=x.dtype``)."""
+    if v1.dtype == x.dtype:
+        return v1, v2, x
+    out = x.dtype
+    return v1.to(out), v2.to(out), x.to(v1.dtype).to(out)
+
+
 def _bsr_spmv_plain(bcols, v1, x, bcols2, v2, heavy_rows):
     """Plain PyTorch version of K2: gather + einsum, as the JAX
     ``bsr_matvec`` computes it (own block by reshape, neighbours by
-    gather, tier-2 rows added back at the unique ``heavy_rows``). It walks
-    every slot, padding included: padded slots hold zero values."""
+    gather, tier-2 rows added back at the unique ``heavy_rows``), for any
+    pair of value and x dtypes (``_widen``). It walks every slot, padding
+    included: padded slots hold zero values."""
+    v1, v2, x = _widen(v1, v2, x)
     nb, _, k, _ = v1.shape
     x2 = x.reshape(nb, k)
     y = torch.einsum("rij,rj->ri", v1[:, 0], x2)
@@ -424,10 +444,22 @@ def bsr_spmv(bcols, v1, x, bcols2, v2, heavy_rows, row_blocks=None, heavy_rank=N
     ``row_blocks[r]`` stored blocks, the first ``B`` of them from tier 1 and
     the rest from row ``heavy_rank[r]`` of tier 2, and reads no padded slot
     (``heavy_rows`` is the plain version's table; the kernel does not read
-    it). ``y`` is bitwise the same on every launch.
+    it). ``y`` is bitwise the same on every launch. Values and ``x`` of one
+    dtype (float32, float64) launch K2 counted under ``"bsr_spmv"``; bf16
+    values with float32 or float64 ``x`` launch its bf16-values
+    instantiation, counted under ``"bsr_spmv_bf16"``; any other pair raises
+    ``TypeError``.
     """
     if x.device.type == "cpu":
         return _bsr_spmv_plain(bcols, v1, x, bcols2, v2, heavy_rows)
+    bf16 = v1.dtype != x.dtype
+    if bf16 and not (
+        v1.dtype == torch.bfloat16 and x.dtype in (torch.float32, torch.float64)
+    ):
+        raise TypeError(
+            f"the SpMV kernel takes values and x of one dtype, or bfloat16 values "
+            f"with float32 or float64 x; got {v1.dtype} values with {x.dtype} x"
+        )
     nb, B, k, _ = v1.shape
     nh, B2 = bcols2.shape
     if k != 8 or v1.shape[-1] != 8:
@@ -436,7 +468,7 @@ def bsr_spmv(bcols, v1, x, bcols2, v2, heavy_rows, row_blocks=None, heavy_rank=N
         raise ValueError(
             "the SpMV kernel needs the structure's row_blocks and heavy_rank tables"
         )
-    cuda_build.check(x, "x", (nb * k,), v1.dtype, align=16)
+    cuda_build.check(x, "x", (nb * k,), x.dtype, align=16)
     cuda_build.check(v1, "v1", (nb, B, k, k), v1.dtype, align=16)
     cuda_build.check(bcols, "bcols", (nb, B), torch.int32)
     cuda_build.check(v2, "v2", (nh, B2, k, k), v1.dtype, align=16)
@@ -444,30 +476,26 @@ def bsr_spmv(bcols, v1, x, bcols2, v2, heavy_rows, row_blocks=None, heavy_rank=N
     cuda_build.check(row_blocks, "row_blocks", (nb,), torch.int32)
     cuda_build.check(heavy_rank, "heavy_rank", (nb,), torch.int32)
     y = torch.empty_like(x)
-    fn = cuda_build.function("bsr_spmv", "bsr_spmv", v1.dtype, _SPMV_ARGTYPES)
+    fn = cuda_build.function("bsr_spmv", "bsr_spmv", v1.dtype, _SPMV_ARGTYPES, x.dtype)
     err = fn(
         bcols.data_ptr(), v1.data_ptr(), bcols2.data_ptr(), v2.data_ptr(),
         row_blocks.data_ptr(), heavy_rank.data_ptr(), x.data_ptr(), y.data_ptr(),
         nb, B, B2, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    cuda_build.raise_on_error(err, "bsr_spmv")
-    cuda_build.launch_counts["bsr_spmv"] += 1
+    key = "bsr_spmv_bf16" if bf16 else "bsr_spmv"
+    cuda_build.raise_on_error(err, key)
+    cuda_build.launch_counts[key] += 1
     return y
 
 
 def bsr_matvec(structure: BSRStructure, values, x):
     """y = A @ x through the SpMV kernel (K2).
 
-    ``x`` is the permuted padded vector (n_pad,). Values and ``x`` share one
-    dtype: reduced-precision value storage (the JAX ``values_dtype``) is not
-    ported yet (ROADMAP.md, queue B6).
+    ``x`` is the permuted padded vector (n_pad,). Values stored in another
+    dtype (bf16) meet an ``x`` rounded to it, and the sums run in ``x``'s
+    dtype (see ``bsr_spmv`` for the pairs the card takes).
     """
     v1, v2 = values
-    if v1.dtype != x.dtype:
-        raise NotImplementedError(
-            f"BSR values in {v1.dtype} with x in {x.dtype}: reduced-precision "
-            "value storage is not ported yet (ROADMAP.md, queue B6)"
-        )
     return bsr_spmv(
         structure.bcols, v1, x, structure.bcols2, v2, structure.heavy_rows,
         structure.row_blocks, structure.heavy_rank,
@@ -477,7 +505,8 @@ def bsr_matvec(structure: BSRStructure, values, x):
 def _bsr_spmv_cols_plain(bcols, v1, X, bcols2, v2, heavy_rows):
     """Plain version of K2 on an (n_pad, m) block: the JAX
     ``bsr_matvec_cols`` (two einsums over the column axis and the tier-2
-    rows added back at ``heavy_rows``)."""
+    rows added back at ``heavy_rows``), any pair of dtypes (``_widen``)."""
+    v1, v2, X = _widen(v1, v2, X)
     nb, _, k, _ = v1.shape
     m = X.shape[-1]
     x2 = X.reshape(nb, k, m)
@@ -497,13 +526,9 @@ def bsr_matvec_cols(structure: BSRStructure, values, X):
     CPU tensors take ``_bsr_spmv_cols_plain``. CUDA tensors launch K2 once
     per column, on a contiguous copy of it (``bsr_matvec``); a kernel that
     reads the values once for all m columns is queued (ROADMAP.md, B8).
+    Mixed dtypes follow ``bsr_matvec``.
     """
     v1, _ = values
-    if v1.dtype != X.dtype:
-        raise NotImplementedError(
-            f"BSR values in {v1.dtype} with X in {X.dtype}: reduced-precision "
-            "value storage is not ported yet (ROADMAP.md, queue B6)"
-        )
     if X.device.type == "cpu":
         return _bsr_spmv_cols_plain(
             structure.bcols, v1, X, structure.bcols2, values[1], structure.heavy_rows

@@ -40,8 +40,11 @@ element matrices, the lumped pressure mass) once at construction; A's
 values, the preconditioner and the nested Schur loop (``ops.saddle``) or
 MINRES per solve, every A product on K2.
 
-Not ported yet (ROADMAP.md, B6): reduced-precision preconditioner operands
-and reduced-precision SpMV values.
+The reduced-precision knobs: ``operand_dtype`` stores the preconditioner's
+dense apply operands reduced (``ops.precondition._mixed_matvec``);
+``values_dtype`` casts the SpMV values after the diagonal and the
+preconditioner are built from the full-precision ones, so every PCG
+product runs K2's bf16-values instantiation on the card.
 """
 
 from __future__ import annotations
@@ -67,10 +70,18 @@ from .bsr import (
     inverse_inner_perm,
 )
 from .precondition import (
+    affine_two_level_from_values,
     agg_block_two_level_from_values,
     auto_preconditioner_setup,
+    block_two_level_from_values,
     build_agg_block_table,
     default_aggregate_size,
+    get_affine_two_level_structure,
+    get_three_level_structure,
+    mult_three_level_from_values,
+    mult_two_level_from_values,
+    smoothed_two_level_matrix_free,
+    three_level_from_values,
 )
 from .solvers import bicgstab, pcg
 
@@ -85,12 +96,14 @@ __all__ = [
 ]
 
 
-def aggblock_setup(structure):
+def aggblock_setup(structure, g: Optional[int] = None, gs: Optional[int] = None,
+                   operand_dtype=None):
     """Build the aggregate table once; return ``setup(values, diag=None) ->
     AggBlockTwoLevel``, the aggblock preconditioner of assembled ``values``
-    (g from ``default_aggregate_size``, gs = min(g, 128))."""
-    g = default_aggregate_size(structure)
-    gs = min(g, 128)
+    (g from ``default_aggregate_size`` and gs = min(g, 128) unless given;
+    ``operand_dtype`` stores its inverses reduced)."""
+    g = default_aggregate_size(structure) if g is None else g
+    gs = min(g, 128) if gs is None else gs
     table = torch.as_tensor(
         build_agg_block_table(structure, gs), device=structure.bcols.device
     )
@@ -99,28 +112,85 @@ def aggblock_setup(structure):
         if diag is None:
             diag = bsr_diagonal(structure, values)
         return agg_block_two_level_from_values(
-            structure, values, diag, g=g, gs=gs, table=table
+            structure, values, diag, g=g, gs=gs, table=table, operand_dtype=operand_dtype
         )
 
     return setup
 
 
-def preconditioner_setup(structure, precondition: str = "auto", basis=None):
-    """The per-solve preconditioner setup of ``precondition``: None for
-    ``"jacobi"``; for ``"auto"`` the setup of ``auto_preconditioner`` on
-    ``basis`` (the rigid-body-mode M of a vector basis, else the
-    aggregate-block one), or the aggregate-block one without a basis.
-    Host tables are built here, once."""
-    if precondition not in ("auto", "jacobi"):
+#: the names ``preconditioner_setup`` takes: ``compiled_bsr_solver``'s two
+#: and the options of the repo-root ``bench.py`` (``BENCH_PRECOND``)
+PRECONDITIONERS = (
+    "auto", "jacobi", "aggblock", "two_level", "three_level", "mult", "mult3", "affine",
+    "smoothed",
+)
+
+
+def preconditioner_setup(
+    structure,
+    precondition: str = "auto",
+    basis=None,
+    *,
+    operand_dtype=None,
+    g: Optional[int] = None,
+    gs: Optional[int] = None,
+    omega: float = 0.8,
+):
+    """The per-solve preconditioner setup of ``precondition``, as
+    ``setup(values, diag) -> M`` (None for ``"jacobi"``). Host tables are
+    built here, once (cached on ``basis`` where the JAX package caches
+    them):
+
+    * ``"auto"``: ``auto_preconditioner`` on ``basis`` (the rigid-body-mode
+      M of a vector basis, else the aggregate-block one);
+    * ``"aggblock"``: the aggregate-block two-level M (``g``, ``gs``);
+    * ``"two_level"``: the 8x8 block-Jacobi two-level M (``g``);
+    * ``"three_level"`` / ``"mult3"``: the additive three-level M and its
+      multiplicative V(1,1) cycle (``omega="auto"``), tables on ``basis``;
+    * ``"mult"``: the multiplicative two-level cycle (``g``,
+      ``omega="auto"``);
+    * ``"affine"``: the [1, x, y, z] coarse space on ``basis`` (``g``);
+    * ``"smoothed"``: the matrix-free smoothed two-level M (``g``,
+      ``omega``).
+
+    ``operand_dtype`` stores the dense apply operands reduced (all but
+    ``"smoothed"``, which has none to store, as in the JAX package).
+    """
+    if precondition not in PRECONDITIONERS:
         raise ValueError(
-            f"unknown precondition: {precondition!r} (expected 'auto' or "
-            "'jacobi')"
+            f"unknown precondition: {precondition!r} (expected one of "
+            f"{', '.join(map(repr, PRECONDITIONERS))})"
         )
+    st, od = structure, operand_dtype
     if precondition == "jacobi":
         return None
+    if precondition == "aggblock":
+        return aggblock_setup(st, g, gs, od)
+    if precondition == "two_level":
+        return lambda values, diag: block_two_level_from_values(
+            st, values, diag, g=g, operand_dtype=od
+        )
+    if precondition == "mult":
+        return lambda values, diag: mult_two_level_from_values(
+            st, values, diag, g=g, operand_dtype=od
+        )
+    if precondition == "smoothed":
+        return lambda values, diag: smoothed_two_level_matrix_free(
+            st, values, diag, g=g, omega=omega
+        )
     if basis is None:
-        return aggblock_setup(structure)
-    return auto_preconditioner_setup(basis, structure)
+        raise ValueError(f"precondition {precondition!r} needs the basis")
+    if precondition == "auto":
+        return auto_preconditioner_setup(basis, st, od)
+    if precondition == "affine":
+        ast = get_affine_two_level_structure(basis, st, g=g)
+        return lambda values, diag: affine_two_level_from_values(
+            ast, st, values, diag, operand_dtype=od
+        )
+    tl = get_three_level_structure(basis, st)
+    build = three_level_from_values if precondition == "three_level" else (
+        mult_three_level_from_values)
+    return lambda values, diag: build(tl, st, values, diag, operand_dtype=od)
 
 
 def bsr_pcg(
@@ -129,21 +199,28 @@ def bsr_pcg(
     tol: float = 1e-10,
     maxiter: Optional[int] = None,
     basis=None,
+    *,
+    values_dtype=None,
+    **options,
 ):
     """Build ``run(values, b_pad) -> (x_pad, PCGInfo)`` for one structure.
 
-    ``"auto"`` builds the preconditioner's host tables here, once (the
-    aggregate-block two-level M, or on a vector ``basis`` the rigid-body-
-    mode one); each ``run`` sets the preconditioner up from the assembled
-    ``values`` and solves the padded reduced system by PCG on the SpMV
-    kernel. ``"jacobi"`` preconditions with the BSR diagonal.
+    The preconditioner's host tables are built here, once
+    (``preconditioner_setup`` with ``options``: ``operand_dtype``, ``g``,
+    ``gs``, ``omega``); each ``run`` sets the preconditioner up from the
+    assembled ``values`` and solves the padded reduced system by PCG on
+    the SpMV kernel. ``"jacobi"`` preconditions with the BSR diagonal.
+    With ``values_dtype`` the PCG products run on a copy of the values in
+    that dtype, made after the diagonal and the preconditioner.
     """
     st = structure
-    setup = preconditioner_setup(st, precondition, basis)
+    setup = preconditioner_setup(st, precondition, basis, **options)
 
     def run(values, b_pad):
         diag = bsr_diagonal(st, values)
         precond = None if setup is None else setup(values, diag)
+        if values_dtype is not None:
+            values = tuple(v.to(values_dtype) for v in values)
         return pcg(
             lambda v: bsr_matvec(st, values, v),
             b_pad,
@@ -222,7 +299,9 @@ def compiled_bsr_solver(
     precondition: str = "auto",
     symmetric_form: bool = True,
     max_b: Optional[int] = None,
+    operand_dtype=None,
     chunk_cells: Optional[int] = None,
+    values_dtype=None,
 ):
     """Build ``solve() -> (u, info)`` for a fixed basis + forms.
 
@@ -239,6 +318,13 @@ def compiled_bsr_solver(
         triangles); only valid for symmetric forms.
       max_b: tier-1 block cap; None picks ``default_max_b`` (8 in 2D, 24
         for tets).
+      operand_dtype: storage dtype of the preconditioner's dense apply
+        operands (e.g. ``torch.bfloat16``); None keeps the values'.
+      values_dtype: storage dtype of the SpMV values (e.g.
+        ``torch.bfloat16``): the diagonal and the preconditioner are built
+        from the full-precision values first, then the values are cast, so
+        the PCG solves the system of the rounded operator (about 1e-3 from
+        the full-precision answer in bf16, as the JAX package measured).
       chunk_cells: stream the symmetric scatter over chunks of this many
         cells (see the module docstring). None picks 2^18 for a symmetric
         form on more than 2M cells and 0 otherwise; 0 disables chunking.
@@ -298,7 +384,10 @@ def compiled_bsr_solver(
         max_b = default_max_b(basis)
     st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=not symmetric_form)
     chunks = _chunk_table(basis, st, int(chunk_cells), max_b) if chunk_cells else None
-    solve_padded = bsr_pcg(st, precondition, tol=tol, maxiter=maxiter, basis=basis)
+    solve_padded = bsr_pcg(
+        st, precondition, tol=tol, maxiter=maxiter, basis=basis,
+        values_dtype=values_dtype, operand_dtype=operand_dtype,
+    )
 
     # direct-to-padded rhs scatter (flat single-index linear layouts): the
     # load-vector targets pre-mapped through the inverse inner permutation
@@ -356,6 +445,10 @@ def _bsr_setup(basis, max_b, precondition):
     eigen forms are scattered entry by entry, as in the JAX package) and
     the per-solve preconditioner setup of ``precondition``
     (``preconditioner_setup``), its host tables built once."""
+    if precondition not in ("auto", "jacobi"):
+        raise ValueError(
+            f"unknown precondition: {precondition!r} (expected 'auto' or 'jacobi')"
+        )
     if max_b is None:
         max_b = default_max_b(basis)
     st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=True)
@@ -670,8 +763,8 @@ def compiled_stokes_solver(
         ``a_form``. Every inner solve then runs ``pcg_cols`` on the scalar
         operator of the companion scalar basis with the components as
         columns (schur method only; the caller owns the claim).
-      operand_dtype: reduced-precision preconditioner operands are not
-        ported (ROADMAP.md, B6); anything but None raises.
+      operand_dtype: storage dtype of the A-block preconditioner's dense
+        apply operands (e.g. ``torch.bfloat16``); None keeps the values'.
       matmul_precision: see ``_mm_precision``.
 
     Returns ``solve(f, g=None, x0=None) -> (u, p, StokesInfo)``; the
@@ -689,17 +782,12 @@ def compiled_stokes_solver(
         )
     if method not in ("minres", "schur"):
         raise ValueError(f"unknown method: {method!r} (expected 'minres' or 'schur')")
-    if operand_dtype is not None:
-        raise NotImplementedError(
-            "operand_dtype: reduced-precision preconditioner operands are not "
-            "ported yet (ROADMAP.md, queue B6)"
-        )
     _mm_precision(matmul_precision)  # an unknown name raises here, before any table
     common = dict(
         tol=tol, maxiter=maxiter, inner_tol=inner_tol, inner_maxiter=inner_maxiter,
         mass_form=mass_form, max_b=max_b, matmul_precision=matmul_precision,
         inner_eta=inner_eta, inner_tol_max=inner_tol_max, f_solve_tol=f_solve_tol,
-        recovery_tol=recovery_tol, inner_iters=inner_iters,
+        recovery_tol=recovery_tol, inner_iters=inner_iters, operand_dtype=operand_dtype,
     )
     if a_scalar_form is not None:
         if method != "schur":
@@ -749,12 +837,12 @@ def compiled_stokes_solver(
             return None
         if not is_vector:
             return agg_block_two_level_from_values(
-                st, values, diag, g=g_agg, gs=gs, table=agg_table
+                st, values, diag, g=g_agg, gs=gs, table=agg_table, operand_dtype=operand_dtype
             )
         return affine_two_level_from_values(
             ast, st, values, diag,
             fine="block_jacobi" if precondition == "auto" else "agg_block",
-            gs=gs, agg_table=agg_table,
+            gs=gs, agg_table=agg_table, operand_dtype=operand_dtype,
         )
 
     def _run(f, g, x0):
@@ -890,6 +978,7 @@ def _compiled_stokes_scalar_a(
     f_solve_tol: Optional[float],
     recovery_tol: Optional[float],
     inner_iters: Optional[int],
+    operand_dtype,
 ):
     """The component-decoupled Stokes schur solve (``a_scalar_form``).
 
@@ -960,7 +1049,10 @@ def _compiled_stokes_scalar_a(
         diag = bsr_diagonal(st, values)
         if precondition != "jacobi":
             precond_cols = _block(
-                agg_block_two_level_from_values(st, values, diag, g=g_agg, gs=gs, table=agg_table)
+                agg_block_two_level_from_values(
+                    st, values, diag, g=g_agg, gs=gs, table=agg_table,
+                    operand_dtype=operand_dtype,
+                )
             )
         else:
             inv_diag = 1.0 / torch.where(diag != 0, diag, torch.ones_like(diag))

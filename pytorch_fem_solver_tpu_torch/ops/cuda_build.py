@@ -41,6 +41,7 @@ NVCC_FLAGS = [
 launch_counts = {
     "p1_element_3d": 0,
     "bsr_spmv": 0,
+    "bsr_spmv_bf16": 0,
     "agg_smooth_restrict": 0,
     "coarse_prolong_dot": 0,
     "p1_element_2d": 0,
@@ -125,18 +126,26 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
 
-def function(lib_name: str, symbol: str, dtype: torch.dtype, argtypes):
-    """The C entry point ``<symbol>_<f32|f64>`` with its argtypes set.
+def function(lib_name: str, symbol: str, dtype: torch.dtype, argtypes, x_dtype=None):
+    """The C entry point ``<symbol>_<f32|f64>`` with its argtypes set, or
+    for a pair of dtypes (values in ``dtype``, vectors in another
+    ``x_dtype``) ``<symbol>_<dtype>_<x_dtype>``, e.g. ``bsr_spmv_bf16_f32``.
 
     Pointers and the stream travel as ``c_void_p`` and sizes as ``c_int64``:
     ctypes would otherwise pass Python ints as 32-bit and cut pointers.
     """
-    if dtype not in _SUFFIX:
-        raise TypeError(f"{symbol}: kernels take float32 or float64, got {dtype}")
-    fn = getattr(library(lib_name), f"{symbol}_{_SUFFIX[dtype]}")
+    if x_dtype is None or x_dtype == dtype:
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"{symbol}: kernels take float32 or float64, got {dtype}")
+        suffix = _SUFFIX[dtype]
+    else:
+        if dtype not in _SUFFIX or x_dtype not in _SUFFIX:
+            raise TypeError(f"{symbol}: no kernel for {dtype} with {x_dtype}")
+        suffix = f"{_SUFFIX[dtype]}_{_SUFFIX[x_dtype]}"
+    fn = getattr(library(lib_name), f"{symbol}_{suffix}")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

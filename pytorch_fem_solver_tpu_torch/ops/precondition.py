@@ -1,7 +1,6 @@
-"""Aggregate-block two-level preconditioner for the BSR system.
+"""Aggregate two- and three-level preconditioners for the BSR system.
 
-Counterpart of the aggblock subset of
-``pytorch_fem_solver_tpu/ops/precondition.py``:
+Counterpart of ``pytorch_fem_solver_tpu/ops/precondition.py``:
 
     M^{-1} r = D_g^{-1} r + P0 A_c^{-1} P0^T r,      A_c = P0^T A P0
 
@@ -11,16 +10,32 @@ coarse solve is one dense matvec against a precomputed inverse, and D_g is
 the block diagonal over the same groups. The additive combination of SPD
 terms is SPD, so CG theory applies unchanged.
 
+Beside the aggregate-block M: the 8x8 block-Jacobi two-level M
+(``block_two_level_from_values``), the additive three-level hierarchy with
+a sparse intermediate level (``ThreeLevelStructure`` host tables,
+``three_level_from_values``), the symmetrized multiplicative V(1,1) cycles
+over the two- and three-level hierarchies (``mult_two_level_from_values``,
+``mult_three_level_from_values``; the smoother damped by
+``_smoother_scale``) and the matrix-free smoothed-aggregation two-level M
+(``smoothed_two_level_matrix_free``), whose P applies are two more SpMVs.
+
 The affine / rigid-body-mode family follows (``AffineTwoLevelStructure``
 host tables with W from NumPy's float64 QR, ``affine_two_level_from_values``
 per assembly): the coarse space of vector bases, which
 ``auto_preconditioner`` picks for ``n_components >= 2``. Then the ELL
 family: the smoothed two-level preconditioner of the hybrid-ELL operator
 (``TwoLevelStructure`` host tables built once, ``two_level_from_values``
-per assembly: gather-only restriction and prolongation and a dense coarse
-inverse) and the plain block two-level ``build_two_level``. The
-three-level and multiplicative families of the JAX package are queued in
-ROADMAP.md (A6), and so are its reduced-precision operands (B6).
+per assembly, or the scipy setup ``build_smoothed_two_level`` with the
+smoothed Galerkin coarse matrix: gather-only restriction and prolongation
+and a dense coarse inverse) and the plain block two-level
+``build_two_level``.
+
+``operand_dtype`` (e.g. ``torch.bfloat16``) stores the dense apply
+operands of the BSR family (block and aggregate-block inverses, coarse and
+bottom-level inverses) in a reduced dtype; each apply then rounds its
+vector to that dtype and sums the exact products in the vector's dtype
+(``_mixed_matvec``). The W transfers of the affine family stay in the
+values' dtype.
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import config
+from .bsr import bsr_matvec
 from .sparse import ELLStructure, invert_scatter_map
 
 
@@ -56,12 +72,28 @@ def _prolong(z_c: torch.Tensor, g: int, n: int) -> torch.Tensor:
     return z_c[..., :, None].expand(*z_c.shape, g).reshape(*z_c.shape[:-1], n)
 
 
+def _mixed_matvec(eq: str, mat: torch.Tensor, vec: torch.Tensor, out_dtype) -> torch.Tensor:
+    """The apply's matvec on operands that may be stored reduced (bf16).
+
+    Equal dtypes take the plain product (``@`` for ``"ij,j->i"``, else
+    ``einsum``). Otherwise ``vec`` is rounded to ``mat``'s dtype and the
+    products are summed in ``out_dtype``, as the JAX package's
+    ``einsum(..., preferred_element_type=out_dtype)`` does: the product of
+    two bf16 numbers is exact in float32, so both operands are widened
+    before an ``out_dtype`` einsum (a bf16 einsum would round its output
+    to bf16). The widened copy of ``mat`` is made per call.
+    """
+    if mat.dtype == vec.dtype:
+        return mat @ vec if eq == "ij,j->i" else torch.einsum(eq, mat, vec)
+    return torch.einsum(eq, mat.to(out_dtype), vec.to(mat.dtype).to(out_dtype))
+
+
 def _apply_fine(blk_inv, inv_diag, r):
     """Fine smoother application: batched block-Jacobi or point Jacobi."""
     if blk_inv is None:
         return inv_diag * r
     k = blk_inv.shape[-1]
-    return torch.einsum("rij,rj->ri", blk_inv, r.reshape(-1, k)).reshape(-1)
+    return _mixed_matvec("rij,rj->ri", blk_inv, r.reshape(-1, k), r.dtype).reshape(-1)
 
 
 class TwoLevelPreconditioner(NamedTuple):
@@ -128,7 +160,8 @@ class BlockTwoLevel(NamedTuple):
     def coarse_apply(self, r: torch.Tensor) -> torch.Tensor:
         """P0 A_c^{-1} P0^T r — restriction/prolongation are reshapes."""
         r_c = r.reshape(-1, self.g).sum(dim=-1)
-        return _prolong(self.coarse_inv @ r_c, self.g, r.shape[0])
+        z_c = _mixed_matvec("ij,j->i", self.coarse_inv, r_c, r.dtype)
+        return _prolong(z_c, self.g, r.shape[0])
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         return _apply_fine(self.blk_inv, self.inv_diag, r) + self.coarse_apply(r)
@@ -186,6 +219,7 @@ def block_two_level_from_values(
     diag,
     g: int | None = None,
     fine: str = "block_jacobi",
+    operand_dtype=None,
 ):
     """Numeric setup of the block two-level preconditioner.
 
@@ -198,6 +232,8 @@ def block_two_level_from_values(
       diag: operator diagonal (n_pad,) (zeros on padded rows are safe).
       g: aggregate size; None picks ``default_aggregate_size``.
       fine: "block_jacobi" (8x8 diagonal-block inverses) or "jacobi".
+      operand_dtype: storage dtype of the block and coarse inverses (e.g.
+        ``torch.bfloat16``; see ``_mixed_matvec``); None keeps the values'.
     """
     block = structure.block
     if g is None:
@@ -239,19 +275,23 @@ def block_two_level_from_values(
     )
 
     safe = torch.where(diag != 0, diag, torch.ones_like(diag))
-    blk_inv = _fine_block_smoother(v1, fine)
+    blk_inv = _fine_block_smoother(v1, fine, operand_dtype)
+    if operand_dtype is not None:
+        coarse_inv = coarse_inv.to(operand_dtype)
     return BlockTwoLevel(inv_diag=1.0 / safe, coarse_inv=coarse_inv, g=g, blk_inv=blk_inv)
 
 
-def _fine_block_smoother(v1, fine: str = "block_jacobi"):
+def _fine_block_smoother(v1, fine: str = "block_jacobi", operand_dtype=None):
     """Diagonal-block inverses of the fine smoother (None for point
-    Jacobi). The diagonal block of a block-row always lives at tier-1 slot
-    b=0; padded rows' all-zero blocks are pinned to identity."""
+    Jacobi), in ``operand_dtype`` when given. The diagonal block of a
+    block-row always lives at tier-1 slot b=0; padded rows' all-zero
+    blocks are pinned to identity."""
     if fine == "jacobi":
         return None
     if fine != "block_jacobi":
         raise ValueError(f"unknown fine smoother: {fine!r}")
-    return batched_small_inv(_pin_zero_diagonal(v1[:, 0]))
+    blk_inv = batched_small_inv(_pin_zero_diagonal(v1[:, 0]))
+    return blk_inv if operand_dtype is None else blk_inv.to(operand_dtype)
 
 
 def _pin_zero_diagonal(d: torch.Tensor) -> torch.Tensor:
@@ -281,11 +321,12 @@ class AggBlockTwoLevel(NamedTuple):
 
     def coarse_apply(self, r: torch.Tensor) -> torch.Tensor:
         r_c = r.reshape(-1, self.g).sum(dim=-1)
-        return _prolong(self.coarse_inv @ r_c, self.g, r.shape[0])
+        z_c = _mixed_matvec("ij,j->i", self.coarse_inv, r_c, r.dtype)
+        return _prolong(z_c, self.g, r.shape[0])
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
-        fine = torch.einsum(
-            "rij,rj->ri", self.inv_agg, r.reshape(-1, self.gs)
+        fine = _mixed_matvec(
+            "rij,rj->ri", self.inv_agg, r.reshape(-1, self.gs), r.dtype
         ).reshape(-1)
         return fine + self.coarse_apply(r)
 
@@ -324,18 +365,24 @@ def agg_block_two_level_from_values(
     g: int | None = None,
     gs: int | None = None,
     table=None,
+    operand_dtype=None,
 ):
     """Numeric setup of the aggregate-block two-level M.
 
     Same Galerkin coarse level as ``block_two_level_from_values``; the fine
     smoother inverts the (gs, gs) aggregate diagonal blocks. ``gs`` defaults
     to ``min(g, 128)``. ``table`` may be precomputed: the device tensor of
-    ``build_agg_block_table`` (value-independent).
+    ``build_agg_block_table`` (value-independent). ``operand_dtype`` stores
+    both inverses reduced.
     """
-    base = block_two_level_from_values(structure, values, diag, g=g, fine="jacobi")
+    base = block_two_level_from_values(
+        structure, values, diag, g=g, fine="jacobi", operand_dtype=operand_dtype
+    )
     g = base.g
     gs = min(g, 128) if gs is None else gs
-    inv_agg = aggregate_block_inverses(structure, values, gs, table=table)
+    inv_agg = aggregate_block_inverses(
+        structure, values, gs, table=table, operand_dtype=operand_dtype
+    )
     # contiguous, as the fused tail's kernels read them (the Gauss-Jordan
     # result is a column slice of the augmented matrix)
     return AggBlockTwoLevel(
@@ -346,8 +393,9 @@ def agg_block_two_level_from_values(
     )
 
 
-def aggregate_block_inverses(structure, values, gs: int, table=None):
-    """(ns, gs, gs) inverses of the aggregate diagonal blocks."""
+def aggregate_block_inverses(structure, values, gs: int, table=None, operand_dtype=None):
+    """(ns, gs, gs) inverses of the aggregate diagonal blocks, in
+    ``operand_dtype`` when given."""
     if gs % structure.block or structure.n_pad % gs:
         raise ValueError(
             f"smoother block size {gs} must be a multiple of "
@@ -369,7 +417,323 @@ def aggregate_block_inverses(structure, values, gs: int, table=None):
     bpa = gs // k
     blocks = rows.reshape(-1, bpa, bpa, k, k)
     D = blocks.permute(0, 1, 3, 2, 4).reshape(-1, gs, gs)
-    return batched_small_inv(_pin_zero_diagonal(D))
+    inv_agg = batched_small_inv(_pin_zero_diagonal(D))
+    return inv_agg if operand_dtype is None else inv_agg.to(operand_dtype)
+
+
+# -- the three-level family -----------------------------------------------------
+
+
+class ThreeLevelStructure(NamedTuple):
+    """Host-built tables of the additive three-level preconditioner, on the
+    structure's device (int32, as the JAX package keeps them).
+
+    The intermediate coarse matrix A_c = P1^T A P1 (g1-aggregates) is kept
+    sparse: its unique entries are ``n_slots`` slots, filled by one scatter
+    of the per-block sums, from which the g2 x g2 diagonal blocks are
+    gathered directly and the dense bottom level summed.
+    """
+
+    slot_of_block: torch.Tensor  # (nb*B,) coarse slot per tier-1 block
+    slot_of_block2: torch.Tensor  # (nh*B2,) coarse slot per tier-2 block
+    diag_take: torch.Tensor  # (ncb, g2, g2) coarse slot per mid-diag entry
+    acc_bins: torch.Tensor  # (S,) bottom-level bin per coarse entry
+    n_slots: int
+    nc1: int
+    nc1p: int
+    ncb: int
+    g1: int
+    g2: int
+
+
+class ThreeLevel(NamedTuple):
+    """M^{-1} = B^{-1} + P1 (B_c^{-1} + P2 A_cc^{-1} P2^T) P1^T.
+
+    Additive three-level hierarchy over contiguous aggregates: 8x8
+    block-Jacobi at the fine level, g2 x g2 block-Jacobi on the sparse A_c
+    at the intermediate level, a dense inverse only at the bottom level
+    (nc1/g2 unknowns). All transfers are reshapes and broadcasts.
+    """
+
+    blk_inv: torch.Tensor  # (nb, k, k) fine diagonal-block inverses
+    mblk_inv: torch.Tensor  # (ncb, g2, g2) intermediate block inverses
+    acc_inv: torch.Tensor  # (ncb, ncb) bottom-level dense inverse
+    g1: int
+    g2: int
+    nc1: int
+    nc1p: int
+
+    def coarse_apply(self, r: torch.Tensor) -> torch.Tensor:
+        """P1 (B_c^{-1} + P2 A_cc^{-1} P2^T) P1^T r — transfers are reshapes."""
+        r_c = torch.nn.functional.pad(
+            r.reshape(-1, self.g1).sum(dim=-1), (0, self.nc1p - self.nc1)
+        )
+        mid = _mixed_matvec(
+            "rij,rj->ri", self.mblk_inv, r_c.reshape(-1, self.g2), r.dtype
+        ).reshape(-1)
+        z_cc = _mixed_matvec(
+            "ij,j->i", self.acc_inv, r_c.reshape(-1, self.g2).sum(dim=-1), r.dtype
+        )
+        z_c = (mid + _prolong(z_cc, self.g2, self.nc1p))[: self.nc1]
+        return _prolong(z_c, self.g1, r.shape[0])
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return _apply_fine(self.blk_inv, None, r) + self.coarse_apply(r)
+
+
+def build_three_level_structure(structure, g1: int = 32, g2: int = 32) -> ThreeLevelStructure:
+    """Host-side once-per-layout tables of the sparse-coarse three-level M
+    (NumPy, byte-identical to the JAX package's), moved to the structure's
+    device."""
+    block = structure.block
+    if g1 % block or structure.n_pad % g1:
+        raise ValueError(
+            f"g1={g1} must be a multiple of block {block} and divide "
+            f"n_pad {structure.n_pad}"
+        )
+    bcols = structure.bcols.cpu().numpy().astype(np.int64)
+    nb, B = bcols.shape
+    bpa = g1 // block
+    nc1 = structure.n_pad // g1
+
+    rows_c = np.repeat(np.arange(nb) // bpa, B)
+    pairs1 = rows_c * nc1 + (bcols // bpa).reshape(-1)
+    heavy = structure.heavy_rows.cpu().numpy().astype(np.int64)
+    bcols2 = structure.bcols2.cpu().numpy().astype(np.int64)
+    if heavy.size:
+        rows2 = np.repeat(heavy // bpa, bcols2.shape[1])
+        pairs2 = rows2 * nc1 + (bcols2 // bpa).reshape(-1)
+    else:
+        pairs2 = np.zeros((0,), dtype=np.int64)
+
+    upairs, inv = np.unique(np.concatenate([pairs1, pairs2]), return_inverse=True)
+    inv = inv.reshape(-1)
+    S = int(upairs.size)
+    ur = upairs // nc1
+    uc = upairs % nc1
+
+    nc1p = -(-nc1 // g2) * g2
+    ncb = nc1p // g2
+    diag_take = np.full((ncb, g2, g2), S, dtype=np.int64)
+    on_diag = (ur // g2) == (uc // g2)
+    diag_take[ur[on_diag] // g2, ur[on_diag] % g2, uc[on_diag] % g2] = np.nonzero(on_diag)[0]
+    acc_bins = (ur // g2) * ncb + uc // g2
+
+    device = structure.bcols.device
+
+    def index(a):
+        return torch.as_tensor(
+            np.asarray(a).astype(np.int32), dtype=config.index_dtype(), device=device
+        )
+
+    return ThreeLevelStructure(
+        slot_of_block=index(inv[: pairs1.size]),
+        slot_of_block2=index(inv[pairs1.size:]),
+        diag_take=index(diag_take),
+        acc_bins=index(acc_bins),
+        n_slots=S,
+        nc1=int(nc1),
+        nc1p=int(nc1p),
+        ncb=int(ncb),
+        g1=int(g1),
+        g2=int(g2),
+    )
+
+
+def get_three_level_structure(basis, structure, g1: int = 32, g2: int = 32) -> ThreeLevelStructure:
+    """Cached-per-basis three-level tables (host-built once per BSR layout),
+    keyed as the JAX package keys them."""
+    cache = getattr(basis, "_three_level_structures", None)
+    if cache is None:
+        cache = {}
+        basis._three_level_structures = cache
+    key = (structure.nb, structure.bcols.shape[1], structure.heavy_rows.shape[0], g1, g2)
+    tl = cache.get(key)
+    if tl is None:
+        tl = build_three_level_structure(structure, g1=g1, g2=g2)
+        cache[key] = tl
+    return tl
+
+
+def three_level_from_values(
+    tl: ThreeLevelStructure, structure, values, diag, operand_dtype=None
+) -> ThreeLevel:
+    """Numeric setup of the sparse-coarse three-level M, on the device.
+
+    The per-block sums scatter into A_c's ``n_slots`` unique entries
+    (``index_add_``; slot ``n_slots`` is the padding slot, pinned to 0, so
+    gathering it yields 0); the g2 x g2 diagonal blocks are gathered from
+    them (zero diagonals pinned to one) and inverted by Gauss-Jordan; the
+    bottom level sums them into ``ncb * ncb`` bins, is symmetrised, shifted
+    by 1e-7 max(trace / ncb, 1) and inverted by Cholesky.
+    ``operand_dtype`` stores the three dense apply operands reduced.
+    """
+    v1, v2 = values
+    coarse = v1.new_zeros(tl.n_slots + 1)
+    coarse.index_add_(0, tl.slot_of_block.long(), v1.sum(dim=(-1, -2)).reshape(-1))
+    if structure.heavy_rows.shape[0]:
+        coarse.index_add_(0, tl.slot_of_block2.long(), v2.sum(dim=(-1, -2)).reshape(-1))
+    coarse[tl.n_slots] = 0.0
+
+    mblocks = coarse[tl.diag_take.long()]  # (ncb, g2, g2)
+    mblk_inv = batched_small_inv(_pin_zero_diagonal(mblocks))
+
+    acc = coarse.new_zeros(tl.ncb * tl.ncb).index_add_(
+        0, tl.acc_bins.long(), coarse[: tl.n_slots]
+    ).reshape(tl.ncb, tl.ncb)
+    acc = 0.5 * (acc + acc.T)
+    shift = 1e-7 * torch.clamp(torch.trace(acc) / tl.ncb, min=1.0)
+    acc_inv = spd_inverse(acc + shift * torch.eye(tl.ncb, dtype=acc.dtype, device=acc.device))
+
+    blk_inv = _fine_block_smoother(v1, "block_jacobi", operand_dtype)
+    if operand_dtype is not None:
+        mblk_inv = mblk_inv.to(operand_dtype)
+        acc_inv = acc_inv.to(operand_dtype)
+    return ThreeLevel(
+        blk_inv=blk_inv,
+        mblk_inv=mblk_inv,
+        acc_inv=acc_inv,
+        g1=tl.g1,
+        g2=tl.g2,
+        nc1=tl.nc1,
+        nc1p=tl.nc1p,
+    )
+
+
+# -- the multiplicative cycles and the matrix-free smoothed M ------------------
+
+
+def _smoother_scale(smooth, matvec, n: int, dtype, iters: int = 12, device=None):
+    """1/rho(S A) from ``iters`` power-iteration steps: the smoother damping
+    that keeps the symmetrized multiplicative cycle SPD.
+
+    S A is similar to the SPD S^1/2 A S^1/2, so its top eigenvalue is real;
+    the alternating-sign start overlaps the high-frequency end where the
+    top modes live, and the 5% margin covers power iteration's approach
+    from below. A Python loop of ``iters`` steps on the device: nothing is
+    read back to the host. Returns a 0-dim tensor.
+    """
+    v = torch.where(torch.arange(n, device=device) % 2 == 0, 1.0, -1.0).to(dtype)
+    v = v / torch.sqrt(torch.tensor(float(n), dtype=dtype, device=device))
+    lam = torch.ones((), dtype=dtype, device=device)
+    for _ in range(iters):
+        w = smooth(matvec(v))
+        lam = torch.sqrt(torch.sum(w * w))
+        v = w / torch.clamp(lam, min=1e-30)
+    return 1.0 / (1.05 * torch.clamp(lam, min=1e-30))
+
+
+def _v11_cycle(blk_inv, coarse_apply, matvec, omega, structure, values):
+    """The symmetrized multiplicative V(1,1) cycle of the 8x8 block-Jacobi
+    smoother ``blk_inv`` around ``coarse_apply``, as a closure:
+
+        z = S r;  z += C (r - A z);  z += S (r - A z)
+
+    with S = scale * blockdiag(A)^{-1}, the scale ``_smoother_scale``'s for
+    ``omega="auto"``, else ``omega``; ``matvec`` is the A of the two inner
+    products and of the estimate."""
+    v1 = values[0]
+
+    def smooth0(r):
+        return _apply_fine(blk_inv, None, r)
+
+    if omega == "auto":
+        scale = _smoother_scale(smooth0, matvec, structure.n_pad, v1.dtype, device=v1.device)
+    else:
+        scale = torch.tensor(omega, dtype=v1.dtype, device=v1.device)
+
+    def smooth(r):
+        return scale.to(r.dtype) * smooth0(r)
+
+    def apply(r):
+        z = smooth(r)
+        z = z + coarse_apply(r - matvec(z))
+        z = z + smooth(r - matvec(z))
+        return z
+
+    return apply
+
+
+def mult_two_level_from_values(
+    structure,
+    values,
+    diag,
+    g: int | None = None,
+    omega="auto",
+    operand_dtype=None,
+    inner_dtype=None,
+):
+    """Symmetrized multiplicative (V(1,1)) block two-level preconditioner.
+
+    z = S r;  z += P0 A_c^{-1} P0^T (r - A z);  z += S (r - A z)
+
+    with S = omega * blockdiag(A)^{-1} (8x8 block-Jacobi) and the coarse
+    space of ``block_two_level_from_values``: two SpMVs (K2) per apply.
+    ``omega="auto"`` scales the smoother by 1/rho(S A) from 12
+    power-iteration SpMVs at setup (``_smoother_scale``); a float skips
+    the estimate. ``inner_dtype`` (e.g. ``torch.bfloat16``) runs the two
+    inner SpMVs and the estimate against a copy of the values in that
+    dtype (K2's bf16-values instantiation on the card); ``operand_dtype``
+    reduces the dense apply operands. Returns a closure, as the JAX
+    package does.
+    """
+    base = block_two_level_from_values(structure, values, diag, g=g, operand_dtype=operand_dtype)
+    inner_values = values
+    if inner_dtype is not None:
+        inner_values = tuple(v.to(inner_dtype) for v in values)
+    return _v11_cycle(
+        base.blk_inv, base.coarse_apply, lambda v: bsr_matvec(structure, inner_values, v),
+        omega, structure, values,
+    )
+
+
+def mult_three_level_from_values(
+    tl: ThreeLevelStructure,
+    structure,
+    values,
+    diag,
+    omega="auto",
+    operand_dtype=None,
+):
+    """Symmetrized multiplicative V(1,1) cycle over the three-level
+    hierarchy: the sandwich of ``mult_two_level_from_values`` with the
+    coarse correction of ``three_level_from_values``. Two SpMVs (K2) per
+    apply, 12 more at setup for ``omega="auto"``. Returns a closure."""
+    base = three_level_from_values(tl, structure, values, diag, operand_dtype=operand_dtype)
+    return _v11_cycle(
+        base.blk_inv, base.coarse_apply, lambda v: bsr_matvec(structure, values, v),
+        omega, structure, values,
+    )
+
+
+def smoothed_two_level_matrix_free(
+    structure, values, diag, g: int | None = None, omega: float = 0.67
+):
+    """Smoothed-aggregation two-level M^{-1} with matrix-free P applies.
+
+    M^{-1} = D^{-1} + P A_c^{-1} P^T with P = (I - omega D^{-1} A) P0, P
+    never stored: the restriction is a BSR SpMV and a reshape-sum, the
+    prolongation a broadcast and a BSR SpMV, so two SpMVs (K2) per apply.
+    The coarse matrix is the tentative Galerkin A_c = P0^T A P0 of
+    ``block_two_level_from_values`` (point-Jacobi fine part), not the
+    smoothed P^T A P of ``build_smoothed_two_level``. Returns a closure.
+    """
+    if g is None:
+        g = default_aggregate_size(structure)
+    base = block_two_level_from_values(structure, values, diag, g=g, fine="jacobi")
+    inv_diag, coarse_inv = base.inv_diag, base.coarse_inv
+    n_pad = structure.n_pad
+
+    def apply(r):
+        # P^T r = P0^T (I - omega A D^{-1}) r
+        rs = r - omega * bsr_matvec(structure, values, inv_diag * r)
+        z_c = coarse_inv @ rs.reshape(-1, g).sum(dim=-1)
+        # P z_c = (I - omega D^{-1} A) (P0 z_c)
+        z0 = _prolong(z_c, g, n_pad)
+        z = z0 - omega * inv_diag * bsr_matvec(structure, values, z0)
+        return inv_diag * r + z
+
+    return apply
 
 
 # -- the affine / rigid-body-mode family ----------------------------------------
@@ -410,11 +774,11 @@ class AffineTwoLevel(NamedTuple):
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         na, g, m = self.W.shape
         r_c = torch.einsum("agm,ag->am", self.W, r.reshape(na, g)).reshape(-1)
-        z_c = self.coarse_inv @ r_c
+        z_c = _mixed_matvec("ij,j->i", self.coarse_inv, r_c, r.dtype)
         z = torch.einsum("agm,am->ag", self.W, z_c.reshape(na, m)).reshape(-1)
         if self.inv_agg is not None:
-            fine = torch.einsum(
-                "rij,rj->ri", self.inv_agg, r.reshape(-1, self.gs)
+            fine = _mixed_matvec(
+                "rij,rj->ri", self.inv_agg, r.reshape(-1, self.gs), r.dtype
             ).reshape(-1)
         else:
             fine = _apply_fine(self.blk_inv, self.inv_diag, r)
@@ -616,6 +980,7 @@ def affine_two_level_from_values(
     fine: str = "block_jacobi",
     gs: int | None = None,
     agg_table=None,
+    operand_dtype=None,
 ) -> AffineTwoLevel:
     """Numeric setup of the affine-coarse two-level M, on the device.
 
@@ -630,7 +995,9 @@ def affine_two_level_from_values(
     ``fine="agg_block"`` swaps the 8x8 block-Jacobi smoother for the
     (gs x gs) aggregate diagonal-block inverses of ``AggBlockTwoLevel``;
     ``gs`` defaults to min(default_aggregate_size, 128), ``agg_table`` to
-    the device table of ``build_agg_block_table``.
+    the device table of ``build_agg_block_table``. ``operand_dtype`` stores
+    the coarse inverse and the smoother's inverses reduced; W stays in the
+    values' dtype.
     """
     v1, v2 = values
     na, m = ast.na, ast.m
@@ -656,10 +1023,14 @@ def affine_two_level_from_values(
     if fine == "agg_block":
         if gs is None:
             gs = min(default_aggregate_size(structure), 128)
-        inv_agg = aggregate_block_inverses(structure, values, gs, table=agg_table)
+        inv_agg = aggregate_block_inverses(
+            structure, values, gs, table=agg_table, operand_dtype=operand_dtype
+        )
         blk_inv = None
     else:
-        blk_inv = _fine_block_smoother(v1, fine)
+        blk_inv = _fine_block_smoother(v1, fine, operand_dtype)
+    if operand_dtype is not None:
+        coarse_inv = coarse_inv.to(operand_dtype)
     return AffineTwoLevel(
         inv_diag=1.0 / safe,
         coarse_inv=coarse_inv,
@@ -670,21 +1041,23 @@ def affine_two_level_from_values(
     )
 
 
-def rbm_two_level_setup(basis, structure):
+def rbm_two_level_setup(basis, structure, operand_dtype=None):
     """The rigid-body-mode coarse tables of a vector basis, built once and
     cached on the basis (``get_affine_two_level_structure``, with its
     ``ValueError`` on a scalar basis); returns ``setup(values, diag) ->
     AffineTwoLevel`` of assembled ``values`` (8x8 block-Jacobi smoother)."""
     ast = get_affine_two_level_structure(basis, structure, rbm=True)
-    return lambda values, diag: affine_two_level_from_values(ast, structure, values, diag)
+    return lambda values, diag: affine_two_level_from_values(
+        ast, structure, values, diag, operand_dtype=operand_dtype
+    )
 
 
-def auto_preconditioner_setup(basis, structure):
+def auto_preconditioner_setup(basis, structure, operand_dtype=None):
     """The host tables of ``auto_preconditioner``, built once per basis and
     layout and cached on the basis; returns ``setup(values, diag) -> M``
     of assembled ``values``."""
     if int(getattr(basis, "n_components", 1)) >= 2:
-        return rbm_two_level_setup(basis, structure)
+        return rbm_two_level_setup(basis, structure, operand_dtype)
     g = default_aggregate_size(structure)
     gs = min(g, 128)
     cache = getattr(basis, "_agg_block_tables", None)
@@ -699,11 +1072,11 @@ def auto_preconditioner_setup(basis, structure):
         )
         cache[key] = table
     return lambda values, diag: agg_block_two_level_from_values(
-        structure, values, diag, g=g, gs=gs, table=table
+        structure, values, diag, g=g, gs=gs, table=table, operand_dtype=operand_dtype
     )
 
 
-def auto_preconditioner(basis, structure, values, diag):
+def auto_preconditioner(basis, structure, values, diag, operand_dtype=None):
     """Size-appropriate aggregate preconditioner for the BSR operator.
 
     A scalar basis gets the aggregate-block two-level M (``g`` from
@@ -711,8 +1084,9 @@ def auto_preconditioner(basis, structure, values, diag):
     built once per basis and layout and held on the device. A vector basis
     (``n_components >= 2``, elasticity) gets the rigid-body-mode coarse
     space with the 8x8 block-Jacobi smoother (``rbm_two_level_setup``).
+    ``operand_dtype`` stores the dense apply operands reduced.
     """
-    return auto_preconditioner_setup(basis, structure)(values, diag)
+    return auto_preconditioner_setup(basis, structure, operand_dtype)(values, diag)
 
 
 # -- the ELL family ----------------------------------------------------------
@@ -741,6 +1115,106 @@ class SmoothedTwoLevel(NamedTuple):
         z_c = self.coarse_inv @ r_c
         z_fine = (self.p_vals * z_c[self.p_cols]).sum(dim=-1)
         return self.inv_diag * r + z_fine
+
+
+def build_smoothed_two_level(
+    structure: ELLStructure,
+    values,
+    coords: np.ndarray,
+    leaf: int = 32,
+    omega: float = 0.67,
+    max_row_nnz: int = 4,
+) -> SmoothedTwoLevel:
+    """Host setup (scipy, float64) of the smoothed two-level M of an
+    assembled ELL operator, its tables moved to the values' device.
+
+    P = (I - omega D^{-1} A) P0 over ``spatial_aggregates(coords, leaf)``,
+    each row truncated to its ``max_row_nnz`` largest-|weight| entries (the
+    same argsort as the JAX package, so the same entries are kept); the
+    smoothed Galerkin A_c = P^T A P, symmetrised, shifted by 1e-8 trace/nc
+    and inverted by NumPy. ``p_cols``/``pt_rows`` (restriction rows padded
+    with n) are the JAX package's tables element for element, as int64.
+
+    Args:
+      structure/values: assembled hybrid-ELL operator (reduced system).
+      coords: (n_inner, d) coordinates of the reduced DOFs (for clustering).
+    """
+    import scipy.sparse as sp
+
+    n = structure.n_inner
+    ell, spill = values
+    ell_np = ell.detach().cpu().numpy() * structure.pad_mask.cpu().numpy()
+    cols_np = structure.cols.cpu().numpy()
+    rows_np = np.repeat(np.arange(n), cols_np.shape[1])
+    A = sp.csr_matrix((ell_np.reshape(-1), (rows_np, cols_np.reshape(-1))), shape=(n, n))
+    if structure.spill_rows.shape[0]:
+        A = A + sp.csr_matrix(
+            (
+                spill.detach().cpu().numpy(),
+                (structure.spill_rows.cpu().numpy(), structure.spill_cols.cpu().numpy()),
+            ),
+            shape=(n, n),
+        )
+
+    D = np.where(A.diagonal() != 0, A.diagonal(), 1.0)
+    agg = spatial_aggregates(coords, leaf)
+    nc = int(agg.max()) + 1
+    P0 = sp.csr_matrix((np.ones(n), (np.arange(n), agg)), shape=(n, nc))
+    P = ((sp.identity(n, format="csr") - omega * sp.diags(1.0 / D) @ A) @ P0).tocsr()
+
+    # truncate each row of P to its largest-|weight| entries
+    if max_row_nnz is not None:
+        indptr, indices, data = P.indptr, P.indices, P.data
+        keep_mask = np.ones(P.nnz, dtype=bool)
+        counts = np.diff(indptr)
+        for row in np.nonzero(counts > max_row_nnz)[0]:
+            s, e = indptr[row], indptr[row + 1]
+            drop = np.argsort(np.abs(data[s:e]))[: (e - s) - max_row_nnz]
+            keep_mask[s + drop] = False
+        row_of_nnz = np.repeat(np.arange(n), counts)
+        new_counts = np.bincount(row_of_nnz[keep_mask], minlength=n)
+        P = sp.csr_matrix(
+            (data[keep_mask], indices[keep_mask], np.concatenate([[0], np.cumsum(new_counts)])),
+            shape=(n, nc),
+        )
+
+    Ac = (P.T @ A @ P).toarray()
+    Ac = 0.5 * (Ac + Ac.T)
+    shift = 1e-8 * np.trace(Ac) / nc
+    Ac_inv = np.linalg.inv(Ac + shift * np.eye(nc))
+
+    # prolong table: per fine row, its coarse columns + weights
+    coo = P.tocoo()
+    kp = int(np.bincount(coo.row, minlength=n).max())
+    p_cols = np.zeros((n, kp), dtype=np.int64)
+    p_vals = np.zeros((n, kp), dtype=np.float64)
+    order = np.argsort(coo.row, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(np.bincount(coo.row, minlength=n))])
+    pos = np.arange(coo.nnz) - starts[coo.row[order]]
+    p_cols[coo.row[order], pos] = coo.col[order]
+    p_vals[coo.row[order], pos] = coo.data[order]
+
+    # restrict table: per coarse column, its fine rows + weights
+    dp = int(np.bincount(coo.col, minlength=nc).max())
+    pt_rows = np.full((nc, dp), n, dtype=np.int64)
+    pt_vals = np.zeros((nc, dp), dtype=np.float64)
+    order_c = np.argsort(coo.col, kind="stable")
+    starts_c = np.concatenate([[0], np.cumsum(np.bincount(coo.col, minlength=nc))])
+    pos_c = np.arange(coo.nnz) - starts_c[coo.col[order_c]]
+    pt_rows[coo.col[order_c], pos_c] = coo.row[order_c]
+    pt_vals[coo.col[order_c], pos_c] = coo.data[order_c]
+
+    def real(a):
+        return torch.as_tensor(a, dtype=ell.dtype, device=ell.device)
+
+    return SmoothedTwoLevel(
+        inv_diag=real(1.0 / np.where(D != 0, D, 1.0)),
+        p_cols=torch.as_tensor(p_cols, device=ell.device),
+        p_vals=real(p_vals),
+        pt_rows=torch.as_tensor(pt_rows, device=ell.device),
+        pt_vals=real(pt_vals),
+        coarse_inv=real(Ac_inv),
+    )
 
 
 class TwoLevelStructure(NamedTuple):

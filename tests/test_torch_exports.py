@@ -37,17 +37,7 @@ F2 = [[0, 0, -1], [0, 0, 1], [0, 1, 1], [0, 1, -1]]
 UNPORTED = {
     "": set(),
     "basis": set(),
-    "ops": {
-        # A6: the three-level and multiplicative families, the smoothed
-        # matrix-free two-level M
-        "build_three_level_structure",
-        "get_three_level_structure",
-        "three_level_from_values",
-        "mult_three_level_from_values",
-        "mult_two_level_from_values",
-        "build_smoothed_two_level",
-        "smoothed_two_level_matrix_free",
-    },
+    "ops": set(),
     # A8 (StepTimer, trace, write_vtk); the raw seven-fractures loaders
     # read data this host does not have (not queued)
     "utils": {"StepTimer", "trace", "write_vtk", "load_seven_fractures_raw",

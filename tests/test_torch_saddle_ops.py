@@ -14,7 +14,9 @@ their bases from the same generator output; right-hand sides and start
 blocks cross as the same NumPy arrays.
 
 Held: the mixed forms to 1e-13 and their two validation errors with the
-JAX words; ``bsr_matvec_cols`` to 1e-12, ``bsr_reduce_cols`` and
+JAX words; ``bsr_matvec_cols`` to 1e-12 (float64 values on a float32
+block to 1e-6 of max |Y|, the JAX package's mixed-dtype sums),
+``bsr_reduce_cols`` and
 ``bsr_expand_cols`` bitwise; ``pcg_cols`` with the same shared iteration
 count, X to 1e-10, and each column equal to a single-column ``pcg``; the
 per-column preconditioner of the scalar Stokes path bitwise the M of each
@@ -150,8 +152,12 @@ def test_bsr_cols_helpers_match_jax(poisson10):
     for c in range(2):
         y = bsr.bsr_matvec(tst, tvals, red[:, c].contiguous())
         np.testing.assert_allclose(Y[:, c].numpy(), y.numpy(), rtol=0, atol=atol)
-    with pytest.raises(NotImplementedError, match="B6"):
-        bsr.bsr_matvec_cols(tst, tvals, red.float())
+    # float64 values on a float32 block: x rounded to the values' dtype,
+    # sums in float32, as the JAX package computes it
+    Y32 = bsr.bsr_matvec_cols(tst, tvals, red.float())
+    Y32_jax = np.asarray(jbsr.bsr_matvec_cols(jst, jvals, red_j.astype(jnp.float32)))
+    assert Y32.dtype == torch.float32 and Y32_jax.dtype == np.float32
+    np.testing.assert_allclose(Y32.numpy(), Y32_jax, rtol=0, atol=1e-6 * np.abs(Y32_jax).max())
 
 
 def test_pcg_cols_matches_jax(poisson10):

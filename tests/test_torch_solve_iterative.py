@@ -12,9 +12,10 @@ unit square, against the JAX package:
   lifted), 1e-12;
 * ``Basis.interpolate`` of a DOF vector and of a function's nodal samples,
   values and gradients, 1e-13;
-* the raises: names the JAX package refuses, the options queued in
-  ROADMAP.md (``mult_two_level``, ``rbm``), interpolation onto a cell basis
-  of another mesh (refused by both packages).
+* ``precondition="mult_two_level"`` in the JAX iteration count; the
+  raises: names the JAX package refuses, ``rbm`` on a scalar basis,
+  interpolation onto a cell basis of another mesh (refused by both
+  packages).
 """
 
 import math
@@ -173,8 +174,11 @@ def test_interpolate_matches_jax(mesh, dfn, square):
 
 def test_named_raises(dfn, square):
     jV, pV, jl, pl, jb, pb = dfn
-    with pytest.raises(NotImplementedError, match="queue A6"):
-        pV.solve_iterative(pl, pb, precondition="mult_two_level")
+    # the multiplicative cycle runs as the JAX package's does
+    u_ref, info_ref = jV.solve_iterative(jl, jb, precondition="mult_two_level", return_info=True)
+    u, info = pV.solve_iterative(pl, pb, precondition="mult_two_level", return_info=True)
+    assert info.iterations == int(info_ref.iterations) and bool(info.converged)
+    assert _rel(u, u_ref) <= 1e-10
     # the rigid-body-mode space needs a vector basis: the JAX package's text
     with pytest.raises(ValueError) as ref:
         jV.solve_iterative(jl, jb, precondition="rbm")

@@ -31,7 +31,8 @@ of a solve are the counts ``chip_smoke.py`` holds K2's launches to: sum
 over the inner PCG calls of (iterations + 1) for the Schur loop, twice that
 on the scalar path (two component columns), iterations + 1 + refreshes + 1
 + the recovery's (iterations + 1) for MINRES. The JAX package's validation
-errors, and ``operand_dtype`` refused naming ROADMAP B6.
+errors, and bf16 preconditioner operands (``operand_dtype``) in the JAX
+counts (the recovery solve within 1; ROADMAP.md, queue C).
 """
 
 import math
@@ -230,8 +231,17 @@ def test_compiled_stokes_validation(square8):
         compiled_stokes_solver(tVu, tVp, a_form, div_form, precondition="two_level")
     with pytest.raises(ValueError, match="unknown method"):
         compiled_stokes_solver(tVu, tVp, a_form, div_form, method="gmres")
-    with pytest.raises(NotImplementedError, match="B6"):
-        compiled_stokes_solver(tVu, tVp, a_form, div_form, operand_dtype=torch.bfloat16)
+    # bf16 preconditioner operands (the component coarse space): the JAX
+    # package's outer and inner counts and answer; the recovery solve ends
+    # one iteration apart (JAX 10, port 9: a bf16-rounded residual turns
+    # last-bit differences into 2^-8 ones; ROADMAP.md, queue C)
+    jVu, jVp, _, _, f = square8
+    opts = dict(tol=1e-9, inner_tol=1e-11, precondition="agg_comp")
+    u_j, p_j, info_j = jax_compiled(jVu, jVp, a_form, div_form, operand_dtype=jnp.bfloat16,
+                                    **opts)(jnp.asarray(f))
+    run = compiled_stokes_solver(tVu, tVp, a_form, div_form, operand_dtype=torch.bfloat16,
+                                 **opts)(torch.as_tensor(f))
+    _assert_parity((np.asarray(u_j), np.asarray(p_j), info_j), run, slack=(0, 1))
     Vu_rx = pt.VectorBasis(tVu.mesh, pt.ElementTri(2, 4), dirichlet_components=(0,))
     with pytest.raises(ValueError, match="components"):
         compiled_stokes_solver(Vu_rx, tVp, a_form, div_form, a_scalar_form=a_scalar)
