@@ -339,6 +339,23 @@ Phases (any failure exits non-zero and prints no result):
     Jacobi); ``probe`` of 100,000 seeded points after a P1 solve on
     ``unit_square(256)``, within 1e-5 of max |ref| of the float64 CPU
     probe (a JSON ``preconditioners_and_reduced_precision`` line).
+27. the row-sharded solve and the ``utils`` on a world-size-1 NCCL group
+    (a FileStore in a temporary directory, no network; destroyed at the
+    end): ``sharded_bsr_solver`` on phase 1's network in float32 against
+    ``compiled_bsr_solver``: converged, within 2 iterations of it (the JAX
+    package's bound), within 1e-4 of its solution and within 1e-4 + 2 x
+    its float32 floor of the float64 solution (phase 26's rule), K2
+    launched (iterations + 1) times on the rank's block rows against the
+    gathered iterate; both solves timed with ``StepTimer`` (median of 5)
+    and one sharded solve profiled (device ms, idle share); one solve's
+    Chrome trace written by ``trace()`` and found to name ``bsr_spmv``;
+    ``probe_device`` under an armed ``Watchdog``; the solution written by
+    ``write_vtk`` and its point count read back; K2 on the real block-row
+    slices of a 2-shard plan of the network against its plain version
+    (float64 1e-12, float32 1e-5, bitwise repeatable), shard 0's time
+    beside plain, a CSR ``torch.mv`` of its rows and its bound (a JSON
+    ``sharded_bsr`` line; the kernels line's K2 carries the ``row_slice``
+    figures and the sharded solve's launches).
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
@@ -441,6 +458,7 @@ L2_BYTES = 50 * 2**20
 # device cycles spun per launch queued behind the spin of a stream figure
 # (about 0.5 ms each: several times what the host takes to enqueue one)
 STREAM_SPIN_CYCLES = 1_000_000
+STREAM_ATTEMPTS = 4
 P3_N = 105  # tools/exp_solver_tier.py's "p3" phase: rectangle(105, 105), ElementTri(3, 5)
 P3_SIZE = (22_050, 99_856)  # its cells and DOFs
 P2_DFN_SIZE = (19_680, 39_267)  # cells and P2 DOFs of the h=0.1 benchmark network
@@ -642,6 +660,9 @@ SMOOTHED_H = 0.1
 PROBE_N = 256
 PROBE_POINTS = 100_000
 PROBE_TOL = 1e-5  # float32 card probe vs float64 CPU probe, relative to max |ref|
+SHARDED_REPEATS = 5  # phase 27's StepTimer medians
+SHARDED_ITER_GAP = 2  # the JAX package's own bound (tests/test_sharding.py)
+SHARDED_WATCHDOG_S = 300.0
 
 failures: list[str] = []
 # name -> one launch at the benchmark shapes, registered by the phases for
@@ -714,7 +735,9 @@ def stream_us(make_args, fn, copies: int, keys: tuple):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    for _ in range(2):  # the profiler has been seen to return no device event once
+    # the profiler has been seen to return none of a kernel's device events,
+    # in one run twice in a row: up to STREAM_ATTEMPTS sessions
+    for _ in range(STREAM_ATTEMPTS):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(STREAM_SPIN_CYCLES * copies)
             start.record()
@@ -722,13 +745,14 @@ def stream_us(make_args, fn, copies: int, keys: tuple):
             end.record()
             torch.cuda.synchronize()
         del outs
-        ranges = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and any(k in e.name for k in keys))
+        device_events = [e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+        ranges = sorted((e.time_range.start, e.time_range.end) for e in device_events
+                        if any(k in e.name for k in keys))
         if len(ranges) == copies:
             break
         log(f"stream figure of {keys[0]}: the profiler recorded {len(ranges)} of {copies} "
-            "launches; measuring again")
+            f"launches ({len(device_events)} device events in all); measuring again")
     del sets
     check(len(ranges) == copies,
           f"stream figure of {keys[0]}: {len(ranges)} device events for {copies} launches")
@@ -4207,6 +4231,210 @@ def phase_precond(card, st, V32, V64):
     return bf16_record, launches_by_path
 
 
+def _row_slice_k2(V32, local32):
+    """K2 on real block-row slices: the two shards of a 2-shard plan of the
+    network (built on the host, no process group), each shard's rows
+    against the whole padded iterate, against the plain version in float64
+    (1e-12 of ||y||) and float32 (1e-5), two launches bitwise equal; the
+    time of shard 0's float32 slice beside plain, a CSR ``torch.mv`` of the
+    same rows and the bound of the bytes it needs (its stored blocks and
+    columns, its two row tables, the x blocks its columns name, y)."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+    from pytorch_fem_solver_tpu_torch.ops.bsr import _bsr_spmv_plain, bsr_spmv
+    from pytorch_fem_solver_tpu_torch.parallel import sharded_bsr as psb
+
+    plan = psb.build_bsr_shard_plan(V32, 2)
+    st, k = plan.st, plan.st.block
+    x64 = torch.as_tensor(np.random.default_rng(SEED + 29).standard_normal(plan.nb_pad * k),
+                          device=DEVICE)
+    max_abs, rec = 0.0, {}
+    for rank in range(2):
+        t = psb._shard_tables(plan, rank, DEVICE)
+        v1, v2, _ = psb._scatter_local_values(plan, local32.double()[t.cells], t)
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            a1, a2, x = v1.to(dtype), v2[: t.nh].to(dtype).contiguous(), x64.to(dtype)
+            args = (t.bcols, a1, x, t.bcols2, a2, t.hrows, t.row_blocks, t.heavy_rank)
+            before = cuda_build.launch_counts["bsr_spmv"]
+            y = bsr_spmv(*args)
+            counted = cuda_build.launch_counts["bsr_spmv"] - before
+            again = bsr_spmv(*args)
+            ref = _bsr_spmv_plain(*args[:6])
+            torch.cuda.synchronize()
+            err = float((y - ref).norm() / ref.norm())
+            check(bool(torch.isfinite(y).all()) and err <= tol and y.shape == (plan.rps * k,),
+                  f"K2 row slice {rank} of 2 ({plan.rps} of {plan.nb_pad} block rows, x of "
+                  f"{x.numel()}) {dtype} vs plain: rel err {err:.3e} <= {tol:g}")
+            check(torch.equal(y, again) and counted == 1,
+                  f"K2 row slice {rank} {dtype}: two launches bitwise equal, {counted} launch")
+            if dtype == torch.float32:
+                max_abs = max(max_abs, float((y - ref).abs().max()))
+        if rank == 0:
+            args32 = (t.bcols, v1.float(), x64.float(), t.bcols2, v2[: t.nh].float().contiguous(),
+                      t.hrows, t.row_blocks, t.heavy_rank)
+            rows = plan.rps
+            counts = t.row_blocks.cpu().numpy().astype(np.int64)
+            n_stored = int(counts.sum())
+            cols = np.concatenate([
+                np.concatenate([plan.bcols_sh[r, :min(c, t.bcols.shape[1])] for r, c in
+                                enumerate(counts)]),
+                t.bcols2.cpu().numpy().reshape(-1)])
+            n_bytes = (n_stored * (64 * 4 + 4) + 2 * rows * 4 + np.unique(cols).size * k * 4
+                       + rows * k * 4)
+            b_ms, by = bound_ms(n_bytes, 2 * 64 * n_stored)
+            csr = _row_csr(args32, rows, k, x64.numel())
+            y_lib = torch.mv(csr, args32[2])
+            lib_err = float((y_lib - bsr_spmv(*args32)).norm() / y_lib.norm())
+            check(lib_err <= 1e-5, f"K2 row slice vs torch CSR matvec of its rows: {lib_err:.3e}")
+            rec = {"rows": rows, "of_rows": plan.nb_pad, "stored_blocks": n_stored,
+                   "ms": time_ms(lambda: bsr_spmv(*args32)),
+                   "plain_ms": time_ms(lambda: _bsr_spmv_plain(*args32[:6])),
+                   "library_ms": time_ms(lambda: torch.mv(csr, args32[2])),
+                   "bound_ms": b_ms, "bound_by": by}
+    rec["max_abs_err"] = max_abs
+    log(f"K2 row slice (shard 0 of 2: {rec['rows']} of {rec['of_rows']} block rows, "
+        f"{rec['stored_blocks']} stored blocks): {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} "
+        f"ms, torch CSR {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
+        f"{rec['bound_by']})")
+    return rec
+
+
+def _row_csr(args, rows, k, n_cols):
+    """The stored blocks of a row slice as one torch CSR matrix (rows * k,
+    n_cols): the library yardstick of the row-slice product."""
+    import torch
+
+    bcols, v1, _, bcols2, v2, hrows, row_blocks, _ = args
+    B, B2 = bcols.shape[1], bcols2.shape[1]
+    dev = v1.device
+    counts = row_blocks.long()
+    slot = torch.arange(B, device=dev)
+    on1 = slot[None, :] < counts[:, None]
+    br = [torch.arange(rows, device=dev)[:, None].expand(rows, B)[on1]]
+    bc, vals = [bcols.long()[on1]], [v1[on1]]
+    if hrows.numel():
+        on2 = torch.arange(B2, device=dev)[None, :] < (counts[hrows] - B)[:, None]
+        br.append(hrows[:, None].expand(-1, B2)[on2])
+        bc.append(bcols2.long()[on2])
+        vals.append(v2[on2])
+    br, bc, vals = torch.cat(br), torch.cat(bc), torch.cat(vals)
+    ii, jj = torch.meshgrid(torch.arange(k, device=dev), torch.arange(k, device=dev),
+                            indexing="ij")
+    a = torch.sparse_coo_tensor(
+        torch.stack([(br[:, None, None] * k + ii).reshape(-1),
+                     (bc[:, None, None] * k + jj).reshape(-1)]),
+        vals.reshape(-1), (rows * k, n_cols), check_invariants=False,
+    )
+    return a.coalesce().to_sparse_csr()
+
+
+def phase_sharded(card, V32, V64):
+    """Phase 27: the row-sharded BSR solve and the ``utils`` on the card. A
+    world-size-1 NCCL group through a FileStore in a temporary directory
+    (no network), destroyed at the end."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_fem_solver_tpu_torch.bench import _stiffness, _unit_load
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+    from pytorch_fem_solver_tpu_torch.ops.compiled import compiled_bsr_solver
+    from pytorch_fem_solver_tpu_torch.parallel import make_device_mesh, sharded_bsr_solver
+    from pytorch_fem_solver_tpu_torch.parallel.sharding import mesh_device
+    from pytorch_fem_solver_tpu_torch.utils import StepTimer, trace, write_vtk
+    from pytorch_fem_solver_tpu_torch.utils.watchdog import Watchdog, probe_device
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_device_mesh(1)
+        group_s = time.perf_counter() - t0
+        check(mesh_device(mesh) == torch.device("cuda", 0),
+              f"NCCL group of 1 in {group_s:.2f} s, the rank on {mesh_device(mesh)}")
+        wd = Watchdog(metric="chip_smoke", extra={"phase": 27})
+        probe_s = probe_device(wd, seconds=60.0)  # armed for the probe, then disarmed
+        log(f"probe_device on the card: {1e3 * probe_s:.3f} ms round trip")
+
+        solve_c = compiled_bsr_solver(V32, _stiffness, _unit_load, tol=TOL)
+        u_c, info_c = solve_c()
+        u64, _ = compiled_bsr_solver(V64, _stiffness, _unit_load, tol=TOL)()
+        t0 = time.perf_counter()
+        solve_s = sharded_bsr_solver(V32, _stiffness, _unit_load, device_mesh=mesh, tol=TOL)
+        torch.cuda.synchronize()
+        tables_s = time.perf_counter() - t0
+        wd.arm(SHARDED_WATCHDOG_S, "phase 27: sharded solve")
+        cuda_build.reset_launch_counts()
+        u_s, (it, res, conv) = solve_s()
+        torch.cuda.synchronize()
+        launches = dict(cuda_build.launch_counts)
+        wd.disarm()
+        floor = float((u_c.double() - u64).norm() / u64.norm())
+        d_c = float((u_s - u_c).norm() / u_c.norm())
+        d64 = float((u_s.double() - u64).norm() / u64.norm())
+        log(f"sharded_bsr_solver (1 rank): {it} iterations (compiled_bsr_solver "
+            f"{info_c.iterations}), residual {float(res):.4e}, K2 {launches['bsr_spmv']}, "
+            f"vs compiled {d_c:.3e}, vs float64 {d64:.3e} (compiled's float32 floor {floor:.3e}), "
+            f"plan and tables {tables_s:.2f} s")
+        check(bool(conv) and bool(torch.isfinite(u_s).all()) and u_s.shape == u_c.shape,
+              f"sharded_bsr_solver converged to {TOL:g}, finite, shape {tuple(u_s.shape)}")
+        check(abs(it - info_c.iterations) <= SHARDED_ITER_GAP,
+              f"sharded {it} iterations within {SHARDED_ITER_GAP} of compiled's "
+              f"{info_c.iterations}")
+        check(d_c <= 1e-4, f"sharded vs compiled float32 solution {d_c:.3e} <= 1e-4")
+        check(d64 <= 1e-4 + 2 * floor,
+              f"sharded vs float64 {d64:.3e} <= 1e-4 + 2 x the float32 floor {floor:.3e}")
+        check(launches["bsr_spmv"] == it + 1 and launches["bsr_spmv_bf16"] == 0,
+              f"K2 launched on the row slice (iterations + 1) = {it + 1} times "
+              f"({launches['bsr_spmv']}), bf16 {launches['bsr_spmv_bf16']}")
+
+        timer_s, timer_c = StepTimer(), StepTimer()
+        med_s = timer_s.time_fn(solve_s, warmup=1, reps=SHARDED_REPEATS)
+        med_c = timer_c.time_fn(solve_c, warmup=1, reps=SHARDED_REPEATS)
+        check(med_s["count"] == med_c["count"] == SHARDED_REPEATS,
+              f"StepTimer: {SHARDED_REPEATS} timed solves each")
+        wall_ms, device_ms, n_launch, dtoh, htod, kernels, k2_us, _ = _profiled(solve_s)
+        log(f"sharded median {1e3 * med_s['median_s']:.3f} ms, compiled median "
+            f"{1e3 * med_c['median_s']:.3f} ms (StepTimer, median of {SHARDED_REPEATS}); "
+            f"profiled sharded: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms, idle "
+            f"{1 - device_ms / wall_ms:.3f}, {n_launch:.0f} launches, {dtoh:.0f} host reads; "
+            f"K2 us per launch {k2_us}")
+
+        with trace(os.path.join(tmp, "trace")) as log_dir:
+            solve_s()
+            torch.cuda.synchronize()
+        files = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+        text = open(files[0]).read() if len(files) == 1 else ""
+        check(len(files) == 1 and "bsr_spmv" in text,
+              f"trace() wrote {len(files)} Chrome trace of {len(text)} bytes naming bsr_spmv")
+
+        path = write_vtk(os.path.join(tmp, "u.vtk"), V32._coords4global_dofs,
+                         V32._global_dofs4elements, point_data={"u": u_s})
+        with open(path) as fh:
+            points = next(int(line.split()[1]) for line in fh if line.startswith("POINTS"))
+        check(points == V32.n_dofs, f"write_vtk: {points} points read back == {V32.n_dofs}")
+        row_slice = _row_slice_k2(V32, V32.integrate_bilinear_form_local(_stiffness))
+        fig = {"card": card, "iterations": it, "iterations_compiled": info_c.iterations,
+               "k2_launches": launches["bsr_spmv"], "vs_compiled": d_c, "vs_f64": d64,
+               "f32_floor": floor, "median_ms": 1e3 * med_s["median_s"],
+               "compiled_median_ms": 1e3 * med_c["median_s"], "tables_s": tables_s,
+               "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+               "idle_share": 1 - device_ms / wall_ms, "launches": n_launch, "host_reads": dtoh,
+               "k2_us_per_launch_in_solve": k2_us, "group_s": group_s,
+               "probe_ms": 1e3 * probe_s, "trace_bytes": len(text), "vtk_points": points,
+               "row_slice": row_slice}
+        log(json.dumps({"metric": "sharded_bsr", **fig}, default=str))
+        return launches["bsr_spmv"], row_slice
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_two_fracture():
     """Phase 10: the two-fracture RVPINN loss and one Adam step on the card,
     against the same port in float64 on the CPU."""
@@ -4423,6 +4651,8 @@ def main() -> int:
     done("25 Stokes")
     bf16_record, precond_k2 = phase_precond(card, st, V32, V64)
     done("26 preconditioners")
+    sharded_k2, row_slice = phase_sharded(card, V32, V64)
+    done("27 sharded")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
     ) + f"; start to tables {marks[0][1] - t_start:.1f}; total {time.perf_counter() - t_start:.1f}")
@@ -4449,8 +4679,10 @@ def main() -> int:
                               "stokes_base": stokes_k2["base"],
                               "stokes_aggcomp": stokes_k2["aggcomp_floor3max1"],
                               "stokes_scalar": stokes_k2["scalar"],
-                              "stokes_minres": stokes_k2["minres"], **precond_k2}
+                              "stokes_minres": stokes_k2["minres"], **precond_k2,
+                              "sharded_bsr": sharded_k2}
     k2["bf16_values"] = bf16_record
+    k2["row_slice"] = row_slice
     k5["launches"] = rvpinn_launches["p1_element_2d"]
     k5["launches_by_path"] = {"rvpinn": rvpinn_launches["p1_element_2d"],
                               "posteriori_rvpinn": posteriori_launches["p1_element_2d"],

@@ -1087,15 +1087,117 @@ def _main_eigsh(n: int, device) -> dict:
     return {"n": n, "dofs": r.basis.n_dofs, **cases}
 
 
+def _sharded_rank(h: float, rank: int, world: int, store: str) -> dict:
+    """One NCCL rank of ``sharded H``: ``sharded_bsr_solver`` on the network
+    at ``h`` (float32, tol 1e-6) on card ``rank``, K2's launches in its
+    first solve, the median of 5 timed solves, its distance from
+    ``compiled_bsr_solver`` on the same card, ``solve_pcg_sharded_bsr``'s
+    count and distance, whether every rank holds the same ``u``, and the
+    load vector assembled on ``shard_basis_cells`` against the whole
+    basis's."""
+    import torch.distributed as dist
+
+    from .ops import cuda_build
+    from .ops.compiled import compiled_bsr_solver
+    from .parallel import make_device_mesh, shard_basis_cells, sharded_bsr_solver
+    from .parallel import solve_pcg_sharded_bsr
+    from .parallel.sharding import mesh_device
+    from .utils import StepTimer, build_benchmark_network
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_device_mesh(world)
+        device = mesh_device(mesh)
+        V = benchmark_basis(build_benchmark_network(h, device=device, dtype=torch.float32))
+        t0 = time.perf_counter()
+        solve = sharded_bsr_solver(V, _stiffness, _unit_load, device_mesh=mesh, tol=1e-6)
+        torch.cuda.synchronize()
+        tables_s = time.perf_counter() - t0
+        cuda_build.reset_launch_counts()
+        u, (it, res, conv) = solve()
+        torch.cuda.synchronize()
+        k2 = cuda_build.launch_counts["bsr_spmv"]
+        median = StepTimer().time_fn(solve, warmup=1, reps=5)["median_s"]
+        u1, info1 = compiled_bsr_solver(V, _stiffness, _unit_load, tol=1e-6)()
+        local = V.integrate_bilinear_form_local(_stiffness)
+        b = V.integrate_linear_form(_unit_load)
+        u2, info2 = solve_pcg_sharded_bsr(V, local, b, mesh, tol=1e-6, return_info=True)
+        gathered = [torch.empty_like(u) for _ in range(world)]
+        dist.all_gather(gathered, u)
+        b_sh = shard_basis_cells(V, mesh).integrate_linear_form(_unit_load)
+        return {
+            "rank": rank, "device": str(device), "dofs": V.n_dofs, "iterations": it,
+            "residual": float(res), "converged": bool(conv),
+            "k2_launches": k2, "median_wall_s": median, "tables_s": tables_s,
+            "compiled_iterations": info1.iterations,
+            "vs_compiled": float((u - u1).norm() / u1.norm()),
+            "legacy_iterations": info2.iterations,
+            "legacy_vs_compiled": float((u2 - u1).norm() / u1.norm()),
+            "ranks_equal": all(torch.equal(g, u) for g in gathered),
+            "sharded_load_vs_full": float((b_sh - b).norm() / b.norm()),
+        }
+    finally:
+        dist.destroy_process_group()
+
+
+def _main_sharded(h: float) -> dict:
+    """``sharded H``: one NCCL rank per visible card (a process each, a
+    FileStore in a temporary directory, no network), each running
+    ``_sharded_rank``; the kernels are built once, before the ranks
+    start."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+    import tempfile
+
+    from .ops import cuda_build
+
+    world = torch.cuda.device_count()
+    cuda_build.build_all()
+    tmp = tempfile.mkdtemp(prefix="sharded_")
+    store = os.path.join(tmp, "store")
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "pytorch_fem_solver_tpu_torch.bench", "sharded-rank",
+             str(h), str(rank), str(world), store],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, LOCAL_RANK=str(rank)),
+        )
+        for rank in range(world)
+    ]
+    ranks = []
+    try:
+        for rank, p in enumerate(procs):
+            text = p.communicate(timeout=600)[0]
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {rank} exited {p.returncode}:\n{text[-3000:]}")
+            ranks.append(json.loads(text.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"h": h, "world": world, "ranks": ranks}
+
+
 def main(argv=None) -> int:
     """``tet_poisson N`` (P1), ``elasticity_3d N``, ``refined H``,
-    ``eigsh N``, ``stokes N`` or ``precond NAME H [bf16]`` on the card
-    (float32; the refined solve's basis and the Stokes truth float64): one
-    JSON line."""
+    ``eigsh N``, ``stokes N``, ``precond NAME H [bf16]`` or ``sharded H``
+    (one NCCL rank per visible card) on the card (float32; the refined
+    solve's basis and the Stokes truth float64): one JSON line."""
     import json
     import sys
 
     args = list(sys.argv[1:] if argv is None else argv)
+    if args[:1] == ["sharded-rank"] and len(args) == 5:
+        out = _sharded_rank(float(args[1]), int(args[2]), int(args[3]), args[4])
+        print(json.dumps(out), flush=True)
+        return 0
     workloads = {"tet_poisson": (tet_poisson, _sine_load_3d),
                  "elasticity_3d": (elasticity_3d, _bubble_load)}
     precond_args = (
@@ -1103,10 +1205,10 @@ def main(argv=None) -> int:
         and args[3:] in ([], ["bf16"])
     )
     if not precond_args and (
-        len(args) != 2 or args[0] not in (*workloads, "refined", "eigsh", "stokes")
+        len(args) != 2 or args[0] not in (*workloads, "refined", "eigsh", "stokes", "sharded")
     ):
         print("usage: python3 -m pytorch_fem_solver_tpu_torch.bench "
-              "{tet_poisson|elasticity_3d|eigsh|stokes} N | refined H | "
+              "{tet_poisson|elasticity_3d|eigsh|stokes} N | {refined|sharded} H | "
               f"precond {{{'|'.join(PRECONDITIONERS)}}} H [bf16]", file=sys.stderr)
         return 2
     device = config.resolve_device(None)
@@ -1120,6 +1222,8 @@ def main(argv=None) -> int:
         out = {"metric": "eigsh_square", **_main_eigsh(int(args[1]), device)}
     elif args[0] == "stokes":
         out = {"metric": "stokes", **_main_stokes(int(args[1]), device)}
+    elif args[0] == "sharded":
+        out = {"metric": "sharded_bsr", **_main_sharded(float(args[1]))}
     else:
         out = _main_solve(args[0], *workloads[args[0]], int(args[1]), device)
     print(json.dumps({**out, "card": card}), flush=True)

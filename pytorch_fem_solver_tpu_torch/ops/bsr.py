@@ -424,11 +424,14 @@ def _bsr_spmv_plain(bcols, v1, x, bcols2, v2, heavy_rows):
     ``bsr_matvec`` computes it (own block by reshape, neighbours by
     gather, tier-2 rows added back at the unique ``heavy_rows``), for any
     pair of value and x dtypes (``_widen``). It walks every slot, padding
-    included: padded slots hold zero values."""
+    included: padded slots hold zero values. An ``x`` longer than the rows
+    (a block-row slice against the whole iterate) gives the own blocks by
+    their column, ``bcols[:, 0]``, too."""
     v1, v2, x = _widen(v1, v2, x)
     nb, _, k, _ = v1.shape
-    x2 = x.reshape(nb, k)
-    y = torch.einsum("rij,rj->ri", v1[:, 0], x2)
+    x2 = x.reshape(-1, k)
+    xo = x2 if x2.shape[0] == nb else x2[bcols[:, 0].long()]
+    y = torch.einsum("rij,rj->ri", v1[:, 0], xo)
     y = y + torch.einsum("rbij,rbj->ri", v1[:, 1:], x2[bcols[:, 1:].long()])
     if heavy_rows.shape[0]:
         y2 = torch.einsum("rbij,rbj->ri", v2, x2[bcols2.long()])
@@ -444,7 +447,10 @@ def bsr_spmv(bcols, v1, x, bcols2, v2, heavy_rows, row_blocks=None, heavy_rank=N
     ``row_blocks[r]`` stored blocks, the first ``B`` of them from tier 1 and
     the rest from row ``heavy_rank[r]`` of tier 2, and reads no padded slot
     (``heavy_rows`` is the plain version's table; the kernel does not read
-    it). ``y`` is bitwise the same on every launch. Values and ``x`` of one
+    it). ``y`` is bitwise the same on every launch. ``x`` may be longer than
+    the ``nb`` block-rows (a shard's row slice of the operator against the
+    gathered iterate: the kernel reads ``x`` only through the block
+    columns); ``y`` has the rows' ``nb * 8`` entries. Values and ``x`` of one
     dtype (float32, float64) launch K2 counted under ``"bsr_spmv"``; bf16
     values with float32 or float64 ``x`` launch its bf16-values
     instantiation, counted under ``"bsr_spmv_bf16"``; any other pair raises
@@ -468,14 +474,20 @@ def bsr_spmv(bcols, v1, x, bcols2, v2, heavy_rows, row_blocks=None, heavy_rank=N
         raise ValueError(
             "the SpMV kernel needs the structure's row_blocks and heavy_rank tables"
         )
-    cuda_build.check(x, "x", (nb * k,), x.dtype, align=16)
+    n_x = x.shape[0] if x.dim() == 1 else -1
+    if n_x < nb * k or n_x % k:
+        raise ValueError(
+            f"x must be 1-D with a multiple of {k} and at least {nb * k} entries, "
+            f"got shape {tuple(x.shape)}"
+        )
+    cuda_build.check(x, "x", (n_x,), x.dtype, align=16)
     cuda_build.check(v1, "v1", (nb, B, k, k), v1.dtype, align=16)
     cuda_build.check(bcols, "bcols", (nb, B), torch.int32)
     cuda_build.check(v2, "v2", (nh, B2, k, k), v1.dtype, align=16)
     cuda_build.check(bcols2, "bcols2", (nh, B2), torch.int32)
     cuda_build.check(row_blocks, "row_blocks", (nb,), torch.int32)
     cuda_build.check(heavy_rank, "heavy_rank", (nb,), torch.int32)
-    y = torch.empty_like(x)
+    y = x.new_empty(nb * k)
     fn = cuda_build.function("bsr_spmv", "bsr_spmv", v1.dtype, _SPMV_ARGTYPES, x.dtype)
     err = fn(
         bcols.data_ptr(), v1.data_ptr(), bcols2.data_ptr(), v2.data_ptr(),

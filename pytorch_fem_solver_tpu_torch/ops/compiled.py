@@ -466,6 +466,7 @@ def compiled_newton_solver(
     precondition: str = "jacobi",
     damping: bool = True,
     max_b: Optional[int] = None,
+    matmul_precision: Optional[str] = "highest",
 ):
     """Newton's method for F(u)[v] = 0, the counterpart of the JAX
     package's one-jit ``compiled_newton_solver`` (same
@@ -489,6 +490,8 @@ def compiled_newton_solver(
         damping) not below the current norm after the halvings, is a
         stall: the iterate stays, the iteration count jumps to
         ``max_newton`` and the loop stops.
+      matmul_precision: see ``_mm_precision``; each step's assembly and
+        BiCGStab run under it.
 
     Returns ``solve(u0=None, *args) -> (u, (iterations, residual_norm,
     converged))``: ``iterations`` a Python int, ``residual_norm`` a 0-dim
@@ -496,6 +499,7 @@ def compiled_newton_solver(
     card alike. ``u0`` seeds non-homogeneous Dirichlet values; ``args`` go
     to ``residual_form``.
     """
+    _mm_precision(matmul_precision)  # an unknown name raises here, before any table
     st, setup = _bsr_setup(basis, max_b, precondition)
     n_dofs = basis.n_dofs
     dofs = basis._global_dofs4elements.long()
@@ -503,7 +507,10 @@ def compiled_newton_solver(
     def solve(u0=None, *args):
         if u0 is None:
             u0 = basis.solution_tensor()
+        with _mm_precision(matmul_precision):
+            return _run(u0, args)
 
+    def _run(u0, args):
         def residual_local(u_cells):
             return basis._residual_local(residual_form, u_cells, args)
 
@@ -552,12 +559,12 @@ def compiled_newton_solver(
 
 
 def _mm_precision(precision: Optional[str]):
-    """The float32 matmul precision inside an eigensolve. ``None`` and
-    ``"highest"`` keep full float32 (TF32 stays off, the package's
-    setting); ``"high"`` and ``"default"`` allow TF32 inside the call only,
-    the card's nearest counterpart of the TPU's reduced-precision passes,
-    which the JAX package measured to move float32 eigenvalues by 7.8% at
-    100k DOFs."""
+    """The float32 matmul precision inside a Newton, eigen or Stokes
+    solve. ``None`` and ``"highest"`` keep full float32 (TF32 stays off,
+    the package's setting); ``"high"`` and ``"default"`` allow TF32 inside
+    the call only, the card's nearest counterpart of the TPU's
+    reduced-precision passes, which the JAX package measured to move
+    float32 eigenvalues by 7.8% at 100k DOFs."""
     if precision is None or precision == "highest":
         return contextlib.nullcontext()
     if precision not in ("high", "default"):

@@ -9,9 +9,10 @@ the fixed-length loop with no host read, which ``bench.make_fused_pcg``
 captures as a CUDA graph; routing ``pcg`` itself onto the device is queued
 in ROADMAP.md (B2). The stopping rules, the default ``maxiter``, the
 ``converged`` tests and BiCGStab's breakdown guards are the JAX package's,
-so iteration counts match. ``PCGInfo.iterations`` is a Python int. The JAX
-``dot`` argument (for sharded inner products) waits for the slice that uses
-it.
+so iteration counts match. ``PCGInfo.iterations`` is a Python int.
+``pcg``, ``minres`` and ``bicgstab`` take the JAX package's ``dot``
+argument: the row-sharded solves of ``parallel`` pass a dot that sums the
+rank-local products over the process group (``torch.dot`` when omitted).
 """
 
 from __future__ import annotations
@@ -44,10 +45,10 @@ def _jacobi_or_identity(precond, precond_diag):
     return lambda r: inv_diag_arr * r  # noqa: E731
 
 
-def _squared_tolerance(b, tol):
-    """(tol * ||b||)^2; in float32 the 1e-300 floor rounds to 0, exactly as
-    in the JAX package."""
-    b_norm = torch.sqrt(torch.dot(b, b))
+def _squared_tolerance(b, tol, dot=torch.dot):
+    """(tol * ||b||)^2, ``||b||`` through ``dot``; in float32 the 1e-300
+    floor rounds to 0, exactly as in the JAX package."""
+    b_norm = torch.sqrt(dot(b, b))
     return (tol * torch.clamp(b_norm, min=1e-300)) ** 2
 
 
@@ -59,6 +60,7 @@ def pcg(
     precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     tol: float = 1e-10,
     maxiter: Optional[int] = None,
+    dot: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ):
     """Preconditioned conjugate gradients.
 
@@ -71,15 +73,18 @@ def pcg(
         (overrides ``precond_diag``).
       tol: relative residual tolerance ||r|| <= tol * ||b||.
       maxiter: iteration cap (defaults to max(10 * n, 100)).
+      dot: inner product (``torch.dot`` when None); a sharded solve passes
+        one that sums the local products over its process group.
 
     Returns ``(x, PCGInfo)``.
     """
     n = b.shape[-1]
     if maxiter is None:
         maxiter = max(10 * n, 100)
-    dot = torch.dot
+    if dot is None:
+        dot = torch.dot
     precond = _jacobi_or_identity(precond, precond_diag)
-    atol2 = _squared_tolerance(b, tol)
+    atol2 = _squared_tolerance(b, tol, dot)
 
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
@@ -171,6 +176,7 @@ def minres(
     tol: float = 1e-10,
     maxiter: Optional[int] = None,
     restart: Optional[int] = None,
+    dot: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ):
     """Preconditioned MINRES (Paige & Saunders) for symmetric, possibly
     indefinite operators, such as the Stokes saddle-point system.
@@ -187,6 +193,7 @@ def minres(
         one); the final ``residual_norm`` and ``converged`` then come from
         the true residual too. ``restart=None`` means no restarts; a value
         below 1 raises ``ValueError`` before any work.
+      dot: inner product, as in :func:`pcg`.
 
     One host read per iteration, of the two-part stopping test (the
     tracked residual above ``tol`` and no Lanczos breakdown). The JAX
@@ -198,7 +205,8 @@ def minres(
         raise ValueError(f"restart must be >= 1 (or None), got {restart}")
     if maxiter is None:
         maxiter = max(10 * n, 100)
-    dot = torch.dot
+    if dot is None:
+        dot = torch.dot
     if precond is None:
         precond = lambda r: r  # noqa: E731
     eps = torch.finfo(b.dtype).eps
@@ -266,20 +274,23 @@ def bicgstab(
     precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     tol: float = 1e-10,
     maxiter: Optional[int] = None,
+    dot: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ):
     """Preconditioned BiCGStab for non-symmetric operators (van der Vorst).
 
-    Same interface as :func:`pcg`; two matvecs and two preconditioner
-    applications per iteration. Breakdown (rho or omega ~ 0) freezes the
-    state and reports non-convergence rather than emitting NaNs, with the
-    JAX package's guards, evaluated on the device with ``torch.where``.
+    Same interface as :func:`pcg` (``dot`` included); two matvecs and two
+    preconditioner applications per iteration. Breakdown (rho or omega ~
+    0) freezes the state and reports non-convergence rather than emitting
+    NaNs, with the JAX package's guards, evaluated on the device with
+    ``torch.where``.
     """
     n = b.shape[-1]
     if maxiter is None:
         maxiter = max(10 * n, 100)
-    dot = torch.dot
+    if dot is None:
+        dot = torch.dot
     precond = _jacobi_or_identity(precond, precond_diag)
-    atol2 = _squared_tolerance(b, tol)
+    atol2 = _squared_tolerance(b, tol, dot)
     eps = torch.finfo(b.dtype).tiny
     zero, one = b.new_zeros(()), b.new_ones(())
 

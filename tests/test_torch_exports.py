@@ -38,10 +38,11 @@ UNPORTED = {
     "": set(),
     "basis": set(),
     "ops": set(),
-    # A8 (StepTimer, trace, write_vtk); the raw seven-fractures loaders
-    # read data this host does not have (not queued)
-    "utils": {"StepTimer", "trace", "write_vtk", "load_seven_fractures_raw",
-              "seven_fractures_rectangles"},
+    # the raw seven-fractures loaders read data this host does not have
+    # (not queued)
+    "utils": {"load_seven_fractures_raw", "seven_fractures_rectangles"},
+    # A9c: the sharded Newton, eigen and Stokes solvers
+    "parallel": {"sharded_newton_solver", "sharded_eigsh_solver", "sharded_stokes_solver"},
     "element": set(),
     "mesh": set(),
     "models": set(),

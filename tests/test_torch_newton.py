@@ -17,6 +17,7 @@ queue C). The compiled solve returns ``(int, 0-dim tensor, 0-dim bool
 tensor)``.
 """
 
+import functools
 import math
 
 import jax.numpy as jnp
@@ -110,6 +111,7 @@ def _seed(V, axis):
     return np.where(boundary[:, None], exact, 0.0)
 
 
+@functools.cache
 def _tri(max_area, order_q, vector=False):
     cls_j, cls_p = (fem.VectorBasis, pt.VectorBasis) if vector else (fem.Basis, pt.Basis)
     return (
@@ -170,7 +172,7 @@ def check_compiled(jV, pV, jres, pres, *args, seed=None, **kw):
 def test_iterate_at_quadrature_matches_jax():
     rng = np.random.default_rng(1)
     for vector in (False, True):
-        jV, pV = _tri(0.5**4, 3, vector)
+        jV, pV = _tri(0.5**5, 3, vector)
         cells = rng.standard_normal(tuple(pV._global_dofs4elements.shape))
         (uh_ref, ug_ref), (uh, ug) = (jV._iterate_at_quadrature(jnp.asarray(cells)),
                                       pV._iterate_at_quadrature(torch.from_numpy(cells)))
@@ -191,8 +193,28 @@ def test_nonlinear_poisson():
         pV.compiled_newton(poisson_residual, precondition="ilu")
 
 
+@pytest.mark.parametrize("precision", ["highest", None])
+def test_compiled_matmul_precision(precision):
+    """``matmul_precision`` "highest" and None keep full precision: the
+    solve is bitwise the default one; an unknown name raises before any
+    table is built."""
+    _, pV = _tri(0.5**5, 3)
+    kw = dict(tol=1e-12, solve_tol=1e-10, precondition="auto")
+    u_ref, (k_ref, res_ref, conv_ref) = pV.compiled_newton(poisson_residual, **kw)()
+    u, (k, res, conv) = pV.compiled_newton(poisson_residual, matmul_precision=precision, **kw)()
+    assert k == k_ref and bool(conv) and bool(conv_ref)
+    assert torch.equal(u, u_ref) and torch.equal(res, res_ref)
+    fresh = pt.Basis(pV.mesh, pt.ElementTri(1, 3))
+    built = set(vars(fresh))
+    with pytest.raises(ValueError, match="unknown matmul_precision"):
+        fresh.compiled_newton(poisson_residual, matmul_precision="fastest", **kw)
+    with pytest.raises(ValueError, match="unknown matmul_precision"):
+        pt.ops.compiled_newton_solver(fresh, poisson_residual, matmul_precision="fastest")
+    assert set(vars(fresh)) == built  # no structure was built
+
+
 def test_linear_problem_in_one_step():
-    jV, pV = _tri(0.5**6, 2)
+    jV, pV = _tri(0.5**5, 3)
     info = check_eager(jV, pV, linear_residual, linear_residual, tol=1e-10)
     assert info["iterations"] == 1
 
@@ -200,7 +222,7 @@ def test_linear_problem_in_one_step():
 @pytest.mark.parametrize("dim", [2, 3])
 def test_seeded_dirichlet(dim):
     if dim == 2:
-        (jV, pV), axis, tol = _tri(0.5**5, 4), 0, 1e-12
+        (jV, pV), axis, tol = _tri(0.5**5, 3), 0, 1e-12
     else:
         (jV, pV), axis, tol = _tet(3), 2, 1e-11
     res = seeded_residual(axis)
@@ -212,7 +234,7 @@ def test_seeded_dirichlet(dim):
 
 
 def test_per_solve_arguments():
-    jV, pV = _tri(0.5**6, 3)
+    jV, pV = _tri(0.5**5, 3)
     coords = pV._coords4global_dofs.numpy()
     u0 = (np.sin(PI * coords[:, 0]) * np.sin(PI * coords[:, 1])).reshape(-1, 1)
     uh0 = np.asarray(jV.interpolate(jV, jnp.asarray(u0))[0])
@@ -221,7 +243,7 @@ def test_per_solve_arguments():
 
 @pytest.mark.parametrize("stiffening", [0.0, 1.0])
 def test_vector_stiffening_eager(stiffening):
-    jV, pV = _tri(0.5**6, 3, vector=True)
+    jV, pV = _tri(0.5**5, 3, vector=True)
     info = check_eager(jV, pV, jax_stiffening, lambda b, u, ug, s: port_stiffening(b, u, ug, s),
                        stiffening, tol=1e-11 if stiffening == 0.0 else 1e-12)
     assert info["iterations"] == 1 if stiffening == 0.0 else info["iterations"] <= 5
@@ -229,7 +251,7 @@ def test_vector_stiffening_eager(stiffening):
 
 @pytest.mark.parametrize("precondition", ["jacobi", "auto"])
 def test_vector_stiffening_compiled(precondition):
-    jV, pV = _tri(0.5**6, 3, vector=True)
+    jV, pV = _tri(0.5**5, 3, vector=True)
     check_compiled(jV, pV, jax_stiffening, bench.stiffening_residual, tol=1e-12,
                    precondition=precondition)
     if precondition == "auto":
@@ -256,7 +278,7 @@ def test_compiled_stall_keeps_the_iterate():
             else jnp.where(u != 0, jnp.nan, u)
         return _dot(b, ug) - b.v + bad
 
-    jV, pV = _tri(0.5**4, 2)
+    jV, pV = _tri(0.5**5, 3)
     u_ref, (k_ref, res_ref, conv_ref) = jV.compiled_newton(residual, max_newton=7)()
     u, (k, res, conv) = pV.compiled_newton(residual, max_newton=7)()
     assert k == int(k_ref) == 7 and not bool(conv) and not bool(conv_ref)
