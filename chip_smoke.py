@@ -356,6 +356,23 @@ Phases (any failure exits non-zero and prints no result):
     beside plain, a CSR ``torch.mv`` of its rows and its bound (a JSON
     ``sharded_bsr`` line; the kernels line's K2 carries the ``row_slice``
     figures and the sharded solve's launches).
+28. the sharded Newton, eigen and Stokes solvers on another world-size-1
+    NCCL group, float32, each under an armed ``Watchdog`` beside its
+    compiled twin of this run: ``sharded_newton_solver`` on phase 1's
+    network with ``bench.dfn_residual`` to 2e-4 (``"two_level"``) in
+    phase 22's Newton steps within 1 and within 1e-4 of phase 22's float64
+    solution; ``sharded_eigsh_solver`` on the network (k=6, phase 24's
+    tolerance) within 1e-4 of phase 24's float64 eigenvalues,
+    max |X^T M X - I| <= 1e-4 (rounds reported: float32 round counts vary);
+    ``sharded_stokes_solver`` (``"two_level"``, base's tolerances) on phase
+    25's float32 problem within 1.5 x base's velocity error from phase
+    25's float64 truth, max |B u| / max |u| <= 1e-5. Each: counts reset
+    before its first solve, K2 launched on the rank's rows as its loop
+    implies (2 x inner + 1 per Newton step, 2 m + 6 m x rounds, inner_total
+    + outer + 3), no call of the plain SpMV; the median wall of 3 (the
+    counted solve and two more) and one profiled solve (device ms, idle
+    share, launches, host reads) beside the twin's (a JSON
+    ``sharded_solvers`` line).
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
@@ -377,6 +394,7 @@ and gather kernels, which holds no event pair.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -663,6 +681,7 @@ PROBE_TOL = 1e-5  # float32 card probe vs float64 CPU probe, relative to max |re
 SHARDED_REPEATS = 5  # phase 27's StepTimer medians
 SHARDED_ITER_GAP = 2  # the JAX package's own bound (tests/test_sharding.py)
 SHARDED_WATCHDOG_S = 300.0
+SHARDED_SOLVER_REPEATS = 3  # phase 28's medians
 
 failures: list[str] = []
 # name -> one launch at the benchmark shapes, registered by the phases for
@@ -3062,6 +3081,8 @@ def _newton_case(tag, make, card, tol):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         profiled = _timed(r.solve)
     kernels, device_ms = _device_kernels(prof, 1)
+    dtoh = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "Memcpy DtoH" in e.name)
     V, (k, res, conv) = r.basis, r.info
     n_inner = int(V._basis_parameters["inner_dofs"].numel())
     log(f"{tag}: cells={int(V._global_dofs4elements.shape[0])} dofs={V.n_dofs} inner={n_inner}")
@@ -3113,17 +3134,18 @@ def _newton_case(tag, make, card, tol):
                "median_wall_ms": 1e3 * wall, "walls_ms": [1e3 * w for w in walls],
                "wall_ms_per_step": 1e3 * wall / max(k, 1), "profiled_wall_ms": 1e3 * profiled,
                "device_ms": device_ms, "idle_share": 1 - device_ms / (1e3 * profiled),
-               "launches": sum(kk[1] for kk in kernels), "host_s": r.seconds, "card": card}
+               "launches": sum(kk[1] for kk in kernels), "host_reads": dtoh,
+               "host_s": r.seconds, "card": card}
     log(f"{tag}: {k} Newton steps (f64 {k64}), inner BiCGStab iterations per step {steps_inner}, "
         f"K2 launches {k2}; median wall {1e3 * wall:.3f} ms over {NEWTON_REPEATS} solves, "
         f"{1e3 * wall / max(k, 1):.3f} ms per step; profiled solve: wall {1e3 * profiled:.3f} ms, "
         f"device {device_ms:.3f} ms, idle share {figures['idle_share']:.3f}, "
-        f"{figures['launches']:.0f} launches; eager {eager_s:.3f} s; host s: "
+        f"{figures['launches']:.0f} launches, {dtoh} host reads; eager {eager_s:.3f} s; host s: "
         + ", ".join(f"{key} {v:.3f}" for key, v in r.seconds.items()))
     log("device ms/solve  launches/solve  kernel")
     for us, count, name in kernels[:8]:
         log(f"{us / 1e3:14.4f}  {count:14.1f}  {name[:110]}")
-    return figures, r
+    return figures, r, r64.u
 
 
 def phase_newton(card, mesh32, mesh64):
@@ -3143,17 +3165,18 @@ def phase_newton(card, mesh32, mesh64):
 
     meshes = {torch.float32: mesh32, torch.float64: mesh64}
     tag = f"Newton DFN h={H}"
-    pd, r = _newton_case(tag, lambda dtype, tol: newton_dfn(meshes[dtype], tol=tol), card,
-                         NEWTON_TOL_DFN)
+    pd, r, u64 = _newton_case(tag, lambda dtype, tol: newton_dfn(meshes[dtype], tol=tol), card,
+                              NEWTON_TOL_DFN)
     check(pd["dofs"] == EXPECTED_DOFS, f"{tag}: {pd['dofs']} DOFs == {EXPECTED_DOFS}")
     u_lin, info_lin = r.basis.compiled_solver(lambda b: K0 * _stiffness(b), _unit_load, tol=TOL)()
     nl_max, lin_max = float(r.u.max()), float(u_lin.max())
     check(bool(info_lin.converged) and nl_max < lin_max, f"{tag}: max u nonlinear {nl_max:.6f} < "
           f"linear {lin_max:.6f} (k(u) = {K0} + u^2 flattens the peak)")
     pd.update({"max_u": nl_max, "max_u_linear": lin_max})
+    newton_ref = {"figures": pd, "u32": r.u, "u64": u64}  # phase 28's twin
     del r, u_lin
     tag = f"Newton stiffening plate unit_square(n={NEWTON_ELAST_N})"
-    pv, r = _newton_case(
+    pv, r, _ = _newton_case(
         tag, lambda dtype, tol: newton_elasticity(NEWTON_ELAST_N, tol=tol, device=DEVICE,
                                                   dtype=dtype),
         card, NEWTON_TOL_PLATE)
@@ -3164,26 +3187,38 @@ def phase_newton(card, mesh32, mesh64):
     del r
     gc.collect()
     torch.cuda.empty_cache()
-    return pd["k2_launches"], pv["k2_launches"]
+    return pd["k2_launches"], pv["k2_launches"], newton_ref
 
 
-def _profiled(solve, per: int = 1):
+def _profiled(solve):
     """One profiled call of ``solve``: (wall ms, device ms, launches,
     device-to-host copies, host-to-device copies, kernels by device time,
     K2's us per launch and launches by dtype: ``{"float32": (us, n),
     "float64": (us, n)}``, ``"bf16_float32"`` for the bf16-values
-    instantiation; the call's result)."""
+    instantiation; the call's result). Read from the profiler's raw Kineto
+    events, without its event tree: a sharded Stokes solve's ~100,000
+    launches take the tree tens of seconds of host to build."""
+    import collections
+
     import torch
 
     out = []
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         wall = _timed(lambda: out.append(solve()))
-    kernels, device_ms = _device_kernels(prof, per)
-    dtoh = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and "Memcpy DtoH" in e.name) / per
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    dtoh = htod = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or e.is_user_annotation():
+            continue
+        name = e.name()
+        dtoh += "Memcpy DtoH" in name
+        htod += "Memcpy HtoD" in name
+        by_name[name][0] += e.duration_ns() / 1e3
+        by_name[name][1] += 1
+    kernels = sorted(((us, n, name) for name, (us, n) in by_name.items()), reverse=True)
     k2 = {("bf16_" if "bfloat16" in name else "") + ("float64" if "double" in name else "float32"):
-          (us / count, count) for us, count, name in kernels if "bsr_spmv" in name}
-    return (1e3 * wall, device_ms, sum(k[1] for k in kernels), dtoh, _htod_per_solve(prof, per),
+          (us / n, n) for us, n, name in kernels if "bsr_spmv" in name}
+    return (1e3 * wall, sum(k[0] for k in kernels) / 1e3, sum(k[1] for k in kernels), dtoh, htod,
             kernels, k2, out[0])
 
 
@@ -3589,7 +3624,8 @@ def phase_eigsh(card, mesh32, mesh64):
     del r
     gc.collect()
     torch.cuda.empty_cache()
-    return pl["k2_launches"], ps["k2_launches"], pd["k2_launches"], pe["k2_launches"]
+    # the network's figures are phase 28's twin
+    return pl["k2_launches"], ps["k2_launches"], pd["k2_launches"], pe["k2_launches"], pd
 
 
 def _eigsh_again(r, method):
@@ -3813,10 +3849,13 @@ def phase_stokes(card):
     log(json.dumps({"metric": "stokes_solves", "n": STOKES_N, "velocity_dofs": Vu.n_dofs,
                     "pressure_dofs": Vp.n_dofs, "host_s": host_s, "card": card, **figures},
                    default=str))
-    del Vu64, Vp64, Vu, Vp
+    # phase 28 solves the same float32 problem against the same truth and
+    # beside base's figures
+    stokes_ref = {"bases": (Vu, Vp, f), "truth": (u_t, p_t), "base": figures["base"]}
+    del Vu64, Vp64
     gc.collect()
     torch.cuda.empty_cache()
-    return launches_by_path
+    return launches_by_path, stokes_ref
 
 
 def _k2_rule(name, iterations):
@@ -4329,32 +4368,46 @@ def _row_csr(args, rows, k, n_cols):
     return a.coalesce().to_sparse_csr()
 
 
-def phase_sharded(card, V32, V64):
-    """Phase 27: the row-sharded BSR solve and the ``utils`` on the card. A
-    world-size-1 NCCL group through a FileStore in a temporary directory
-    (no network), destroyed at the end."""
-    import shutil
+@contextlib.contextmanager
+def _nccl_group(prefix):
+    """A world-size-1 NCCL group through a FileStore in a temporary
+    directory (no network), destroyed on the way out: yields the mesh, the
+    seconds it took to open and the directory."""
     import tempfile
 
     import torch
     import torch.distributed as dist
 
-    from pytorch_fem_solver_tpu_torch.bench import _stiffness, _unit_load
-    from pytorch_fem_solver_tpu_torch.ops import cuda_build
-    from pytorch_fem_solver_tpu_torch.ops.compiled import compiled_bsr_solver
-    from pytorch_fem_solver_tpu_torch.parallel import make_device_mesh, sharded_bsr_solver
-    from pytorch_fem_solver_tpu_torch.parallel.sharding import mesh_device
-    from pytorch_fem_solver_tpu_torch.utils import StepTimer, trace, write_vtk
-    from pytorch_fem_solver_tpu_torch.utils.watchdog import Watchdog, probe_device
+    from pytorch_fem_solver_tpu_torch.parallel import make_device_mesh
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{prefix}_")
     torch.cuda.set_device(0)
     t0 = time.perf_counter()
     dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
                             rank=0, world_size=1)
     try:
         mesh = make_device_mesh(1)
-        group_s = time.perf_counter() - t0
+        yield mesh, time.perf_counter() - t0, tmp
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_sharded(card, V32, V64):
+    """Phase 27: the row-sharded BSR solve and the ``utils`` on the card. A
+    world-size-1 NCCL group through a FileStore in a temporary directory
+    (no network), destroyed at the end."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import _stiffness, _unit_load
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+    from pytorch_fem_solver_tpu_torch.ops.compiled import compiled_bsr_solver
+    from pytorch_fem_solver_tpu_torch.parallel import sharded_bsr_solver
+    from pytorch_fem_solver_tpu_torch.parallel.sharding import mesh_device
+    from pytorch_fem_solver_tpu_torch.utils import StepTimer, trace, write_vtk
+    from pytorch_fem_solver_tpu_torch.utils.watchdog import Watchdog, probe_device
+
+    with _nccl_group("phase27") as (mesh, group_s, tmp):
         check(mesh_device(mesh) == torch.device("cuda", 0),
               f"NCCL group of 1 in {group_s:.2f} s, the rank on {mesh_device(mesh)}")
         wd = Watchdog(metric="chip_smoke", extra={"phase": 27})
@@ -4430,9 +4483,219 @@ def phase_sharded(card, V32, V64):
                "row_slice": row_slice}
         log(json.dumps({"metric": "sharded_bsr", **fig}, default=str))
         return launches["bsr_spmv"], row_slice
+
+
+def _sharded_figures(tag, solve, first_s, twin):
+    """The timing of one phase-28 solve beside its compiled twin's figures
+    from an earlier phase of this run: the median wall of
+    ``SHARDED_SOLVER_REPEATS`` solves (the first, counted solve's wall
+    ``first_s`` and the rest) and one profiled solve (device ms, idle
+    share, launches, host reads, K2's us per launch); the host seconds of
+    the repeats and of the profiled solve with the profiler's own work."""
+    t0 = time.perf_counter()
+    walls = [first_s] + [_timed(solve) for _ in range(SHARDED_SOLVER_REPEATS - 1)]
+    t1 = time.perf_counter()
+    wall_ms, device_ms, launches, dtoh, _, kernels, k2_us, _ = _profiled(solve)
+    fig = {"median_wall_ms": 1e3 * float(np.median(walls)), "walls_ms": [1e3 * w for w in walls],
+           "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+           "idle_share": 1 - device_ms / wall_ms, "launches": launches, "host_reads": dtoh,
+           "k2_us_per_launch_in_solve": k2_us,
+           "seconds": {"repeats": t1 - t0, "profiled": time.perf_counter() - t1}}
+    keys = ("median_wall_ms", "device_ms", "idle_share", "launches", "host_reads")
+    fig["compiled"] = {key: twin.get(key) for key in keys}
+    log(f"{tag}: median wall {fig['median_wall_ms']:.3f} ms over {SHARDED_SOLVER_REPEATS} "
+        f"(the first, counted one and {SHARDED_SOLVER_REPEATS - 1} more; compiled "
+        f"{twin['median_wall_ms']:.3f}); profiled: wall {wall_ms:.3f} ms, device "
+        f"{device_ms:.3f} ms (compiled {twin['device_ms']:.3f}), idle {fig['idle_share']:.3f} "
+        f"(compiled {twin['idle_share']:.3f}), {launches:.0f} launches (compiled "
+        f"{twin['launches']:.0f}), {dtoh:.0f} host reads (compiled {twin.get('host_reads')}); "
+        f"K2 us per launch in the solve (launches): {k2_us}; host s: repeats "
+        f"{fig['seconds']['repeats']:.1f}, profiled solve and its processing "
+        f"{fig['seconds']['profiled']:.1f}")
+    log("device ms/solve  launches/solve  kernel")
+    for us, count, name in kernels[:6]:
+        log(f"{us / 1e3:14.4f}  {count:14.1f}  {name[:110]}")
+    return fig
+
+
+@contextlib.contextmanager
+def _counted_first_solve(wd, what):
+    """Counts reset, the plain SpMV counted and the watchdog armed around a
+    first solve: yields ``{"k2": launches, "plain": plain SpMV calls,
+    "wall_s": its wall}``, filled on the way out."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops import bsr, cuda_build
+
+    plain = bsr._bsr_spmv_plain
+    seen = {"plain": 0}
+
+    def counted(*args):
+        seen["plain"] += 1
+        return plain(*args)
+
+    bsr._bsr_spmv_plain = counted
+    wd.arm(SHARDED_WATCHDOG_S, f"phase 28: {what}")
+    cuda_build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        yield seen
+        torch.cuda.synchronize()
+        seen["wall_s"] = time.perf_counter() - t0
+        seen["k2"] = cuda_build.launch_counts["bsr_spmv"]
+        seen["k2_bf16"] = cuda_build.launch_counts["bsr_spmv_bf16"]
     finally:
-        dist.destroy_process_group()
-        shutil.rmtree(tmp, ignore_errors=True)
+        wd.disarm()
+        bsr._bsr_spmv_plain = plain
+
+
+def _check_k2_counted(tag, seen, expected, rule):
+    check(seen["k2"] == expected and seen["k2"] > 0 and seen["k2_bf16"] == 0
+          and seen["plain"] == 0,
+          f"{tag}: K2 launched on the rank's rows {seen['k2']} times == {rule} = {expected}, "
+          f"bf16 {seen['k2_bf16']}, plain SpMV calls {seen['plain']}")
+
+
+def phase_sharded_solvers(card, V32, newton_ref, eigsh_ref, stokes_ref):
+    """Phase 28: the sharded Newton, eigen and Stokes solvers on a
+    world-size-1 NCCL group, each beside its compiled twin of phases 22, 24
+    and 25 (their figures and reference solutions from this run)."""
+    import gc
+
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.bench import (
+        STOKES_CONFIGS,
+        STOKES_INNER_MAXITER,
+        _mass,
+        _stiffness,
+        dfn_residual,
+        stokes_div,
+        stokes_viscous,
+    )
+    from pytorch_fem_solver_tpu_torch.parallel import (
+        sharded_eigsh_solver,
+        sharded_newton,
+        sharded_newton_solver,
+        sharded_stokes_solver,
+    )
+    from pytorch_fem_solver_tpu_torch.utils.watchdog import Watchdog
+
+    figures, k2 = {"card": card}, {}
+    with _nccl_group("phase28") as (mesh, group_s, _):
+        wd = Watchdog(metric="chip_smoke", extra={"phase": 28})
+        log(f"phase 28: NCCL group of 1 in {group_s:.2f} s")
+
+        # Newton on the network: the BiCGStab iterations of each step
+        tag = f"sharded Newton DFN h={H}"
+        twin = newton_ref["figures"]
+        t0 = time.perf_counter()
+        solve = sharded_newton_solver(V32, dfn_residual, device_mesh=mesh, tol=NEWTON_TOL_DFN,
+                                      precondition="two_level")
+        torch.cuda.synchronize()
+        tables_s = time.perf_counter() - t0
+        inner, plain_bicgstab = [], sharded_newton.bicgstab
+
+        def bicgstab(*args, **kwargs):
+            x, info = plain_bicgstab(*args, **kwargs)
+            inner.append(info.iterations)
+            return x, info
+
+        sharded_newton.bicgstab = bicgstab
+        try:
+            with _counted_first_solve(wd, "sharded Newton") as seen:
+                u, (k, res, conv) = solve()
+        finally:
+            sharded_newton.bicgstab = plain_bicgstab
+        u64 = newton_ref["u64"]
+        d64 = float((u.double() - u64).norm() / u64.norm())
+        d_c = float((u - newton_ref["u32"]).norm() / newton_ref["u32"].norm())
+        check(bool(conv) and bool(torch.isfinite(u).all()),
+              f"{tag}: converged in {k} Newton steps to {float(res):.3e}, finite")
+        check(abs(k - twin["newton_steps"]) <= 1,
+              f"{tag}: {k} steps within 1 of compiled_newton's {twin['newton_steps']}")
+        check(d64 <= F32_VS_F64, f"{tag}: vs phase 22's float64 solution rel L2 {d64:.3e} <= "
+              f"{F32_VS_F64:g} (vs compiled float32 {d_c:.3e})")
+        _check_k2_counted(tag, seen, sum(2 * i + 1 for i in inner),
+                          f"2 x inner iterations + 1 per step (inner {inner})")
+        k2["sharded_newton"] = seen["k2"]
+        figures["newton"] = {"steps": k, "steps_compiled": twin["newton_steps"],
+                             "inner_per_step": list(inner), "k2_launches": seen["k2"],
+                             "vs_f64": d64, "vs_compiled": d_c, "tables_s": tables_s,
+                             **_sharded_figures(tag, solve, seen["wall_s"], twin)}
+        del solve, u
+
+        # LOBPCG on the network, against phase 24's float64 twin
+        tag = f"sharded eigsh DFN h={H}"
+        twin = eigsh_ref
+        t0 = time.perf_counter()
+        solve = sharded_eigsh_solver(V32, _stiffness, _mass, k=EIGSH_K, device_mesh=mesh,
+                                     tol=EIGSH_TOL)
+        torch.cuda.synchronize()
+        tables_s = time.perf_counter() - t0
+        with _counted_first_solve(wd, "sharded eigsh") as seen:
+            vals, vecs, (rounds, change, conv) = solve()
+        vals_h = vals.double().cpu().numpy()
+        ref = np.array(twin["vals_f64"])
+        diff = float(np.max(np.abs(vals_h - ref) / np.abs(ref)))
+        ortho = _m_orthonormality(V32, vecs, _mass)
+        m = twin["m"]
+        check(bool(conv) and bool(torch.isfinite(vecs).all())
+              and bool(np.all(np.diff(vals_h) >= 0)),
+              f"{tag}: converged in {rounds} rounds (compiled {twin['rounds']}; float32 round "
+              f"counts vary, reported), finite, ascending: {vals_h.tolist()}")
+        check(diff <= EIGSH_VS_F64, f"{tag}: eigenvalues within {diff:.3e} <= {EIGSH_VS_F64:g} "
+              f"of phase 24's float64 twin")
+        check(ortho <= EIGSH_ORTHO, f"{tag}: max |X^T M X - I| {ortho:.3e} <= {EIGSH_ORTHO:g}")
+        _check_k2_counted(tag, seen, 2 * m + 6 * m * rounds, f"2 m + 6 m x rounds (m={m})")
+        k2["sharded_eigsh"] = seen["k2"]
+        figures["eigsh"] = {"rounds": rounds, "rounds_compiled": twin["rounds"],
+                            "vals": vals_h.tolist(), "vs_f64": diff, "m_orthonormality": ortho,
+                            "k2_launches": seen["k2"], "tables_s": tables_s,
+                            **_sharded_figures(tag, solve, seen["wall_s"], twin)}
+        del solve, vecs
+
+        # Stokes on phase 25's problem, against its float64 truth
+        Vu, Vp, f = stokes_ref["bases"]
+        u_t, p_t = stokes_ref["truth"]
+        twin = stokes_ref["base"]
+        tag = f"sharded Stokes rectangle({STOKES_N}) two_level"
+        t0 = time.perf_counter()
+        solve = sharded_stokes_solver(Vu, Vp, stokes_viscous, stokes_div, device_mesh=mesh,
+                                      precondition="two_level",
+                                      inner_maxiter=STOKES_INNER_MAXITER,
+                                      **STOKES_CONFIGS["base"])
+        torch.cuda.synchronize()
+        tables_s = time.perf_counter() - t0
+        with _counted_first_solve(wd, "sharded Stokes") as seen:
+            u, p, info = solve(f)
+        du = float((u.double() - u_t).norm() / u_t.norm())
+        dp = float((p.double() - p_t).norm() / p_t.norm())
+        check(bool(info.converged) and bool(torch.isfinite(u).all())
+              and bool(torch.isfinite(p).all()),
+              f"{tag}: converged ({info.outer_iterations} outer, {info.inner_total} inner, "
+              f"recovery {info.inner_info.iterations}; compiled base {twin['outer']} / "
+              f"{twin['inner_total']}), finite")
+        check(du <= STOKES_QUALITY * twin["du_rel_l2"],
+              f"{tag}: du {du:.3e} <= {STOKES_QUALITY} x base's {twin['du_rel_l2']:.3e} from the "
+              f"float64 truth (dp {dp:.3e})")
+        div, mean = _stokes_checks(tag, Vu, Vp, u, p, STOKES_DIV32)
+        expected, rule = _stokes_k2_rule("base", info)
+        _check_k2_counted(tag, seen, expected, rule)
+        k2["sharded_stokes"] = seen["k2"]
+        figures["stokes"] = {"outer": info.outer_iterations, "inner_total": info.inner_total,
+                             "recovery": info.inner_info.iterations,
+                             "outer_compiled": twin["outer"],
+                             "inner_total_compiled": twin["inner_total"], "du_rel_l2": du,
+                             "dp_rel_l2": dp, "du_compiled": twin["du_rel_l2"], "div_rel": div,
+                             "mean_rel": mean, "k2_launches": seen["k2"], "tables_s": tables_s,
+                             **_sharded_figures(tag, lambda: solve(f), seen["wall_s"], twin)}
+        del solve, u, p
+    log(json.dumps({"metric": "sharded_solvers", **figures}, default=str))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k2
 
 
 def phase_two_fracture():
@@ -4641,18 +4904,22 @@ def main() -> int:
     done("20 chunked tets")
     elast2_k2, elast3_k2 = phase_elasticity(card)
     done("21 elasticity")
-    newton_dfn_k2, newton_elast_k2 = phase_newton(card, mesh32, mesh64)
+    newton_dfn_k2, newton_elast_k2, newton_ref = phase_newton(card, mesh32, mesh64)
     done("22 Newton")
     refined_dfn_k2, refined_elast_k2 = phase_refined(card, mesh64)
     done("23 refined")
-    eig_lobpcg_k2, eig_subspace_k2, eig_dfn_k2, eig_elast_k2 = phase_eigsh(card, mesh32, mesh64)
+    eig_lobpcg_k2, eig_subspace_k2, eig_dfn_k2, eig_elast_k2, eigsh_ref = phase_eigsh(
+        card, mesh32, mesh64)
     done("24 eigen")
-    stokes_k2 = phase_stokes(card)
+    stokes_k2, stokes_ref = phase_stokes(card)
     done("25 Stokes")
     bf16_record, precond_k2 = phase_precond(card, st, V32, V64)
     done("26 preconditioners")
     sharded_k2, row_slice = phase_sharded(card, V32, V64)
     done("27 sharded")
+    sharded_solvers_k2 = phase_sharded_solvers(card, V32, newton_ref, eigsh_ref, stokes_ref)
+    del newton_ref, eigsh_ref, stokes_ref
+    done("28 sharded solvers")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
     ) + f"; start to tables {marks[0][1] - t_start:.1f}; total {time.perf_counter() - t_start:.1f}")
@@ -4680,7 +4947,7 @@ def main() -> int:
                               "stokes_aggcomp": stokes_k2["aggcomp_floor3max1"],
                               "stokes_scalar": stokes_k2["scalar"],
                               "stokes_minres": stokes_k2["minres"], **precond_k2,
-                              "sharded_bsr": sharded_k2}
+                              "sharded_bsr": sharded_k2, **sharded_solvers_k2}
     k2["bf16_values"] = bf16_record
     k2["row_slice"] = row_slice
     k5["launches"] = rvpinn_launches["p1_element_2d"]

@@ -1087,14 +1087,72 @@ def _main_eigsh(n: int, device) -> dict:
     return {"n": n, "dofs": r.basis.n_dofs, **cases}
 
 
+#: the sharded solvers' float32 tolerances in ``sharded H``: the Newton
+#: residual above float32's floor, LOBPCG's relative change of eigsh_dfn,
+#: and Stokes ``base``'s, on ``stokes_problem(SHARDED_STOKES_N)``
+SHARDED_NEWTON_TOL = 2e-4
+SHARDED_EIGSH_TOL = 1e-5
+SHARDED_STOKES_N = 115
+
+
+def _same_on_every_rank(x, world: int) -> bool:
+    import torch.distributed as dist
+
+    gathered = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(gathered, x.contiguous())
+    return all(torch.equal(g, x) for g in gathered)
+
+
+def _sharded_solvers_rank(V, mesh, world: int) -> dict:
+    """The sharded Newton (``dfn_residual``, two-level M), LOBPCG (k=6)
+    and Stokes (two-level M, ``base``'s tolerances) solves of one rank:
+    each one's counts, K2 launches of its first solve on the rank's rows,
+    the walls of 3 more and whether every rank holds the same result."""
+    from .ops import cuda_build
+    from .parallel import sharded_eigsh_solver, sharded_newton_solver, sharded_stokes_solver
+
+    def first(solve):
+        cuda_build.reset_launch_counts()
+        out = solve()
+        _now(V.device)
+        return out, cuda_build.launch_counts["bsr_spmv"]
+
+    out = {}
+    solve = sharded_newton_solver(V, dfn_residual, device_mesh=mesh, tol=SHARDED_NEWTON_TOL,
+                                  precondition="two_level")
+    (u, (k, res, conv)), k2 = first(solve)
+    out["newton"] = {"steps": k, "residual": float(res), "converged": bool(conv),
+                     "k2_launches": k2, "walls_s": _walls(solve, V.device),
+                     "ranks_equal": _same_on_every_rank(u, world)}
+    solve = sharded_eigsh_solver(V, _stiffness, _mass, k=6, device_mesh=mesh,
+                                 tol=SHARDED_EIGSH_TOL)
+    (vals, vecs, (rounds, _, conv)), k2 = first(solve)
+    out["eigsh"] = {"rounds": rounds, "vals": vals.tolist(), "converged": bool(conv),
+                    "k2_launches": k2, "walls_s": _walls(solve, V.device),
+                    "ranks_equal": _same_on_every_rank(vals, world)
+                    and _same_on_every_rank(vecs, world)}
+    Vu, Vp, f = stokes_problem(SHARDED_STOKES_N, device=V.device, dtype=torch.float32)
+    solve = sharded_stokes_solver(Vu, Vp, stokes_viscous, stokes_div, device_mesh=mesh,
+                                  precondition="two_level", inner_maxiter=STOKES_INNER_MAXITER,
+                                  **STOKES_CONFIGS["base"])
+    (u, p, info), k2 = first(lambda: solve(f))
+    out["stokes"] = {"outer": info.outer_iterations, "inner_total": info.inner_total,
+                     "converged": bool(info.converged), "k2_launches": k2,
+                     "walls_s": _walls(lambda: solve(f), V.device),
+                     "ranks_equal": _same_on_every_rank(u, world)
+                     and _same_on_every_rank(p, world)}
+    return out
+
+
 def _sharded_rank(h: float, rank: int, world: int, store: str) -> dict:
     """One NCCL rank of ``sharded H``: ``sharded_bsr_solver`` on the network
     at ``h`` (float32, tol 1e-6) on card ``rank``, K2's launches in its
     first solve, the median of 5 timed solves, its distance from
     ``compiled_bsr_solver`` on the same card, ``solve_pcg_sharded_bsr``'s
-    count and distance, whether every rank holds the same ``u``, and the
-    load vector assembled on ``shard_basis_cells`` against the whole
-    basis's."""
+    count and distance, whether every rank holds the same ``u``, the load
+    vector assembled on ``shard_basis_cells`` against the whole basis's,
+    and the sharded Newton, eigen and Stokes solves
+    (``_sharded_solvers_rank``)."""
     import torch.distributed as dist
 
     from .ops import cuda_build
@@ -1137,6 +1195,7 @@ def _sharded_rank(h: float, rank: int, world: int, store: str) -> dict:
             "legacy_vs_compiled": float((u2 - u1).norm() / u1.norm()),
             "ranks_equal": all(torch.equal(g, u) for g in gathered),
             "sharded_load_vs_full": float((b_sh - b).norm() / b.norm()),
+            **_sharded_solvers_rank(V, mesh, world),
         }
     finally:
         dist.destroy_process_group()

@@ -116,6 +116,9 @@ class _ShardTables(NamedTuple):
     agg: torch.Tensor  # (ns_local, bpa, bpa) int64 local block ids
     row_blocks: torch.Tensor  # (rps,) int32
     heavy_rank: torch.Tensor  # (rps,) int32
+    vec_slots: torch.Tensor  # (T_max*n_loc,) int64 local reduced row per (halo
+    #   cell, i_loc); foreign, Dirichlet and pad entries -> rps*k (dropped)
+    owned: torch.Tensor  # (T_max,) bool: the rank owns the halo cell, once
     nh: int
 
 
@@ -324,8 +327,9 @@ def _shard_tables(plan: BSRShardPlan, rank: int, device) -> _ShardTables:
     key = (rank, str(device))
     tables = plan.device_tables.get(key)
     if tables is None:
-        rps, nh_max, ns = plan.rps, plan.nh_max, plan.ns_local
-        n_loc2 = plan.slots_sh.size // (plan.n_shards * plan.T_max)
+        rps, nh_max, ns, t_max = plan.rps, plan.nh_max, plan.ns_local, plan.T_max
+        n_loc2 = plan.slots_sh.size // (plan.n_shards * t_max)
+        n_loc = plan.vec_slots_sh.size // (plan.n_shards * t_max)
         hrows = plan.hrows_sh[rank * nh_max:(rank + 1) * nh_max]
         nh = int(np.count_nonzero(hrows != rps))
         rows = slice(rank * rps, (rank + 1) * rps)
@@ -335,7 +339,7 @@ def _shard_tables(plan: BSRShardPlan, rank: int, device) -> _ShardTables:
 
         tables = plan.device_tables[key] = _ShardTables(
             cells=dev(plan.cells_sh[rank], torch.int64),
-            slots=dev(plan.slots_sh[rank * plan.T_max * n_loc2:(rank + 1) * plan.T_max * n_loc2],
+            slots=dev(plan.slots_sh[rank * t_max * n_loc2:(rank + 1) * t_max * n_loc2],
                       torch.int64),
             bcols=dev(plan.bcols_sh[rows], torch.int32),
             bcols2=dev(plan.bcols2_sh[rank * nh_max:rank * nh_max + nh], torch.int32),
@@ -343,6 +347,9 @@ def _shard_tables(plan: BSRShardPlan, rank: int, device) -> _ShardTables:
             agg=dev(plan.agg_sh[rank * ns:(rank + 1) * ns], torch.int64),
             row_blocks=dev(plan.row_blocks_sh[rows], torch.int32),
             heavy_rank=dev(plan.heavy_rank_sh[rows], torch.int32),
+            vec_slots=dev(plan.vec_slots_sh[rank * t_max * n_loc:(rank + 1) * t_max * n_loc],
+                          torch.int64),
+            owned=dev(plan.owned_cells_sh[rank * t_max:(rank + 1) * t_max], torch.bool),
             nh=nh,
         )
     return tables
@@ -363,10 +370,33 @@ def _scatter_local_values(plan, local_s, tables):
 
 
 def _all_gather(x_local, group, n_shards):
-    """The tiled all-gather of a row-sharded vector."""
-    out = x_local.new_empty(x_local.shape[0] * n_shards)
-    dist.all_gather_into_tensor(out, x_local, group=group)
+    """The tiled all-gather of a row-sharded vector or block (rows first)."""
+    out = x_local.new_empty((x_local.shape[0] * n_shards,) + tuple(x_local.shape[1:]))
+    dist.all_gather_into_tensor(out, x_local.contiguous(), group=group)
     return out
+
+
+def _psum(group):
+    """The group sum of a tensor, on a fresh contiguous copy (the
+    all-reduce works in place)."""
+
+    def psum(x):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    return psum
+
+
+def _pdot(group):
+    """The dot of two row-sharded vectors, summed over the group."""
+
+    def pdot(u, v):
+        d = torch.dot(u, v)
+        dist.all_reduce(d, group=group)
+        return d
+
+    return pdot
 
 
 def _shard_matvec(plan, group, v1, v2, tables):
@@ -431,6 +461,26 @@ def _shard_two_level_precond(plan, group, rank, v1, v2, tables):
     return precond
 
 
+def _shard_jacobi_precond(diag_local):
+    """Point Jacobi on the rank's rows (zero diagonal entries, the padding
+    rows, keep their residual)."""
+    inv_d = 1.0 / torch.where(diag_local != 0, diag_local, torch.ones_like(diag_local))
+    return lambda r: inv_d * r
+
+
+def _halo_view(basis, tables):
+    """The rank's halo cells of ``basis`` as a ``_CellChunkView`` (what a
+    form reads: ``v``, ``v_grad``, ``integration_points``) and their
+    quadrature weights."""
+    from ..ops.compiled import _CellChunkView
+
+    cells = tables.cells
+    dx = basis._dx[cells]
+    view = _CellChunkView(basis.v, basis.v_grad[cells], basis.integration_points[cells], dx,
+                          basis._element)
+    return view, dx
+
+
 def _check_precondition(precondition):
     if precondition not in PRECONDITIONERS:
         raise ValueError(f"unknown precondition: {precondition!r}")
@@ -447,10 +497,7 @@ def _make_sharded_run(plan, device_mesh, precondition, tol, maxiter):
     if maxiter is None:
         maxiter = max(10 * plan.nb_pad * plan.st.block, 100)
 
-    def pdot(u, v):
-        d = torch.dot(u, v)
-        dist.all_reduce(d, group=group)
-        return d
+    pdot = _pdot(group)
 
     def run(local_s, b_local):
         tables = _shard_tables(plan, rank, local_s.device)
@@ -459,8 +506,7 @@ def _make_sharded_run(plan, device_mesh, precondition, tol, maxiter):
         if precondition in ("auto", "two_level"):
             precond = _shard_two_level_precond(plan, group, rank, v1, v2, tables)
         else:  # jacobi
-            inv_d = 1.0 / torch.where(diag_local != 0, diag_local, torch.ones_like(diag_local))
-            precond = lambda r: inv_d * r  # noqa: E731
+            precond = _shard_jacobi_precond(diag_local)
         x, info = pcg(matvec, b_local, precond=precond, tol=tol, maxiter=maxiter, dot=pdot)
         x_full = _all_gather(x, group, n_shards)
         return x_full, info.iterations, info.residual_norm, info.converged
@@ -507,10 +553,7 @@ def sharded_bsr_solver(
     n_pad = plan.nb_pad * st.block
     run = _make_sharded_run(plan, device_mesh, precondition, tol, maxiter)
 
-    from ..ops.compiled import _CellChunkView
-
-    cells = _shard_tables(plan, rank, basis.device).cells
-    vgrad_s, dx_s, pts_s = basis.v_grad[cells], basis._dx[cells], basis.integration_points[cells]
+    view, dx_s = _halo_view(basis, _shard_tables(plan, rank, basis.device))
     if linear_form is not None:
         b0 = basis.integrate_linear_form(linear_form)
     else:
@@ -518,7 +561,6 @@ def sharded_bsr_solver(
     n_dofs = basis.n_dofs
 
     def solve(b=None):
-        view = _CellChunkView(basis.v, vgrad_s, pts_s, dx_s, basis._element)
         local_s = (basis._evaluate_form(bilinear_form, view) * dx_s).sum(-3)
         b_pad = torch.nn.functional.pad(bsr_reduce(st, b0 if b is None else b),
                                         (0, n_pad - st.n_pad))

@@ -41,8 +41,7 @@ UNPORTED = {
     # the raw seven-fractures loaders read data this host does not have
     # (not queued)
     "utils": {"load_seven_fractures_raw", "seven_fractures_rectangles"},
-    # A9c: the sharded Newton, eigen and Stokes solvers
-    "parallel": {"sharded_newton_solver", "sharded_eigsh_solver", "sharded_stokes_solver"},
+    "parallel": set(),
     "element": set(),
     "mesh": set(),
     "models": set(),

@@ -5,7 +5,7 @@ The port's ranks are gloo processes on the CPU, 2 and 4 of them, spawned
 once per module in the background (``torch_dist_worker.start``); they run
 every case and each test reads its own entry. The JAX side runs here, on
 the conftest's 8 virtual devices, through ``make_device_mesh(n)`` with the
-same n. Held, for the matrix-free and ELL cases of the JAX package's
+same n, in threads while the ranks run (the ``refs`` fixture). Held, for the matrix-free and ELL cases of the JAX package's
 ``tests/test_sharding.py`` (the square, the two fractures, the h=0.3
 seven-fracture network and a tet mesh): every rank's result equal to rank
 0's, iteration counts equal to JAX's sharded counts, solutions within
@@ -15,6 +15,7 @@ are bitwise unchanged by the ``dot`` argument. The cell-sharded basis is in
 ``test_torch_sharded_bsr.py`` and ``test_torch_sharded_bsr_pcg.py``.
 """
 
+import functools
 import sys
 from pathlib import Path
 
@@ -74,12 +75,55 @@ def fractures(nx, ny):
     return fem.FractureBasis(dfn, fem.ElementTri(1, 2))
 
 
-def check_solve(runs, world, name, jax_solver, V, form, **kw):
-    """The JAX sharded solve at ``world`` devices, then the ranks' case:
+#: the JAX side's bases and their loads, each built once for both world
+#: sizes (and both fracture solvers)
+PROBLEMS = {
+    "square": (lambda: fem.Basis(fem.MeshTri(fem.unit_square(n=12)), fem.ElementTri(1, 2)),
+               load),
+    "fractures": (lambda: fractures(8, 4), load),
+    "network": (lambda: fem.FractureNetworkBasis(build_benchmark_network(h=0.3),
+                                                 fem.ElementTri(1, 2)), lambda b: b.v),
+    "tet": (lambda: fem.Basis(fem.MeshTet(fem.unit_cube(4)), fem.ElementTet(1, 2)), cube_load),
+}
+
+
+@functools.cache
+def problem(name):
+    """``(V, local, b)`` of a JAX-side problem."""
+    make, form = PROBLEMS[name]
+    V = make()
+    return V, V.integrate_bilinear_form_local(stiffness), V.integrate_linear_form(form)
+
+
+#: the rank cases: the JAX solver, its problem and keywords
+CASES = {
+    "pcg_square": (solve_pcg_sharded, "square", {"tol": 1e-13}),
+    "pcg_fractures": (solve_pcg_sharded, "fractures", {"tol": 1e-13}),
+    "ell_fractures": (solve_pcg_sharded_ell, "fractures", {"tol": 1e-13, "max_k": 6}),
+    "benchmark_ell": (solve_pcg_sharded_ell, "network", {"tol": 1e-9}),
+    "tet_ell": (solve_pcg_sharded_ell, "tet", {"tol": 1e-13, "max_k": 16}),
+}
+
+
+def jax_solve(name, world):
+    solver, problem_name, kw = CASES[name]
+    V, local, b = problem(problem_name)
+    return solver(V, local, b, make_device_mesh(world), return_info=True, **kw)
+
+
+@pytest.fixture(scope="module")
+def refs(runs):
+    """JAX's sharded solve of every rank case at both world sizes, by
+    (case, world), computed in threads while the ranks run."""
+    worker.in_threads({name: functools.partial(problem, name) for name in PROBLEMS})
+    return worker.in_threads({(name, world): functools.partial(jax_solve, name, world)
+                              for name in CASES for world in WORLDS})
+
+
+def check_solve(runs, refs, world, name):
+    """The ranks' case against the JAX sharded solve at ``world`` devices:
     equal count, both converged, solutions within 1e-10 relative."""
-    local = V.integrate_bilinear_form_local(stiffness)
-    b = V.integrate_linear_form(form)
-    u_ref, info_ref = jax_solver(V, local, b, make_device_mesh(world), return_info=True, **kw)
+    u_ref, info_ref = refs[name, world]
     res = worker.case(runs, world, name)
     assert res["it"] == int(info_ref.iterations)
     assert res["conv"] is bool(info_ref.converged) is True
@@ -89,44 +133,33 @@ def check_solve(runs, world, name, jax_solver, V, form, **kw):
 
 
 @pytest.mark.parametrize("world", WORLDS)
-def test_sharded_pcg_matches_jax(runs, world):
-    V = fem.Basis(fem.MeshTri(fem.unit_square(n=12)), fem.ElementTri(1, 2))
-    check_solve(runs, world, "pcg_square", solve_pcg_sharded, V, load, tol=1e-13)
+def test_sharded_pcg_matches_jax(runs, refs, world):
+    check_solve(runs, refs, world, "pcg_square")
 
 
 @pytest.mark.parametrize("world", WORLDS)
-def test_sharded_pcg_on_fractures(runs, world):
-    check_solve(runs, world, "pcg_fractures", solve_pcg_sharded, fractures(8, 4), load,
-                tol=1e-13)
+def test_sharded_pcg_on_fractures(runs, refs, world):
+    check_solve(runs, refs, world, "pcg_fractures")
 
 
 @pytest.mark.parametrize("world", WORLDS)
-def test_sharded_ell_pcg_matches_jax(runs, world):
+def test_sharded_ell_pcg_matches_jax(runs, refs, world):
     """Row-sharded hybrid ELL with its spill tail (max_k=6)."""
-    check_solve(runs, world, "ell_fractures", solve_pcg_sharded_ell, fractures(8, 4), load,
-                tol=1e-13, max_k=6)
+    check_solve(runs, refs, world, "ell_fractures")
 
 
 @pytest.mark.parametrize("world", WORLDS)
-def test_benchmark_network_iteration_parity(runs, world):
+def test_benchmark_network_iteration_parity(runs, refs, world):
     """The h=0.3 seven-fracture network: the sharded ELL solve takes JAX's
     sharded count, within 2 of the single-process ELL solve (the JAX
     test's bound: row padding must not degrade the solve)."""
-    V = fem.FractureNetworkBasis(build_benchmark_network(h=0.3), fem.ElementTri(1, 2))
-    res = check_solve(runs, world, "benchmark_ell", solve_pcg_sharded_ell, V, lambda b: b.v,
-                      tol=1e-9)
-    pV = worker.benchmark_network(0.3)
-    local = pV.integrate_bilinear_form_local(worker.stiffness)
-    b = pV.integrate_linear_form(worker.unit_load)
-    _, info = pV.solve_iterative(local, b, tol=1e-9, method="ell", return_info=True)
-    assert abs(res["it"] - info.iterations) <= 2
+    res = check_solve(runs, refs, world, "benchmark_ell")
+    assert abs(res["it"] - res["it_single"]) <= 2
 
 
 @pytest.mark.parametrize("world", WORLDS)
-def test_sharded_ell_on_tet_mesh(runs, world):
-    V = fem.Basis(fem.MeshTet(fem.unit_cube(4)), fem.ElementTet(1, 2))
-    check_solve(runs, world, "tet_ell", solve_pcg_sharded_ell, V, cube_load, tol=1e-13,
-                max_k=16)
+def test_sharded_ell_on_tet_mesh(runs, refs, world):
+    check_solve(runs, refs, world, "tet_ell")
 
 
 def _spd(n, seed):

@@ -1,6 +1,8 @@
 """One rank of the multi-process parity tests of the port's ``parallel``
 package (``tests/test_torch_sharding.py``, ``test_torch_sharded_basis.py``,
-``test_torch_sharded_bsr.py``, ``test_torch_sharded_bsr_pcg.py``).
+``test_torch_sharded_bsr.py``, ``test_torch_sharded_bsr_pcg.py``,
+``test_torch_sharded_newton.py``, ``test_torch_sharded_eigen.py``,
+``test_torch_sharded_stokes.py``, ``test_torch_sharded_tets.py``).
 
     python tests/torch_dist_worker.py SUITE RANK WORLD STORE OUT
 
@@ -83,6 +85,15 @@ def start(suite: str, tmp_dir: str, worlds=(2, 4)):
     return pool, {w: pool.submit(spawn, suite, w, tmp_dir) for w in worlds}
 
 
+def in_threads(calls: dict, workers: int = 4) -> dict:
+    """``{key: call()}`` with the calls run in a thread pool: a test
+    module's JAX references, whose XLA compiles overlap outside the
+    interpreter lock (about half the wall of running them in turn)."""
+    with ThreadPoolExecutor(workers) as pool:
+        futures = {key: pool.submit(call) for key, call in calls.items()}
+        return {key: f.result() for key, f in futures.items()}
+
+
 def case(runs, world: int, name: str) -> dict:
     """Rank 0's result of a case (waiting for the spawn), after checking
     that no rank raised and that every rank's solution and count equal rank
@@ -93,7 +104,9 @@ def case(runs, world: int, name: str) -> dict:
     for other in results[1:]:
         assert other.keys() == results[0].keys()
         if "u" in other:
-            np.testing.assert_array_equal(other["u"], results[0]["u"])
+            for key in ("u", "p", "vals"):
+                if key in other:
+                    np.testing.assert_array_equal(other[key], results[0][key])
             assert other["it"] == results[0]["it"]
     return results[0]
 
@@ -252,12 +265,23 @@ def _vpinn(V, mesh, arch, bc_):
     }
 
 
+def _benchmark_ell(mesh):
+    """The h=0.3 network's sharded ELL solve beside the single-process ELL
+    solve's count (``it_single``)."""
+    V = benchmark_network(0.3)
+    out = _pcg(V, unit_load, mesh, "ell", tol=1e-9)
+    _, info = V.solve_iterative(V.integrate_bilinear_form_local(stiffness),
+                                V.integrate_linear_form(unit_load), tol=1e-9, method="ell",
+                                return_info=True)
+    return {**out, "it_single": int(info.iterations)}
+
+
 def sharding_cases(mesh):
     return {
         "pcg_square": lambda: _pcg(square(n=12), load, mesh, "pcg", tol=1e-13),
         "pcg_fractures": lambda: _pcg(fractures(8, 4), load, mesh, "pcg", tol=1e-13),
         "ell_fractures": lambda: _pcg(fractures(8, 4), load, mesh, "ell", tol=1e-13, max_k=6),
-        "benchmark_ell": lambda: _pcg(benchmark_network(0.3), unit_load, mesh, "ell", tol=1e-9),
+        "benchmark_ell": lambda: _benchmark_ell(mesh),
         "tet_ell": lambda: _pcg(cube(4), cube_load, mesh, "ell", tol=1e-13, max_k=16),
     }
 
@@ -345,11 +369,181 @@ def _rhs_replaced(mesh):
             "repeat_bitwise": bool((u_b == u_b2).all())}
 
 
+def nonlinear_residual(b, u, ug):
+    """-div((1 + u^2) grad u) = f with the manufactured sin sin solution."""
+    pi = math.pi
+    x, y = b.integration_points[..., 0:1], b.integration_points[..., 1:2]
+    us = (pi * x).sin() * (pi * y).sin()
+    ux = pi * (pi * x).cos() * (pi * y).sin()
+    uy = pi * (pi * x).sin() * (pi * y).cos()
+    f = -(2 * us * (ux**2 + uy**2) + (1 + us**2) * (-2 * pi**2 * us))
+    return (1 + u**2) * (b.v_grad * ug).sum(-1, keepdim=True) - f * b.v
+
+
+def nonlinear_residual_3d(b, u, ug):
+    """The same with the sin sin sin solution on the unit cube."""
+    pi = math.pi
+    p = b.integration_points
+    s = [(pi * p[..., i:i + 1]).sin() for i in range(3)]
+    c = [(pi * p[..., i:i + 1]).cos() for i in range(3)]
+    us = s[0] * s[1] * s[2]
+    grad2 = ((pi * c[0] * s[1] * s[2]) ** 2 + (pi * s[0] * c[1] * s[2]) ** 2
+             + (pi * s[0] * s[1] * c[2]) ** 2)
+    f = -(2 * us * grad2 + (1 + us**2) * (-3 * pi**2 * us))
+    return (1 + u**2) * (b.v_grad * ug).sum(-1, keepdim=True) - f * b.v
+
+
+def mass(b):
+    return b.v @ b.v.mT
+
+
+def stokes_viscous(b):
+    import torch
+
+    return torch.einsum("...icd,...jcd->...ij", b.v_grad, b.v_grad)
+
+
+def stokes_div(test_p, trial_u):
+    import torch
+
+    div = torch.einsum("...cc->...", trial_u.v_grad)
+    return -(test_p.v[..., 0][..., :, None] * div[..., None, :])
+
+
+def stokes_load(b):
+    import torch
+
+    pts = b.integration_points[..., 0, :]
+    f = torch.stack([(math.pi * pts[..., 0]).sin(), pts[..., 1] ** 2], dim=-1)
+    return (b.v * f[..., None, :]).sum(-1, keepdim=True)
+
+
+def stokes_load_3d(b):
+    f = b.v.new_tensor([1.0, 0.0, -0.5])
+    return (f * b.v).sum(-1, keepdim=True)
+
+
+def stokes_rectangle():
+    """Taylor-Hood P2 x 2 / P1 on ``rectangle(9, 7)`` and its load."""
+    import pytorch_fem_solver_tpu_torch as pt
+
+    mesh = pt.MeshTri(pt.rectangle(9, 7), device="cpu")
+    Vu = pt.VectorBasis(mesh, pt.ElementTri(2, 4))
+    return Vu, pt.Basis(mesh, pt.ElementTri(1, 4)), Vu.integrate_linear_form(stokes_load)
+
+
+def stokes_cube():
+    """Taylor-Hood P2 x 3 / P1 on ``unit_cube(3)`` and its load."""
+    import pytorch_fem_solver_tpu_torch as pt
+
+    mesh = pt.MeshTet(pt.unit_cube(3), device="cpu")
+    Vu = pt.VectorBasis(mesh, pt.ElementTet(2, 3))
+    return Vu, pt.Basis(mesh, pt.ElementTet(1, 3)), Vu.integrate_linear_form(stokes_load_3d)
+
+
+def _newton(V, residual, mesh, **kw):
+    from pytorch_fem_solver_tpu_torch.parallel import sharded_newton_solver
+
+    u, (it, res, conv) = sharded_newton_solver(V, residual, device_mesh=mesh, **kw)()
+    return {"u": _np(u), "it": it, "conv": bool(conv), "res": float(res),
+            "type": (type(it).__name__, res.dim(), conv.dim())}
+
+
+def sharded_newton_cases(mesh):
+    import pytorch_fem_solver_tpu_torch as pt
+
+    def rectangle(n):
+        return pt.Basis(pt.MeshTri(pt.rectangle(n, n), device="cpu"), pt.ElementTri(1, 3))
+
+    kw = {"tol": 1e-12, "solve_tol": 1e-10}
+    cases = {
+        f"newton_{pc}": (lambda pc=pc: _newton(rectangle(40), nonlinear_residual, mesh,
+                                               precondition=pc, **kw))
+        for pc in ("jacobi", "two_level")
+    }
+    if os.environ.get("FEM_TEST_SCALE"):
+        cases["newton_50k"] = lambda: _newton(rectangle(224), nonlinear_residual, mesh,
+                                              tol=1e-10, solve_tol=1e-9,
+                                              precondition="two_level")
+    return cases
+
+
+def _eigsh(V, mesh, k, **kw):
+    from pytorch_fem_solver_tpu_torch.parallel import sharded_eigsh_solver
+
+    vals, vecs, (rounds, change, conv) = sharded_eigsh_solver(
+        V, stiffness, mass, k, device_mesh=mesh, tol=1e-9, **kw)()
+    return {"u": _np(vecs), "vals": _np(vals), "it": rounds, "conv": bool(conv),
+            "type": (type(rounds).__name__, change.dim(), conv.dim())}
+
+
+def sharded_eigen_cases(mesh):
+    import pytorch_fem_solver_tpu_torch as pt
+
+    def square():
+        return pt.Basis(pt.MeshTri(pt.unit_square(max_area=0.5**8), device="cpu"),
+                        pt.ElementTri(1, 3))
+
+    return {
+        "eigsh_two_level": lambda: _eigsh(square(), mesh, 4),
+        "eigsh_jacobi": lambda: _eigsh(square(), mesh, 4, precondition="jacobi"),
+    }
+
+
+def _stokes(make, mesh, again=False, **kw):
+    from pytorch_fem_solver_tpu_torch.parallel import sharded_stokes_solver
+
+    Vu, Vp, f = make()
+    solve = sharded_stokes_solver(Vu, Vp, stokes_viscous, stokes_div, device_mesh=mesh, **kw)
+    u, p, info = solve(f)
+    out = {"u": _np(u), "p": _np(p), "it": info.outer_iterations,
+           "conv": bool(info.converged), "inner_total": info.inner_total,
+           "type": (type(info.outer_iterations).__name__, type(info.inner_total).__name__)}
+    if again:  # a second right-hand side on the built solver
+        u2, p2, _ = solve(2.0 * f)
+        out.update({"u2": _np(u2), "p2": _np(p2)})
+    return out
+
+
+STOKES_KW = {"tol": 1e-10, "inner_tol": 1e-12}
+
+
+def sharded_stokes_cases(mesh):
+    """The two-level case, with the second right-hand side at 2 ranks. An
+    inner PCG iteration is 4-5 collectives, each ~0.25 ms of CPU on 2 gloo
+    ranks and ~0.5 ms on 4 (a rectangle solve is ~7,000 of them), so the
+    Jacobi case has a spawn of its own (``sharded_stokes_jacobi``)."""
+    return {"stokes_two_level": lambda: _stokes(stokes_rectangle, mesh, again=mesh.size() == 2,
+                                                precondition="two_level", **STOKES_KW)}
+
+
+def sharded_stokes_jacobi_cases(mesh):
+    return {"stokes_jacobi": lambda: _stokes(stokes_rectangle, mesh, precondition="jacobi",
+                                             **STOKES_KW)}
+
+
+def sharded_tets_cases(mesh):
+    """The tet cases of the three solvers (one spawn, one world size)."""
+    kw = {"tol": 1e-12, "solve_tol": 1e-10}
+    return {
+        "newton_tet": lambda: _newton(cube(5), nonlinear_residual_3d, mesh,
+                                      precondition="two_level", **kw),
+        "eigsh_tet": lambda: _eigsh(cube(5), mesh, 3),
+        "stokes_tet": lambda: _stokes(stokes_cube, mesh, tol=1e-9, inner_tol=1e-11,
+                                      precondition="jacobi"),
+    }
+
+
 SUITES = {
     "sharding": sharding_cases,
     "sharded_basis": sharded_basis_cases,
     "sharded_bsr": sharded_bsr_cases,
     "sharded_bsr_pcg": sharded_bsr_pcg_cases,
+    "sharded_newton": sharded_newton_cases,
+    "sharded_eigen": sharded_eigen_cases,
+    "sharded_stokes": sharded_stokes_cases,
+    "sharded_stokes_jacobi": sharded_stokes_jacobi_cases,
+    "sharded_tets": sharded_tets_cases,
 }
 
 
