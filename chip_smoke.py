@@ -1645,10 +1645,8 @@ def phase_rvpinn(card):
     d64 = _rel_curve(losses[:10], r64.model.get_training_history()[0])
     check(d64 <= 1e-2, f"f32 vs f64 10-epoch loss history on the card: rel {d64:.3e} <= 1e-2")
 
-    eager_med = float(np.median(eager.model._epoch_times[1:]))
-    blocked_med = float(np.median(blocked.model._epoch_times))
-    log(f"RVPINN f32 s/epoch: train() {eager_s:.6e} (median host epoch {eager_med:.6e}), "
-        f"train_compiled({RVPINN_BLOCK}) {blocked_s:.6e} (median {blocked_med:.6e}); "
+    log(f"RVPINN f32 s/epoch: train() {eager_s:.6e}, "
+        f"train_compiled({RVPINN_BLOCK}) {blocked_s:.6e}; "
         f"loss {losses[0]:.6e} -> {losses[-1]:.6e}, relative H1 {accs[0]:.4f} -> {accs[-1]:.4f}")
     log(json.dumps({
         "metric": "rvpinn_s_per_epoch",
@@ -1892,10 +1890,8 @@ def phase_posteriori(card):
     check(d64 <= 1e-2, f"estimator RVPINN f32 vs f64 10-epoch losses on the card: rel {d64:.3e} <= 1e-2")
     marks.append(("f64 model, 10 epochs", time.perf_counter()))
 
-    eager_med = float(np.median(eager.model._epoch_times[1:]))
-    blocked_med = float(np.median(blocked.model._epoch_times))
-    log(f"estimator RVPINN f32 s/epoch: train() {eager_s:.6e} (median host epoch {eager_med:.6e}), "
-        f"train_compiled({RVPINN_BLOCK}) {blocked_s:.6e} (median {blocked_med:.6e}); "
+    log(f"estimator RVPINN f32 s/epoch: train() {eager_s:.6e}, "
+        f"train_compiled({RVPINN_BLOCK}) {blocked_s:.6e}; "
         f"loss {losses[0]:.6e} -> {losses[-1]:.6e}, relative H1 {accs[0]:.4f} -> {accs[-1]:.4f}")
     log(json.dumps({
         "metric": "posteriori_s_per_epoch",

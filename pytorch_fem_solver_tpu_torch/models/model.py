@@ -49,7 +49,6 @@ from __future__ import annotations
 import copy
 import inspect
 import math
-import time
 from collections import defaultdict
 from typing import Any, Callable, Optional
 
@@ -266,7 +265,6 @@ class Model:
         self._loss_history: list[float] = []
         self._validation_loss_history: list[float] = []
         self._accuracy_history: list[float] = []
-        self._epoch_times: list[float] = []
 
         self._best_loss = float("inf")
         self.optimal_parameters = self._snapshot()
@@ -367,13 +365,11 @@ class Model:
 
         state = self._training_state
         for _ in iterator:
-            t0 = time.perf_counter()
             scalars, state_new = self._epoch(state)
             scalars = torch.stack(scalars)
             loss_value, validation_value, accuracy_value = scalars.tolist()
-            self._epoch_times.append(time.perf_counter() - t0)
-            # history first, aligned with _epoch_times: the guard and the
-            # early stop below must not drop the epoch they evaluated
+            # history first: the guard and the early stop below must not
+            # drop the epoch they evaluated
             self._loss_history.append(loss_value)
             self._validation_loss_history.append(validation_value)
             self._accuracy_history.append(accuracy_value)
@@ -507,17 +503,14 @@ class Model:
                     copy.deepcopy(self._optimizer.state_dict()),
                     {k: v.clone() for k, v in self._scheduler_state().items()},
                 )
-            t0 = time.perf_counter()
             rows, carry = run_block(length, carry)
             rows = rows.cpu().numpy()  # the block's one host read
-            block_dt = (time.perf_counter() - t0) / length
             done += length
 
             # replay the eager per-epoch bookkeeping on the block's scalars
             stop_epoch = None
             for e in range(length):
                 lv = float(rows[e, 0])
-                self._epoch_times.append(block_dt)
                 self._loss_history.append(lv)
                 self._validation_loss_history.append(float(rows[e, 1]))
                 self._accuracy_history.append(float(rows[e, 2]))

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils.profiling import span
 from . import cuda_build
 
 
@@ -626,18 +627,19 @@ def get_bsr_structure(
     if structure is not None and want_entry_slot and structure.entry_slot.numel() == 0:
         structure = None  # symmetric-only cached; rebuild with the table
     if structure is None:
-        inner = basis._as_host_index(basis._basis_parameters["inner_dofs"])
-        coords = basis._coords4global_dofs.cpu().numpy()[inner]
-        structure = build_bsr_structure(
-            basis._as_host_index(basis._global_dofs4elements),
-            basis.n_dofs,
-            inner,
-            coords,
-            block=block,
-            leaf=leaf,
-            max_b=max_b,
-            want_entry_slot=want_entry_slot,
-            device=basis.device,
-        )
+        with span("fem.tables.bsr", always=True):
+            inner = basis._as_host_index(basis._basis_parameters["inner_dofs"])
+            coords = basis._coords4global_dofs.cpu().numpy()[inner]
+            structure = build_bsr_structure(
+                basis._as_host_index(basis._global_dofs4elements),
+                basis.n_dofs,
+                inner,
+                coords,
+                block=block,
+                leaf=leaf,
+                max_b=max_b,
+                want_entry_slot=want_entry_slot,
+                device=basis.device,
+            )
         cache[key] = structure
     return structure

@@ -6,7 +6,9 @@ branches. All host-side structure building happens once at construction;
 the returned ``solve`` runs local assembly, the BSR value scatter, the
 preconditioner setup and PCG (with the SpMV kernel) on the basis's device.
 PyTorch runs eagerly, so there is nothing to compile: the name is kept so a
-reader finds the counterpart.
+reader finds the counterpart. Under a profiler session a solve records
+the spans ``fem.solve``, ``fem.assemble`` and ``fem.precond_setup``, and
+the constructor ``fem.tables.solver`` always (``utils.profiling``).
 
 The chunked assembly (``chunk_cells``; on by default for a symmetric form
 above 2M cells) streams the canonical-pair scatter over cell chunks, so
@@ -56,6 +58,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .bsr import (
     _scatter_drop,
     bsr_diagonal,
@@ -161,36 +164,37 @@ def preconditioner_setup(
             f"unknown precondition: {precondition!r} (expected one of "
             f"{', '.join(map(repr, PRECONDITIONERS))})"
         )
-    st, od = structure, operand_dtype
-    if precondition == "jacobi":
-        return None
-    if precondition == "aggblock":
-        return aggblock_setup(st, g, gs, od)
-    if precondition == "two_level":
-        return lambda values, diag: block_two_level_from_values(
-            st, values, diag, g=g, operand_dtype=od
-        )
-    if precondition == "mult":
-        return lambda values, diag: mult_two_level_from_values(
-            st, values, diag, g=g, operand_dtype=od
-        )
-    if precondition == "smoothed":
-        return lambda values, diag: smoothed_two_level_matrix_free(
-            st, values, diag, g=g, omega=omega
-        )
-    if basis is None:
-        raise ValueError(f"precondition {precondition!r} needs the basis")
-    if precondition == "auto":
-        return auto_preconditioner_setup(basis, st, od)
-    if precondition == "affine":
-        ast = get_affine_two_level_structure(basis, st, g=g)
-        return lambda values, diag: affine_two_level_from_values(
-            ast, st, values, diag, operand_dtype=od
-        )
-    tl = get_three_level_structure(basis, st)
-    build = three_level_from_values if precondition == "three_level" else (
-        mult_three_level_from_values)
-    return lambda values, diag: build(tl, st, values, diag, operand_dtype=od)
+    with span("fem.tables.precond", always=True):
+        st, od = structure, operand_dtype
+        if precondition == "jacobi":
+            return None
+        if precondition == "aggblock":
+            return aggblock_setup(st, g, gs, od)
+        if precondition == "two_level":
+            return lambda values, diag: block_two_level_from_values(
+                st, values, diag, g=g, operand_dtype=od
+            )
+        if precondition == "mult":
+            return lambda values, diag: mult_two_level_from_values(
+                st, values, diag, g=g, operand_dtype=od
+            )
+        if precondition == "smoothed":
+            return lambda values, diag: smoothed_two_level_matrix_free(
+                st, values, diag, g=g, omega=omega
+            )
+        if basis is None:
+            raise ValueError(f"precondition {precondition!r} needs the basis")
+        if precondition == "auto":
+            return auto_preconditioner_setup(basis, st, od)
+        if precondition == "affine":
+            ast = get_affine_two_level_structure(basis, st, g=g)
+            return lambda values, diag: affine_two_level_from_values(
+                ast, st, values, diag, operand_dtype=od
+            )
+        tl = get_three_level_structure(basis, st)
+        build = three_level_from_values if precondition == "three_level" else (
+            mult_three_level_from_values)
+        return lambda values, diag: build(tl, st, values, diag, operand_dtype=od)
 
 
 def bsr_pcg(
@@ -217,8 +221,9 @@ def bsr_pcg(
     setup = preconditioner_setup(st, precondition, basis, **options)
 
     def run(values, b_pad):
-        diag = bsr_diagonal(st, values)
-        precond = None if setup is None else setup(values, diag)
+        with span("fem.precond_setup", b_pad.device):
+            diag = bsr_diagonal(st, values)
+            precond = None if setup is None else setup(values, diag)
         if values_dtype is not None:
             values = tuple(v.to(values_dtype) for v in values)
         return pcg(
@@ -350,93 +355,96 @@ def compiled_bsr_solver(
     if chunk_cells is None:
         chunk_cells = (1 << 18) if (n_cells > 2_000_000 and symmetric_form) else 0
 
-    # construction-time spot check: symmetric_form=True with a
-    # non-symmetric form would silently assemble a symmetrized (wrong)
-    # operator. Evaluate the form eagerly on a small cell slice and verify.
-    sl = slice(0, min(64, n_cells))
-    try:
-        probe = (
-            basis._evaluate_form(
-                bilinear_form,
-                _CellChunkView(
-                    basis.v,
-                    basis.v_grad[sl],
-                    basis.integration_points[sl],
-                    basis._dx[sl],
-                    basis._element,
-                ),
-            )
-            * basis._dx[sl]
-        ).sum(-3)
-    except AttributeError:
-        probe = None  # form reads beyond the slice surface; cannot probe
-    if probe is not None and symmetric_form:
-        asym = float((probe - probe.mT).abs().max())
-        scale = float(probe.abs().max())
-        if asym > 1e-4 * max(scale, 1e-30):
-            raise ValueError(
-                "symmetric_form=True but the bilinear form's local "
-                f"matrices are not symmetric (max asymmetry {asym:.2e} "
-                f"vs scale {scale:.2e}); pass symmetric_form=False"
-            )
+    with span("fem.tables.solver", always=True):
+        # construction-time spot check: symmetric_form=True with a
+        # non-symmetric form would silently assemble a symmetrized (wrong)
+        # operator. Evaluate the form eagerly on a small cell slice and verify.
+        sl = slice(0, min(64, n_cells))
+        try:
+            probe = (
+                basis._evaluate_form(
+                    bilinear_form,
+                    _CellChunkView(
+                        basis.v,
+                        basis.v_grad[sl],
+                        basis.integration_points[sl],
+                        basis._dx[sl],
+                        basis._element,
+                    ),
+                )
+                * basis._dx[sl]
+            ).sum(-3)
+        except AttributeError:
+            probe = None  # form reads beyond the slice surface; cannot probe
+        if probe is not None and symmetric_form:
+            asym = float((probe - probe.mT).abs().max())
+            scale = float(probe.abs().max())
+            if asym > 1e-4 * max(scale, 1e-30):
+                raise ValueError(
+                    "symmetric_form=True but the bilinear form's local "
+                    f"matrices are not symmetric (max asymmetry {asym:.2e} "
+                    f"vs scale {scale:.2e}); pass symmetric_form=False"
+                )
 
-    if max_b is None:
-        max_b = default_max_b(basis)
-    st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=not symmetric_form)
-    chunks = _chunk_table(basis, st, int(chunk_cells), max_b) if chunk_cells else None
-    solve_padded = bsr_pcg(
-        st, precondition, tol=tol, maxiter=maxiter, basis=basis,
-        values_dtype=values_dtype, operand_dtype=operand_dtype,
-    )
-
-    # direct-to-padded rhs scatter (flat single-index linear layouts): the
-    # load-vector targets pre-mapped through the inverse inner permutation
-    # land straight in the padded reduced vector (Dirichlet rows -> n_pad,
-    # dropped into a sink); any other layout assembles the load vector and
-    # reduces it
-    rhs_pad_idx = None
-    lf_idx = basis._basis_parameters.get("linear_form_idx")
-    if linear_form is not None and lf_idx is not None and len(lf_idx) == 1:
-        inv = inverse_inner_perm(st, int(basis.n_dofs))
-        rhs_pad_idx = torch.as_tensor(
-            inv[basis._as_host_index(lf_idx[0])], device=basis.device
+        if max_b is None:
+            max_b = default_max_b(basis)
+        st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=not symmetric_form)
+        chunks = _chunk_table(basis, st, int(chunk_cells), max_b) if chunk_cells else None
+        solve_padded = bsr_pcg(
+            st, precondition, tol=tol, maxiter=maxiter, basis=basis,
+            values_dtype=values_dtype, operand_dtype=operand_dtype,
         )
 
-    n_dofs = basis.n_dofs
-
-    def _run(b):
-        if symmetric_form:
-            values = bsr_values_from_chunks_symmetric(
-                st, _local_chunks(basis, st, bilinear_form, chunks)
+        # direct-to-padded rhs scatter (flat single-index linear layouts): the
+        # load-vector targets pre-mapped through the inverse inner permutation
+        # land straight in the padded reduced vector (Dirichlet rows -> n_pad,
+        # dropped into a sink); any other layout assembles the load vector and
+        # reduces it
+        rhs_pad_idx = None
+        lf_idx = basis._basis_parameters.get("linear_form_idx")
+        if linear_form is not None and lf_idx is not None and len(lf_idx) == 1:
+            inv = inverse_inner_perm(st, int(basis.n_dofs))
+            rhs_pad_idx = torch.as_tensor(
+                inv[basis._as_host_index(lf_idx[0])], device=basis.device
             )
+
+        n_dofs = basis.n_dofs
+
+        def _run(b):
+            with span("fem.solve"):
+                with span("fem.assemble", basis.device):
+                    if symmetric_form:
+                        values = bsr_values_from_chunks_symmetric(
+                            st, _local_chunks(basis, st, bilinear_form, chunks)
+                        )
+                    else:
+                        values = bsr_values_from_local(
+                            st, basis.integrate_bilinear_form_local(bilinear_form)
+                        )
+                    if rhs_pad_idx is not None:
+                        lv = basis.reshape_for_assembly(
+                            basis.integrate_linear_form_local(linear_form), "linear"
+                        )[:, 0]
+                        b_pad = _scatter_drop(rhs_pad_idx, lv, st.n_pad)
+                    else:
+                        if linear_form is not None:
+                            b = basis.integrate_linear_form(linear_form)
+                        b_pad = bsr_reduce(st, b)
+                x, info = solve_padded(values, b_pad)
+                u = basis.solution_tensor() + bsr_expand(st, x, n_dofs)
+                return u, info
+
+        if linear_form is not None:
+
+            def solve(b=None):
+                return _run(None)
+
         else:
-            values = bsr_values_from_local(
-                st, basis.integrate_bilinear_form_local(bilinear_form)
-            )
-        if rhs_pad_idx is not None:
-            lv = basis.reshape_for_assembly(
-                basis.integrate_linear_form_local(linear_form), "linear"
-            )[:, 0]
-            b_pad = _scatter_drop(rhs_pad_idx, lv, st.n_pad)
-        else:
-            if linear_form is not None:
-                b = basis.integrate_linear_form(linear_form)
-            b_pad = bsr_reduce(st, b)
-        x, info = solve_padded(values, b_pad)
-        u = basis.solution_tensor() + bsr_expand(st, x, n_dofs)
-        return u, info
 
-    if linear_form is not None:
+            def solve(b):
+                return _run(b)
 
-        def solve(b=None):
-            return _run(None)
-
-    else:
-
-        def solve(b):
-            return _run(b)
-
-    return solve
+        return solve
 
 
 def _bsr_setup(basis, max_b, precondition):

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils.profiling import read
 from .bsr import bsr_matvec
 from .sparse import ELLStructure, invert_scatter_map
 
@@ -57,10 +58,11 @@ def spd_inverse(a: torch.Tensor) -> torch.Tensor:
     Non-SPD inputs fall back to the LU-based inverse, as in the JAX package
     (there a non-finite Cholesky factor selects the fallback; here the
     ``info`` flag of ``cholesky_ex`` does, since ``cholesky`` would raise).
+    The test makes two blocking host reads (``utils.profiling.read``).
     """
     n = a.shape[-1]
     chol, info = torch.linalg.cholesky_ex(a)
-    if int(info) != 0 or not bool(torch.isfinite(chol).all()):
+    if read(info) != 0 or not read(torch.isfinite(chol).all()):
         return torch.linalg.inv(a)
     eye = torch.eye(n, dtype=a.dtype, device=a.device)
     l_inv = torch.linalg.solve_triangular(chol, eye, upper=False)

@@ -19,6 +19,9 @@ residual ``b - A x`` runs K2 in float64. The JAX program computes that
 residual twice on the same ``x`` (the stage's residual, then the next
 pass's right-hand side); K2 is bitwise repeatable, so one float64 launch
 per stage gives the same bits: 1 + ``refine`` float64 launches per solve.
+The spans are ``compiled_bsr_solver``'s: ``fem.solve`` and
+``fem.precond_setup`` (the float32 copy, the diagonal, the M) per solve,
+``fem.tables.solver`` at construction.
 
 On a vector basis the rigid-body-mode M is built from the float32 values
 with a float32 copy of W made per solve (``affine_two_level_from_values``
@@ -31,6 +34,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import span
 from .bsr import (
     bsr_diagonal,
     bsr_expand,
@@ -102,70 +106,73 @@ def compiled_refined_solver(
     if refine < 0:
         raise ValueError(f"refine must be >= 0, got {refine}")
 
-    if max_b is None:
-        max_b = default_max_b(basis)
-    st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=False)
-    values64 = bsr_values_from_local_symmetric(
-        st, basis.integrate_bilinear_form_local(bilinear_form)
-    )
-    b64 = basis.integrate_linear_form(linear_form) if linear_form is not None else None
-    setup = preconditioner_setup(st, precondition, basis)
-    u0 = basis.solution_tensor()
-    n_dofs = basis.n_dofs
-    floor = max(tol32**2, 1e-14)
-
-    def _run(b):
-        values32 = tuple(v.to(torch.float32).contiguous() for v in values64)
-        diag32 = bsr_diagonal(st, values32)
-        precond = None if setup is None else setup(values32, diag32)
-
-        def solve32(rhs32):
-            return pcg(
-                lambda v: bsr_matvec(st, values32, v),
-                rhs32,
-                precond_diag=diag32,
-                precond=precond,
-                tol=tol32,
-                maxiter=maxiter,
-            )
-
-        b_pad = bsr_reduce(st, b)
-        safe_b = torch.clamp(torch.linalg.norm(b_pad), min=torch.finfo(torch.float64).tiny)
-
-        x32, info = solve32(b_pad.to(torch.float32))
-        x64 = x32.to(torch.float64)
-        r64 = b_pad - bsr_matvec(st, values64, x64)
-        iters = [info.iterations]
-        resids = [torch.linalg.norm(r64) / safe_b]
-        for _ in range(refine):
-            d32, info = solve32(r64.to(torch.float32))
-            x64 = x64 + d32.to(torch.float64)
-            r64 = b_pad - bsr_matvec(st, values64, x64)
-            iters.append(info.iterations)
-            resids.append(torch.linalg.norm(r64) / safe_b)
-
-        u = u0 + bsr_expand(st, x64, n_dofs)
-        residuals = torch.stack(resids)
-        # "reached float64 grade": the last stage at or below the inner
-        # tolerance squared (floored at 1e-14), the JAX threshold as written
-        return u, RefineInfo(
-            inner_iterations=tuple(iters),
-            residuals=residuals,
-            converged=residuals[-1] <= floor,
+    with span("fem.tables.solver", always=True):
+        if max_b is None:
+            max_b = default_max_b(basis)
+        st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=False)
+        values64 = bsr_values_from_local_symmetric(
+            st, basis.integrate_bilinear_form_local(bilinear_form)
         )
+        b64 = basis.integrate_linear_form(linear_form) if linear_form is not None else None
+        setup = preconditioner_setup(st, precondition, basis)
+        u0 = basis.solution_tensor()
+        n_dofs = basis.n_dofs
+        floor = max(tol32**2, 1e-14)
 
-    if linear_form is not None:
+        def _run(b):
+            with span("fem.solve"):
+                with span("fem.precond_setup", b.device):
+                    values32 = tuple(v.to(torch.float32).contiguous() for v in values64)
+                    diag32 = bsr_diagonal(st, values32)
+                    precond = None if setup is None else setup(values32, diag32)
 
-        def solve(b=None):
-            return _run(b64)
+                def solve32(rhs32):
+                    return pcg(
+                        lambda v: bsr_matvec(st, values32, v),
+                        rhs32,
+                        precond_diag=diag32,
+                        precond=precond,
+                        tol=tol32,
+                        maxiter=maxiter,
+                    )
 
-    else:
+                b_pad = bsr_reduce(st, b)
+                safe_b = torch.clamp(torch.linalg.norm(b_pad), min=torch.finfo(torch.float64).tiny)
 
-        def solve(b):
-            if b.dtype != torch.float64:
-                raise ValueError(
-                    f"refined solve needs an f64 right-hand side, got {b.dtype}"
+                x32, info = solve32(b_pad.to(torch.float32))
+                x64 = x32.to(torch.float64)
+                r64 = b_pad - bsr_matvec(st, values64, x64)
+                iters = [info.iterations]
+                resids = [torch.linalg.norm(r64) / safe_b]
+                for _ in range(refine):
+                    d32, info = solve32(r64.to(torch.float32))
+                    x64 = x64 + d32.to(torch.float64)
+                    r64 = b_pad - bsr_matvec(st, values64, x64)
+                    iters.append(info.iterations)
+                    resids.append(torch.linalg.norm(r64) / safe_b)
+
+                u = u0 + bsr_expand(st, x64, n_dofs)
+                residuals = torch.stack(resids)
+                # "reached float64 grade": the last stage at or below the inner
+                # tolerance squared (floored at 1e-14), the JAX threshold as written
+                return u, RefineInfo(
+                    inner_iterations=tuple(iters),
+                    residuals=residuals,
+                    converged=residuals[-1] <= floor,
                 )
-            return _run(b)
 
-    return solve
+        if linear_form is not None:
+
+            def solve(b=None):
+                return _run(b64)
+
+        else:
+
+            def solve(b):
+                if b.dtype != torch.float64:
+                    raise ValueError(
+                        f"refined solve needs an f64 right-hand side, got {b.dtype}"
+                    )
+                return _run(b)
+
+        return solve

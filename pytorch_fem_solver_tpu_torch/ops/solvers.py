@@ -4,7 +4,9 @@ Counterpart of ``dense_solve``, ``pcg``, ``cg``, ``pcg_cols``, ``minres``,
 ``bicgstab`` and ``PCGInfo`` in ``pytorch_fem_solver_tpu/ops/solvers.py``
 (the multi-column PCG and MINRES serve the Stokes solvers). The JAX loops are
 ``lax.while_loop``s on the device; here the loops run on the host with one
-device-to-host read of the stopping test per iteration. ``pcg_steps`` is
+device-to-host read of the stopping test per iteration, through
+``utils.profiling.read``, and each loop is the span ``fem.<solver>``
+(both recorded only under a profiler session). ``pcg_steps`` is
 the fixed-length loop with no host read, which ``bench.make_fused_pcg``
 captures as a CUDA graph; routing ``pcg`` itself onto the device is queued
 in ROADMAP.md (B2). The stopping rules, the default ``maxiter``, the
@@ -20,6 +22,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..utils.profiling import read, span
 
 
 class PCGInfo(NamedTuple):
@@ -83,28 +87,29 @@ def pcg(
         maxiter = max(10 * n, 100)
     if dot is None:
         dot = torch.dot
-    precond = _jacobi_or_identity(precond, precond_diag)
-    atol2 = _squared_tolerance(b, tol, dot)
+    with span("fem.pcg"):
+        precond = _jacobi_or_identity(precond, precond_diag)
+        atol2 = _squared_tolerance(b, tol, dot)
 
-    x = torch.zeros_like(b) if x0 is None else x0
-    r = b - matvec(x)
-    p = precond(r)
-    rz = dot(r, p)
-    k = 0
-    while k < maxiter and bool(dot(r, r) > atol2):
-        ap = matvec(p)
-        alpha = rz / dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = precond(r)
-        rz_new = dot(r, z)
-        beta = rz_new / rz
-        p = z + beta * p
-        rz = rz_new
-        k += 1
-    res = torch.sqrt(dot(r, r))
-    info = PCGInfo(iterations=k, residual_norm=res, converged=res <= torch.sqrt(atol2))
-    return x, info
+        x = torch.zeros_like(b) if x0 is None else x0
+        r = b - matvec(x)
+        p = precond(r)
+        rz = dot(r, p)
+        k = 0
+        while k < maxiter and read(dot(r, r) > atol2):
+            ap = matvec(p)
+            alpha = rz / dot(p, ap)
+            x = x + alpha * p
+            r = r - alpha * ap
+            z = precond(r)
+            rz_new = dot(r, z)
+            beta = rz_new / rz
+            p = z + beta * p
+            rz = rz_new
+            k += 1
+        res = torch.sqrt(dot(r, r))
+        info = PCGInfo(iterations=k, residual_norm=res, converged=res <= torch.sqrt(atol2))
+        return x, info
 
 
 def cg(matvec, b, **kwargs):
@@ -138,34 +143,35 @@ def pcg_cols(
         maxiter = max(10 * n, 100)
     if precond is None:
         precond = lambda r: r  # noqa: E731
-    zero, one = B.new_zeros(()), B.new_ones(())
-    tol = tol.to(B.dtype) if isinstance(tol, torch.Tensor) else B.new_full((), tol)
+    with span("fem.pcg_cols"):
+        zero, one = B.new_zeros(()), B.new_ones(())
+        tol = tol.to(B.dtype) if isinstance(tol, torch.Tensor) else B.new_full((), tol)
 
-    def dot(u, v):
-        return torch.sum(u * v, dim=0)  # (m,)
+        def dot(u, v):
+            return torch.sum(u * v, dim=0)  # (m,)
 
-    atol2 = tol**2 * torch.clamp(dot(B, B), min=torch.finfo(B.dtype).tiny)
-    x = torch.zeros_like(B) if x0 is None else x0
-    r = B - matvec(x)
-    p = precond(r)
-    rz = dot(r, p)
-    active = dot(r, r) > atol2
-    k = 0
-    while k < maxiter and bool(active.any()):
-        ap = matvec(p)
-        denom = dot(p, ap)
-        alpha = torch.where(active, rz / torch.where(denom == 0, one, denom), zero)
-        x = x + alpha[None, :] * p
-        r = r - alpha[None, :] * ap
-        z = precond(r)
-        rz_new = dot(r, z)
-        beta = torch.where(active, rz_new / torch.where(rz == 0, one, rz), zero)
-        p = torch.where(active[None, :], z + beta[None, :] * p, p)
-        rz = torch.where(active, rz_new, rz)
-        k += 1
+        atol2 = tol**2 * torch.clamp(dot(B, B), min=torch.finfo(B.dtype).tiny)
+        x = torch.zeros_like(B) if x0 is None else x0
+        r = B - matvec(x)
+        p = precond(r)
+        rz = dot(r, p)
         active = dot(r, r) > atol2
-    res = torch.sqrt(dot(r, r))
-    return x, PCGInfo(iterations=k, residual_norm=res, converged=torch.all(res * res <= atol2))
+        k = 0
+        while k < maxiter and read(active.any()):
+            ap = matvec(p)
+            denom = dot(p, ap)
+            alpha = torch.where(active, rz / torch.where(denom == 0, one, denom), zero)
+            x = x + alpha[None, :] * p
+            r = r - alpha[None, :] * ap
+            z = precond(r)
+            rz_new = dot(r, z)
+            beta = torch.where(active, rz_new / torch.where(rz == 0, one, rz), zero)
+            p = torch.where(active[None, :], z + beta[None, :] * p, p)
+            rz = torch.where(active, rz_new, rz)
+            k += 1
+            active = dot(r, r) > atol2
+        res = torch.sqrt(dot(r, r))
+        return x, PCGInfo(iterations=k, residual_norm=res, converged=torch.all(res * res <= atol2))
 
 
 def minres(
@@ -209,61 +215,62 @@ def minres(
         dot = torch.dot
     if precond is None:
         precond = lambda r: r  # noqa: E731
-    eps = torch.finfo(b.dtype).eps
-    tiny = torch.finfo(b.dtype).tiny
-    zero, one = b.new_zeros(()), b.new_ones(())
+    with span("fem.minres"):
+        eps = torch.finfo(b.dtype).eps
+        tiny = torch.finfo(b.dtype).tiny
+        zero, one = b.new_zeros(()), b.new_ones(())
 
-    def seed(x):
-        """A fresh recurrence from the residual at ``x``: (r1, r2, y, oldb,
-        beta, dbar, epsln, phibar, cs, sn, w, w2)."""
-        r = b - matvec(x)
-        y = precond(r)
-        # the PSD contract keeps <r, y> >= 0; clamp its float32 rounding
-        beta = torch.sqrt(torch.clamp(dot(r, y), min=0.0))
-        return (r, r, y, zero, beta, zero, zero, beta, -one, zero,
-                torch.zeros_like(b), torch.zeros_like(b))
+        def seed(x):
+            """A fresh recurrence from the residual at ``x``: (r1, r2, y, oldb,
+            beta, dbar, epsln, phibar, cs, sn, w, w2)."""
+            r = b - matvec(x)
+            y = precond(r)
+            # the PSD contract keeps <r, y> >= 0; clamp its float32 rounding
+            beta = torch.sqrt(torch.clamp(dot(r, y), min=0.0))
+            return (r, r, y, zero, beta, zero, zero, beta, -one, zero,
+                    torch.zeros_like(b), torch.zeros_like(b))
 
-    x = torch.zeros_like(b) if x0 is None else x0
-    r1, r2, y, oldb, beta, dbar, epsln, phibar, cs, sn, w, w2 = seed(x)
-    beta1 = beta
-    rtol = tol * torch.clamp(beta1, min=tiny)
-    breakdown = eps * torch.clamp(beta1, min=tiny)
-    k = 0
-    while k < maxiter and bool((phibar > rtol) & (beta > breakdown)):
-        v = y / beta
-        av = matvec(v)
-        # three-term Lanczos: subtract the previous direction (none at k=0
-        # and right after a true-residual refresh, both oldb == 0)
-        has_prev = oldb > 0
-        av = av - torch.where(has_prev, beta / torch.where(has_prev, oldb, one), zero) * r1
-        alfa = dot(v, av)
-        av = av - (alfa / beta) * r2
-        r1, r2 = r2, av
-        y = precond(r2)
-        oldb = beta
-        beta = torch.sqrt(torch.clamp(dot(r2, y), min=0.0))
-        # the previous rotation applied to the new tridiagonal column
-        oldeps = epsln
-        delta = cs * dbar + sn * alfa
-        gbar = sn * dbar - cs * alfa
-        epsln = sn * beta
-        dbar = -cs * beta
-        gamma = torch.clamp(torch.sqrt(gbar**2 + beta**2), min=eps)
-        cs = gbar / gamma
-        sn = beta / gamma
-        phi = cs * phibar
-        phibar = sn * phibar
-        w1, w2 = w2, w
-        w = (v - oldeps * w1 - delta * w2) / gamma
-        x = x + phi * w
-        k += 1
-        if restart is not None and k % restart == 0:
-            r1, r2, y, oldb, beta, dbar, epsln, phibar, cs, sn, w, w2 = seed(x)
-    if restart is not None:
-        # the reported result is the true residual's, not the recurrence's
-        r_true = b - matvec(x)
-        phibar = torch.sqrt(torch.clamp(dot(r_true, precond(r_true)), min=0.0))
-    return x, PCGInfo(iterations=k, residual_norm=phibar, converged=phibar <= rtol)
+        x = torch.zeros_like(b) if x0 is None else x0
+        r1, r2, y, oldb, beta, dbar, epsln, phibar, cs, sn, w, w2 = seed(x)
+        beta1 = beta
+        rtol = tol * torch.clamp(beta1, min=tiny)
+        breakdown = eps * torch.clamp(beta1, min=tiny)
+        k = 0
+        while k < maxiter and read((phibar > rtol) & (beta > breakdown)):
+            v = y / beta
+            av = matvec(v)
+            # three-term Lanczos: subtract the previous direction (none at k=0
+            # and right after a true-residual refresh, both oldb == 0)
+            has_prev = oldb > 0
+            av = av - torch.where(has_prev, beta / torch.where(has_prev, oldb, one), zero) * r1
+            alfa = dot(v, av)
+            av = av - (alfa / beta) * r2
+            r1, r2 = r2, av
+            y = precond(r2)
+            oldb = beta
+            beta = torch.sqrt(torch.clamp(dot(r2, y), min=0.0))
+            # the previous rotation applied to the new tridiagonal column
+            oldeps = epsln
+            delta = cs * dbar + sn * alfa
+            gbar = sn * dbar - cs * alfa
+            epsln = sn * beta
+            dbar = -cs * beta
+            gamma = torch.clamp(torch.sqrt(gbar**2 + beta**2), min=eps)
+            cs = gbar / gamma
+            sn = beta / gamma
+            phi = cs * phibar
+            phibar = sn * phibar
+            w1, w2 = w2, w
+            w = (v - oldeps * w1 - delta * w2) / gamma
+            x = x + phi * w
+            k += 1
+            if restart is not None and k % restart == 0:
+                r1, r2, y, oldb, beta, dbar, epsln, phibar, cs, sn, w, w2 = seed(x)
+        if restart is not None:
+            # the reported result is the true residual's, not the recurrence's
+            r_true = b - matvec(x)
+            phibar = torch.sqrt(torch.clamp(dot(r_true, precond(r_true)), min=0.0))
+        return x, PCGInfo(iterations=k, residual_norm=phibar, converged=phibar <= rtol)
 
 
 def bicgstab(
@@ -289,47 +296,48 @@ def bicgstab(
         maxiter = max(10 * n, 100)
     if dot is None:
         dot = torch.dot
-    precond = _jacobi_or_identity(precond, precond_diag)
-    atol2 = _squared_tolerance(b, tol, dot)
-    eps = torch.finfo(b.dtype).tiny
-    zero, one = b.new_zeros(()), b.new_ones(())
+    with span("fem.bicgstab"):
+        precond = _jacobi_or_identity(precond, precond_diag)
+        atol2 = _squared_tolerance(b, tol, dot)
+        eps = torch.finfo(b.dtype).tiny
+        zero, one = b.new_zeros(()), b.new_ones(())
 
-    x = torch.zeros_like(b) if x0 is None else x0
-    r = b - matvec(x)
-    rhat = r  # shadow residual, fixed
-    p, v = torch.zeros_like(b), torch.zeros_like(b)
-    rho, alpha, omega = one, one, one
-    ok = torch.ones((), dtype=torch.bool, device=b.device)
-    k = 0
-    while k < maxiter and bool((dot(r, r) > atol2) & ok):
-        rho_new = dot(rhat, r)
-        ok = rho_new.abs() > eps
-        beta = torch.where(ok, (rho_new / rho) * (alpha / omega), zero)
-        p = r + beta * (p - omega * v)
-        p_hat = precond(p)
-        v = matvec(p_hat)
-        rhat_v = dot(rhat, v)
-        ok = ok & (rhat_v.abs() > eps)
-        alpha = torch.where(ok, rho_new / torch.where(ok, rhat_v, one), zero)
-        s = r - alpha * v
-        s_hat = precond(s)
-        t = matvec(s_hat)
-        tt = dot(t, t)
-        omega_ok = tt > eps
-        omega = torch.where(omega_ok, dot(t, s) / torch.where(omega_ok, tt, one), zero)
-        omega_ok = omega_ok & (omega.abs() > eps)
-        # omega breakdown (t ~ 0): keep the alpha half step x + alpha p_hat
-        # with residual s, then stop; rho/rhat_v breakdown: freeze entirely
-        x_half = x + alpha * p_hat
-        x = torch.where(ok, torch.where(omega_ok, x_half + omega * s_hat, x_half), x)
-        r = torch.where(ok, torch.where(omega_ok, s - omega * t, s), r)
-        ok = ok & omega_ok
-        omega = torch.where(omega_ok, omega, one)
-        rho = rho_new
-        k += 1
-    res = torch.sqrt(dot(r, r))
-    info = PCGInfo(iterations=k, residual_norm=res, converged=res <= torch.sqrt(atol2))
-    return x, info
+        x = torch.zeros_like(b) if x0 is None else x0
+        r = b - matvec(x)
+        rhat = r  # shadow residual, fixed
+        p, v = torch.zeros_like(b), torch.zeros_like(b)
+        rho, alpha, omega = one, one, one
+        ok = torch.ones((), dtype=torch.bool, device=b.device)
+        k = 0
+        while k < maxiter and read((dot(r, r) > atol2) & ok):
+            rho_new = dot(rhat, r)
+            ok = rho_new.abs() > eps
+            beta = torch.where(ok, (rho_new / rho) * (alpha / omega), zero)
+            p = r + beta * (p - omega * v)
+            p_hat = precond(p)
+            v = matvec(p_hat)
+            rhat_v = dot(rhat, v)
+            ok = ok & (rhat_v.abs() > eps)
+            alpha = torch.where(ok, rho_new / torch.where(ok, rhat_v, one), zero)
+            s = r - alpha * v
+            s_hat = precond(s)
+            t = matvec(s_hat)
+            tt = dot(t, t)
+            omega_ok = tt > eps
+            omega = torch.where(omega_ok, dot(t, s) / torch.where(omega_ok, tt, one), zero)
+            omega_ok = omega_ok & (omega.abs() > eps)
+            # omega breakdown (t ~ 0): keep the alpha half step x + alpha p_hat
+            # with residual s, then stop; rho/rhat_v breakdown: freeze entirely
+            x_half = x + alpha * p_hat
+            x = torch.where(ok, torch.where(omega_ok, x_half + omega * s_hat, x_half), x)
+            r = torch.where(ok, torch.where(omega_ok, s - omega * t, s), r)
+            ok = ok & omega_ok
+            omega = torch.where(omega_ok, omega, one)
+            rho = rho_new
+            k += 1
+        res = torch.sqrt(dot(r, r))
+        info = PCGInfo(iterations=k, residual_norm=res, converged=res <= torch.sqrt(atol2))
+        return x, info
 
 
 def pcg_steps(

@@ -1,24 +1,80 @@
-"""Step timing and the PyTorch profiler.
+"""Step timing, the PyTorch profiler and the solve path's spans.
 
 Counterpart of ``pytorch_fem_solver_tpu/utils/profiling.py``. ``StepTimer``
 keeps the JAX class's surface (``step``, ``time_fn``, ``summary`` and its
 keys); its sync waits for the card instead of copying every leaf to the
 host. ``trace`` wraps ``torch.profiler`` and writes a Chrome trace, where
 the JAX one starts the XLA profiler.
+
+The recorder (the port's own; the JAX package has none) times the solve
+path from inside: ``span(name)`` around a stretch of host code, ``read(t)``
+for each blocking device-to-host read, ``count(name)`` for a counter.
+They record only while a ``torch.profiler`` session runs; otherwise each
+costs one read of the profiler's Python flag and records, allocates and
+changes nothing. Under a session:
+
+* a span is kept as ``Span(name, request, parent, start_ns, end_ns,
+  device_ms)``, stamped with ``time.time_ns()``, the clock of the
+  profiler's (Kineto's) events, so spans line up with the device trace.
+  Spans of one request share ``request``, numbered when an outermost
+  ``fem.solve`` opens; ``parent`` is the index of the enclosing span in
+  ``recorded().spans``;
+* a span also enters ``torch.profiler.record_function(name)``, so it shows
+  in the Chrome trace beside the kernels (``read``'s ``fem.host_read``
+  spans do not: they are too many);
+* a span given a CUDA ``device`` records a pair of timing events on its
+  current stream; ``device_ms``, the stream time between them, is resolved
+  by ``recorded()``, after the caller's own synchronise (none is added);
+* ``read`` records a ``fem.host_read`` span and counts ``host_reads``.
+
+Construction spans (``span(..., always=True)``: ``fem.tables.*``, once per
+solver build) are recorded with or without a session. The spans and
+counters of the solve path:
+
+===================== ======================================================
+``fem.solve``         a ``compiled_bsr_solver`` or ``compiled_refined_solver``
+                      solve (numbers the request)
+``fem.assemble``      the operator's values and the load vector (CUDA events)
+``fem.precond_setup`` the diagonal and the preconditioner's set-up (CUDA
+                      events)
+``fem.pcg``           a PCG solve (``fem.pcg_cols``, ``fem.minres``,
+                      ``fem.bicgstab``: the other loops of ``ops.solvers``)
+``fem.host_read``     one blocking read (stop tests, ``spd_inverse``)
+``host_reads``        the counter of those reads
+``fem.tables.solver`` a solver's construction, with ``fem.tables.bsr`` (the
+                      BSR layout) and ``fem.tables.precond`` (the
+                      preconditioner's host tables) inside
+===================== ======================================================
+
+To look at a solve: run it inside ``with trace(): ...``, open the Chrome
+trace it writes, and read ``recorded()`` (``trace`` calls ``reset`` on
+entry). One thread records at a time.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import statistics
 import tempfile
 import time
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["StepTimer", "trace"]
+__all__ = [
+    "Recording",
+    "Span",
+    "StepTimer",
+    "count",
+    "read",
+    "recorded",
+    "reset",
+    "span",
+    "trace",
+]
 
 
 def _tensors(tree):
@@ -87,7 +143,8 @@ def trace(log_dir: Optional[str] = None):
     when a card is present) and write its Chrome trace
     (``trace_<pid>_<ns>.json``, viewable in Perfetto or chrome://tracing)
     into ``log_dir`` (default: ``torch-trace`` in the temporary directory).
-    Yields ``log_dir``."""
+    Clears the recorder first, so ``recorded()`` afterwards holds the
+    block's spans and counters. Yields ``log_dir``."""
     if log_dir is None:
         log_dir = os.path.join(tempfile.gettempdir(), "torch-trace")
     os.makedirs(log_dir, exist_ok=True)
@@ -95,6 +152,7 @@ def trace(log_dir: Optional[str] = None):
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
+    reset()
     prof.start()
     try:
         yield log_dir
@@ -103,3 +161,146 @@ def trace(log_dir: Optional[str] = None):
         prof.export_chrome_trace(
             os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
         )
+
+
+# -- the recorder -------------------------------------------------------------
+
+
+class Span(NamedTuple):
+    """One recorded span; times in ns of ``time.time_ns()``."""
+
+    name: str
+    request: Optional[int]  # the request it belongs to (None outside a solve)
+    parent: Optional[int]  # index of the enclosing span in ``recorded().spans``
+    start_ns: int
+    end_ns: Optional[int]  # None while the span is open
+    device_ms: Optional[float] = None  # stream time of its CUDA event pair
+
+
+class Recording(NamedTuple):
+    """What ``recorded()`` returns: the spans in the order they opened and
+    the counters."""
+
+    spans: list
+    counters: dict
+
+
+class _Recorder:
+    """The state behind ``span``, ``read``, ``count`` and ``recorded``."""
+
+    def __init__(self):
+        self.spans: list[Span] = []
+        self.counters: collections.Counter = collections.Counter()
+        self.events: list = []  # (span index, start event, end event)
+        self.open: list[int] = []  # indices of the open spans, innermost last
+        self.requests = 0
+        self.request: Optional[int] = None
+        self.solves_open = 0
+        self.generation = 0  # bumped by ``reset``: spans open across it are dropped
+
+    @contextlib.contextmanager
+    def span(self, name: str, device, annotate: bool):
+        generation, index = self.generation, len(self.spans)
+        if name == "fem.solve":
+            if not self.solves_open:
+                self.requests += 1
+                self.request = self.requests
+            self.solves_open += 1
+        request = self.request
+        parent = self.open[-1] if self.open else None
+        events = None
+        if device is not None and torch.device(device).type == "cuda":
+            stream = torch.cuda.current_stream(device)
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        start = time.time_ns()
+        self.spans.append(Span(name, request, parent, start, None))
+        self.open.append(index)
+        try:
+            with torch.profiler.record_function(name) if annotate else contextlib.nullcontext():
+                if events is not None:
+                    events[0].record(stream)
+                try:
+                    yield
+                finally:
+                    if events is not None:
+                        events[1].record(stream)
+        finally:
+            end = time.time_ns()
+            if name == "fem.solve":
+                self.solves_open -= 1
+                if not self.solves_open:
+                    self.request = None
+            if generation == self.generation:
+                self.open.pop()
+                self.spans[index] = Span(name, request, parent, start, end)
+                if events is not None:
+                    self.events.append((index, *events))
+
+    def host_read(self, tensor: torch.Tensor):
+        start = time.time_ns()
+        value = tensor.item()
+        end = time.time_ns()
+        self.spans.append(Span("fem.host_read", self.request,
+                               self.open[-1] if self.open else None, start, end))
+        return value
+
+    def recorded(self) -> Recording:
+        for index, start, end in self.events:
+            end.synchronize()
+            self.spans[index] = self.spans[index]._replace(device_ms=start.elapsed_time(end))
+        self.events.clear()
+        return Recording(list(self.spans), dict(self.counters))
+
+    def reset(self) -> None:
+        self.spans.clear()
+        self.counters.clear()
+        self.events.clear()
+        self.open.clear()
+        self.generation += 1
+
+
+_RECORDER = _Recorder()
+_OFF = contextlib.nullcontext()  # reusable: what ``span`` returns outside a session
+
+
+def span(name: str, device=None, always: bool = False):
+    """A context manager that records the block as the span ``name``.
+
+    Without a profiler session it is a shared no-op, unless ``always``
+    (construction spans, not annotated in the profiler's trace). With a
+    CUDA ``device`` the span also records a timing-event pair on that
+    device's current stream (``Span.device_ms``).
+    """
+    if always:
+        return _RECORDER.span(name, None, annotate=False)
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _RECORDER.span(name, device, annotate=True)
+
+
+def read(tensor: torch.Tensor):
+    """``tensor.item()``: a blocking device-to-host read of a one-element
+    tensor, recorded as a ``fem.host_read`` span and counted under
+    ``host_reads`` during a profiler session."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return tensor.item()
+    count("host_reads")
+    return _RECORDER.host_read(tensor)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` during a profiler session."""
+    if _autograd_profiler._is_profiler_enabled:
+        _RECORDER.counters[name] += n
+
+
+def recorded() -> Recording:
+    """The spans and counters recorded since the last ``reset``, with each
+    span's CUDA event pair resolved to ``device_ms`` (waiting for its end
+    event)."""
+    return _RECORDER.recorded()
+
+
+def reset() -> None:
+    """Forget every span and counter (spans open now are not recorded)."""
+    _RECORDER.reset()
