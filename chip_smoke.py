@@ -25,7 +25,8 @@ Phases (any failure exits non-zero and prints no result):
    default (8) and no tier 2 (``max_b=None``);
 4. the main path, ``pytorch_fem_solver_tpu_torch/bench.py``, at h=0.03 in
    float32 on the card: 107,355 DOFs, PCG to a relative residual <= 1e-6 in
-   <= 80 iterations, K1 and K2 launched on that run, the solution within
+   <= 80 iterations, K1 and K2 launched on that run and K7 once (the
+   aggregate-block M set-up's inverse), the solution within
    1e-4 of the same path in float64, the median of 5 timed repeats;
 5. ``compiled_bsr_solver`` at h=0.03 in float32 agrees with phase 4 to 1e-4;
 6. where the main path's time goes: ``PROFILED_SOLVES`` solves of phase 4's
@@ -373,6 +374,19 @@ Phases (any failure exits non-zero and prints no result):
     counted solve and two more) and one profiled solve (device ms, idle
     share, launches, host reads) beside the twin's (a JSON
     ``sharded_solvers`` line).
+29. K7 (``batched_small_inv``, the batched Gauss-Jordan inverse) on seeded
+    SPD batches at the benchmark cells' aggregate blocks, (4,072, 64, 64)
+    and (3,908, 64, 64), at (231,459, 8, 8), and through its shared-memory
+    kernel at (1,024, 160, 160) and (1,024, 192, 192) (the sharded
+    smoother's gs above 128; float64 only at 160, the larger block does not
+    fit), each with one all-zero block pinned to the identity: one launch a
+    call, two launches bitwise equal, the pinned block exactly the
+    identity, float64 within 1e-12
+    (relative Frobenius, each matrix) of the plain loop and float32 within
+    twice the plain loop's error against the float64 inverse plus n
+    float32 ulps (``tests/test_torch_small_inv.py``'s bounds); its time
+    behind both flushes beside the plain loop's, ``torch.linalg.inv``'s
+    and its bound.
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
@@ -682,6 +696,11 @@ SHARDED_REPEATS = 5  # phase 27's StepTimer medians
 SHARDED_ITER_GAP = 2  # the JAX package's own bound (tests/test_sharding.py)
 SHARDED_WATCHDOG_S = 300.0
 SHARDED_SOLVER_REPEATS = 3  # phase 28's medians
+# phase 29: K7 at the cells' aggregate blocks (network, cube: ns at gs = 64),
+# at a batch of 8 x 8 blocks and at two of the sharded smoother's gs above
+# 128 (its shared-memory kernel; float64 where the block fits, n <= 168)
+K7_SHAPES = ((4_072, 64), (3_908, 64), (231_459, 8), (1_024, 160), (1_024, 192))
+K7_ZERO_BLOCK = 3
 
 failures: list[str] = []
 # name -> one launch at the benchmark shapes, registered by the phases for
@@ -1036,6 +1055,8 @@ def phase_main(st, V32, V64):
     check(bool(torch.isfinite(x32).all()), "solution finite")
     check(launches["p1_element_3d"] >= 1, f"K1 launched on the main path ({launches['p1_element_3d']})")
     check(launches["bsr_spmv"] >= iters, f"K2 launches {launches['bsr_spmv']} >= iterations {iters}")
+    check(launches["small_inv"] == 1,
+          f"K7 launched once on the main path, in the aggregate-block M set-up ({launches['small_inv']})")
 
     x64, iters64, rel64 = solve64()
     torch.cuda.synchronize()
@@ -4786,6 +4807,103 @@ def phase_k6(st):
     }
 
 
+def _k7_batch(batch, n, dtype):
+    """``batch`` seeded SPD (n, n) blocks on the card, block K7_ZERO_BLOCK
+    all-zero and pinned to the identity."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops.precondition import _pin_zero_diagonal
+
+    gen = torch.Generator(device=DEVICE).manual_seed(batch + n)
+    m = torch.randn((batch, n, n), generator=gen, device=DEVICE, dtype=torch.float64)
+    spd = m @ m.mT + n * torch.eye(n, device=DEVICE, dtype=torch.float64)
+    spd[K7_ZERO_BLOCK] = 0.0
+    return _pin_zero_diagonal(spd).to(dtype)
+
+
+def _k7_rel(ours, ref) -> float:
+    """The largest relative Frobenius distance over the batch."""
+    import torch
+
+    ours, ref = ours.double(), ref.double()
+    return float((torch.linalg.matrix_norm(ours - ref) / torch.linalg.matrix_norm(ref)).max())
+
+
+def phase_k7():
+    """Phase 29: K7 against the plain Gauss-Jordan at the cells' shapes, and
+    its time."""
+    import torch
+
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+    from pytorch_fem_solver_tpu_torch.ops.precondition import (
+        _batched_small_inv_plain,
+        batched_small_inv,
+        small_inv_max_n,
+    )
+
+    eps32 = float(np.finfo(np.float32).eps)
+    shapes = []
+    for batch, n in K7_SHAPES:
+        a64 = _k7_batch(batch, n, torch.float64)
+        truth = _batched_small_inv_plain(a64)
+        eye = torch.eye(n, device=DEVICE)
+        errors = {}
+        for dtype in (torch.float64, torch.float32):
+            if n > small_inv_max_n(dtype):
+                continue
+            a = a64.to(dtype)
+            cuda_build.reset_launch_counts()
+            out = batched_small_inv(a)
+            torch.cuda.synchronize()
+            launches = cuda_build.launch_counts["small_inv"]
+            check(launches == 1, f"K7 {dtype} ({batch}, {n}, {n}): one launch ({launches})")
+            check(out.is_contiguous() and out.shape == a.shape, f"K7 {dtype} ({batch}, {n}, {n}): "
+                  "contiguous, the input's shape")
+            check(torch.equal(batched_small_inv(a), out),
+                  f"K7 {dtype} ({batch}, {n}, {n}): two launches bitwise equal")
+            check(torch.equal(out[K7_ZERO_BLOCK], eye.to(dtype)),
+                  f"K7 {dtype} ({batch}, {n}, {n}): the pinned block is exactly I")
+            plain = _batched_small_inv_plain(a) if dtype == torch.float32 else truth
+            err, plain_err = _k7_rel(out, truth), _k7_rel(plain, truth)
+            if dtype == torch.float64:
+                check(err <= 1e-12, f"K7 float64 ({batch}, {n}, {n}) vs plain: {err:.3e} <= 1e-12")
+            else:
+                bound = 2 * plain_err + n * eps32
+                check(err <= bound, f"K7 float32 ({batch}, {n}, {n}) vs the float64 inverse: "
+                      f"{err:.3e} <= 2 x plain's {plain_err:.3e} + n eps32 = {bound:.3e}")
+            errors[str(dtype).removeprefix("torch.")] = err
+            del out, plain
+        del truth, a64
+        a = _k7_batch(batch, n, torch.float32)
+        ms = time_ms(lambda: batched_small_inv(a))
+        ms_read = time_ms(lambda: batched_small_inv(a), flush="read")
+        plain_ms = time_ms(lambda: _batched_small_inv_plain(a), reps=5)
+        library_ms = time_ms(lambda: torch.linalg.inv(a), reps=10)
+        # each block read once and its inverse written once; 2 n^3 operations a block
+        b_ms, by = bound_ms(2 * 4 * batch * n * n, 2 * batch * n**3)
+        log(f"K7 small_inv ({batch}, {n}, {n}) float32: {ms:.4f} ms ({ms_read:.4f} behind the "
+            f"read flush; plain {plain_ms:.4f} ms, torch.linalg.inv {library_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {by}); error vs float64 {errors}")
+        shapes.append({"shape": [batch, n, n], "ms": ms, "ms_read_flush": ms_read,
+                       "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+                       "bound_by": by, "rel_err": errors})
+        del a
+    first = shapes[0]
+    return {
+        "name": "small_inv",
+        "route": "cuda",
+        "source": "pytorch_fem_solver_tpu_torch/csrc/small_inv.cu",
+        "replaces": "none (ops/precondition.py:207 batched_small_inv is plain jnp)",
+        "max_abs_err": None,
+        "ms": first["ms"],
+        "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"],
+        "library_ms": first["library_ms"],
+        "shapes": shapes,
+    }
+
+
 def phase_windows():
     """Phase 12: what the timing window itself holds, per kernel; then the
     stream figures, which hold no event pair. Returns ``name -> stream us``."""
@@ -4916,6 +5034,8 @@ def main() -> int:
     sharded_solvers_k2 = phase_sharded_solvers(card, V32, newton_ref, eigsh_ref, stokes_ref)
     del newton_ref, eigsh_ref, stokes_ref
     done("28 sharded solvers")
+    k7 = phase_k7()
+    done("29 K7")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
     ) + f"; start to tables {marks[0][1] - t_start:.1f}; total {time.perf_counter() - t_start:.1f}")
@@ -4923,11 +5043,12 @@ def main() -> int:
     if failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
-    # each kernel's count on its own path, read just after it ran: K2 on
-    # the main path's solve, K5 in the RVPINN setup; the counts of every
+    # each kernel's count on its own path, read just after it ran: K2 and
+    # K7 on the main path's solve, K5 in the RVPINN setup; the counts of every
     # path that launches them beside it
     k1["launches"] = launches["p1_element_3d"]
     k2["launches"] = launches["bsr_spmv"]
+    k7["launches"] = launches["small_inv"]
     k2["launches_by_path"] = {"main": launches["bsr_spmv"], "dfn_rvpinn": dfn_launches["bsr_spmv"],
                               "adaptive_dfn": adaptive_k2, "p3": p3_k2, "dfn_p2": dfn_p2_k2,
                               "tet_p1": tet_p1_k2, "tet_p2": tet_p2_k2, "fichera": fichera_k2,
@@ -4955,7 +5076,7 @@ def main() -> int:
         fig["stream_us"] = stream.get(name)  # None where no stream figure is taken
     log(f"main path median {median:.6f} s, {iters} iterations, on {card}")
     print(card, flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7]}), flush=True)
     # the run uses one card, whatever the machine holds
     print(json.dumps({
         "ok": True,

@@ -31,6 +31,7 @@ SOURCES = {
     "bsr_spmv": SOURCE_DIR / "bsr_spmv.cu",
     "fused_pcg": SOURCE_DIR / "fused_pcg.cu",
     "gather": SOURCE_DIR / "gather.cu",
+    "small_inv": SOURCE_DIR / "small_inv.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,6 +47,7 @@ launch_counts = {
     "coarse_prolong_dot": 0,
     "p1_element_2d": 0,
     "gather_rows": 0,
+    "small_inv": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

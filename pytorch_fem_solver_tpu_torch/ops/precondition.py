@@ -40,6 +40,8 @@ values' dtype.
 
 from __future__ import annotations
 
+import ctypes
+import math
 import sys
 from typing import NamedTuple
 
@@ -48,6 +50,7 @@ import torch
 
 from .. import config
 from ..utils.profiling import read
+from . import cuda_build
 from .bsr import bsr_matvec
 from .sparse import ELLStructure, invert_scatter_map
 
@@ -169,14 +172,66 @@ class BlockTwoLevel(NamedTuple):
         return _apply_fine(self.blk_inv, self.inv_diag, r) + self.coarse_apply(r)
 
 
+#: one CTA's shared memory on an H100, which holds K7's (n, n) block and the
+#: 4 n words of its pivot copies above n = 128 (``csrc/small_inv.cu``)
+SMALL_INV_SHARED_BYTES = 227 * 1024
+_SMALL_INV_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+]
+
+
+def small_inv_max_n(dtype: torch.dtype) -> int:
+    """The largest n K7 takes in ``dtype``: 239 in float32, 168 in float64
+    (n^2 + 4 n words in ``SMALL_INV_SHARED_BYTES``)."""
+    words = SMALL_INV_SHARED_BYTES // torch.empty((), dtype=dtype).element_size()
+    return math.isqrt(words + 4) - 2
+
+
 def batched_small_inv(a: torch.Tensor) -> torch.Tensor:
-    """Batched inverse of small SPD matrices via unrolled Gauss-Jordan.
+    """Batched inverse of small SPD matrices via Gauss-Jordan.
 
     No pivoting — the inputs are SPD diagonal blocks of an assembled
     stiffness operator, where diagonal pivots are the stable choice. The
     same elimination as the JAX package, so float64 results agree to
     roundoff.
+
+    CPU tensors take ``_batched_small_inv_plain``. CUDA tensors launch K7
+    (``csrc/small_inv.cu``: the same elimination kept in place, one launch
+    for the batch) or raise: for a dtype other than float32 / float64 and
+    for n > ``small_inv_max_n(dtype)``. The result is contiguous.
     """
+    if a.device.type == "cpu":
+        return _batched_small_inv_plain(a)
+    n = a.shape[-1]
+    if a.dim() < 2 or a.shape[-2] != n:
+        raise ValueError(f"batched_small_inv: (..., n, n) blocks expected, got {tuple(a.shape)}")
+    if a.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"batched_small_inv: K7 takes float32 or float64, got {a.dtype}")
+    max_n = small_inv_max_n(a.dtype)
+    if n > max_n:
+        raise ValueError(
+            f"batched_small_inv: n = {n} > {max_n}, the largest {a.dtype} block "
+            f"one CTA of K7 holds"
+        )
+    a = a.contiguous()
+    out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    batch = a.numel() // (n * n) if n else 0
+    if batch == 0:
+        return out
+    cuda_build.check(a, "a", a.shape, a.dtype)
+    fn = cuda_build.function("small_inv", "small_inv", a.dtype, _SMALL_INV_ARGTYPES)
+    err = fn(
+        a.data_ptr(), out.data_ptr(), n, batch,
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    cuda_build.raise_on_error(err, "small_inv")
+    cuda_build.launch_counts["small_inv"] += 1
+    return out
+
+
+def _batched_small_inv_plain(a: torch.Tensor) -> torch.Tensor:
+    """The plain version of K7: the JAX package's unrolled Gauss-Jordan
+    over the augmented (..., n, 2n) matrix [A | I], one pivot at a time."""
     n = a.shape[-1]
     eye = torch.eye(n, dtype=a.dtype, device=a.device).expand(a.shape)
     aug = torch.cat([a, eye], dim=-1)  # (..., n, 2n)
@@ -184,7 +239,7 @@ def batched_small_inv(a: torch.Tensor) -> torch.Tensor:
         pivot_row = aug[..., k, :] / aug[..., k, k : k + 1]
         aug = aug - aug[..., :, k : k + 1] * pivot_row[..., None, :]
         aug[..., k, :] = pivot_row
-    return aug[..., n:]
+    return aug[..., n:].contiguous()
 
 
 MAX_COARSE = 4096  # dense coarse-level cap (inverse + per-iteration matvec)
@@ -385,10 +440,9 @@ def agg_block_two_level_from_values(
     inv_agg = aggregate_block_inverses(
         structure, values, gs, table=table, operand_dtype=operand_dtype
     )
-    # contiguous, as the fused tail's kernels read them (the Gauss-Jordan
-    # result is a column slice of the augmented matrix)
+    # contiguous, as the fused tail's kernels read them
     return AggBlockTwoLevel(
-        inv_agg=inv_agg.contiguous(),
+        inv_agg=inv_agg,
         coarse_inv=base.coarse_inv.contiguous(),
         g=g,
         gs=gs,

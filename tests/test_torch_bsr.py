@@ -289,12 +289,18 @@ def test_agg_block_two_level_setup_and_apply(setup):
     assert _rel(base(torch.from_numpy(r)), jbase(jnp.asarray(r))) <= 1e-10
 
 
-def test_small_inverses_match_jax():
+@pytest.mark.parametrize("n", [8, 32, 64])
+def test_small_inverses_match_jax(n):
+    """The plain Gauss-Jordan (K7's reference on the card) against the JAX
+    package's at the 8 x 8 block-Jacobi blocks and the cells' g2 and gs;
+    the Cholesky inverse at n = 8."""
     rng = np.random.default_rng(7)
-    m = rng.standard_normal((5, 8, 8))
-    spd = m @ m.transpose(0, 2, 1) + 8 * np.eye(8)
+    m = rng.standard_normal((5, n, n))
+    spd = m @ m.transpose(0, 2, 1) + n * np.eye(n)
     ours = pp.batched_small_inv(torch.from_numpy(spd))
     assert _rel(ours, jp.batched_small_inv(jnp.asarray(spd))) <= 1e-12
+    if n != 8:
+        return
     assert _rel(pp.spd_inverse(torch.from_numpy(spd[0])), jp.spd_inverse(jnp.asarray(spd[0]))) <= 1e-12
     # indefinite input: Cholesky fails, the LU inverse takes over
     indef = spd[1] - 40 * np.eye(8)
