@@ -5,13 +5,14 @@
 
 For each seed, in one process: the program's set-up, a short window at the
 cell's own load and the comparison of its first answers (as many as a run
-compares) with the reference, as a run makes it (the lower reading is the
-largest over the seeds). For each control seed, the same requests solved
-by the reference itself in the precision below the one the cell states (TF32
-operator and load for a float32 cell, float32 throughout for a float64
-one), in the program's place (the upper reading is the smallest). One JSON
-line per seed, then a summary line. Runs on the card; the benchmark's own
-runs never run the control.
+compares) with the problem's reference, as a run makes it (the lower
+reading of each compared number is the largest over the seeds). For each
+control seed, the same requests solved by the reference itself in the
+precision below the one the cell states (the problem's ``control_for``), in
+the program's place (the upper reading is the smallest), under the
+compared names with ``control_`` before them. One JSON line per seed, then
+a summary line. Runs on the card; the benchmark's own runs never run the
+control.
 """
 
 from __future__ import annotations
@@ -21,10 +22,8 @@ import gc
 import json
 import sys
 
-from .run import ROOT, build_program, judge, load_cell, window
-
-#: the control of each precision a cell can state
-CONTROL = {"float32": "tf32", "float64": "float32"}
+from . import problems
+from .run import ROOT, build_program, load_cell, window
 
 
 def main(argv=None) -> int:
@@ -41,8 +40,9 @@ def main(argv=None) -> int:
         print("no CUDA device", file=sys.stderr)
         return 10
     cell = load_cell(ROOT, args.workload)
-    dtype = cell.traffic["dtype"]
-    sound, control = [], []
+    problem = problems.of(cell.config)
+    control = problem.control_for(cell)
+    sound, controlled = [], []
     for seed in dict.fromkeys(args.seeds + args.control_seeds):
         prog = build_program(ROOT, cell, seed, args.device)
         lat, its, conv, window_s, _, _, answers = window(
@@ -53,18 +53,23 @@ def main(argv=None) -> int:
         line = {"seed": seed, "attempted": len(lat), "failed": conv.count(False),
                 "checked": [i for i, _ in answers]}
         if seed in args.seeds:
-            line["u_err"] = judge(cell, inputs, specs, answers, seed, args.device)[0]["u_err"]
-            sound.append(line["u_err"])
+            numbers = problem.compare(cell, inputs, specs, answers, seed, args.device)[0]
+            line.update(numbers)
+            sound.append(numbers)
         if seed in args.control_seeds:
-            line["control"] = CONTROL[dtype]
-            line["control_u_err"] = judge(cell, inputs, specs, answers, seed, args.device,
-                                          control=CONTROL[dtype])[0]["u_err"]
-            control.append(line["control_u_err"])
+            numbers = problem.compare(cell, inputs, specs, answers, seed, args.device,
+                                      control=control)[0]
+            line["control"] = control
+            line.update({f"control_{k}": v for k, v in numbers.items()})
+            controlled.append(numbers)
         print(json.dumps(line), flush=True)
+
+    def reading(runs, pick):
+        return {k: pick(n[k] for n in runs) for k in problem.COMPARED} if runs else None
+
     print(json.dumps({"workload": args.workload, "seeds": len(sound),
-                      "lower_reading": max(sound) if sound else None,
-                      "control_seeds": len(control),
-                      "upper_reading": min(control) if control else None,
+                      "lower_reading": reading(sound, max), "control_seeds": len(controlled),
+                      "upper_reading": reading(controlled, min),
                       "device": torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"}))
     return 0
 

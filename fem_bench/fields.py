@@ -88,3 +88,8 @@ def draw(spec: FieldSpec, role: str, seed: int, index: int | None, warmup: bool 
     w = rng.normal(0.0, 1.0 / spec.corr_length, size=(spec.modes, 3))
     phi = rng.uniform(0.0, 2.0 * np.pi, size=(spec.modes, 1))
     return np.concatenate([w, phi], axis=1)
+
+
+def params(specs: dict, seed: int, index: int | None, warmup: bool = False) -> dict:
+    """``draw`` for each role of ``specs`` (role -> ``FieldSpec``)."""
+    return {role: draw(spec, role, seed, index, warmup=warmup) for role, spec in specs.items()}

@@ -1,5 +1,6 @@
-"""The coefficient and load a request hands to the program, written as a
-user writes forms for the port.
+"""The coefficient and load a request of the scalar P1 problem
+(``problems/poisson_p1.py``) hands to the program, written as a user writes
+forms for the port.
 
 ``kappa(x) * grad v . grad w`` and ``f(x) * v``, with the two fields of
 ``fields.py`` evaluated at ``V.integration_points`` from small device

@@ -4,11 +4,13 @@
 
 from the root of a checkout, on a machine with a CUDA card. A cell names a
 configuration (``fem_bench/configs/<config>.json``: the mesh input, the
-element, the load) and a traffic mix (``fem_bench/traffic/<traffic>.json``:
-the entry point a request drives with its dtype and keywords, the
-coefficient and load fields, the warm-up); its comparison lives in
-``fem_bench/checks/<cell>.json`` and each metric in
-``fem_bench/metrics/<metric>.py``. Nothing here names a cell.
+problem, the element, the load) and a traffic mix
+(``fem_bench/traffic/<traffic>.json``: the entry point a request drives
+with its dtype and keywords, the coefficient and load fields, the
+warm-up); its comparison lives in ``fem_bench/checks/<cell>.json``, each
+metric in ``fem_bench/metrics/<metric>.py``, and what is solved and how its
+answers are judged in the configuration's problem
+(``fem_bench/problems/``). Nothing here names a cell or a problem.
 
 A run: build the mesh input, the program's basis and solver (``tables_s``),
 warm up, then one caller sends requests back to back for ``--seconds``:
@@ -16,11 +18,12 @@ each draws its fields from (seed, request index), writes them into the
 forms' device tensors, runs the entry point, reads whether it converged and
 synchronises. With ``--trace 1`` the profiler records the device's events
 over the window. After the window the program's state is freed and the
-reference solves the sampled requests again from the same inputs; the run
-is correct when each compared number is within its limit, and a request
-that did not converge is one over the limit 0 of ``unconverged``. The last line of
-standard output is the result, in JSON; the compared numbers and their
-limits are the last lines of standard error.
+problem's reference solves the sampled requests again from the same
+inputs; the run is correct when each compared number is within its limit,
+and a request that did not converge is one over the limit 0 of
+``unconverged``. The last line of standard output is the result, in JSON;
+the compared numbers and their limits are the last lines of standard
+error.
 """
 
 from __future__ import annotations
@@ -29,7 +32,6 @@ import argparse
 import gc
 import importlib
 import json
-import math
 import os
 import subprocess
 import sys
@@ -104,7 +106,7 @@ class RunRecord(NamedTuple):
     converged: list
     peak_window_bytes: int
     events: list | None  # trace.DeviceEvent of the window, with --trace 1
-    work: dict | None  # the reduced operator's nonzeros and rows, with --trace 1
+    work: dict | None  # the problem's work count (``nnz``, ``rows``), with --trace 1
 
 
 def _sync(device) -> None:
@@ -120,7 +122,7 @@ class Program(NamedTuple):
     request: Callable
     forms: object
     basis: object
-    mesh_kind: object
+    problem: object  # the module of ``fem_bench/problems/``
     specs: dict  # role -> fields.FieldSpec
     inputs: dict
     tables_s: float
@@ -130,19 +132,18 @@ def build_program(root: Path, cell: Cell, seed: int, device) -> Program:
     """Make the mesh input, build the program's basis and solver, warm up."""
     import torch
 
-    from . import fields
-    from .forms import Forms
+    from . import fields, problems
 
     cfg, traffic = cell.config, cell.traffic
     dtype = getattr(torch, traffic["dtype"])
     edge = float(cfg["domain_edge"])
     specs = {role: fields.field_spec(traffic[role], edge) for role in fields.STREAMS}
-    kind = importlib.import_module(f"fem_bench.meshes.{cfg['mesh']['kind']}")
-    inputs = kind.inputs(cfg["mesh"], root)
+    inputs = importlib.import_module(f"fem_bench.meshes.{cfg['mesh']['kind']}").inputs(
+        cfg["mesh"], root)
+    problem = problems.of(cfg)
 
     t0 = time.perf_counter()
-    basis = kind.port_basis(inputs, cfg["element"], device, dtype)
-    forms = Forms(specs["coefficient"], specs["load"], _base_load(cfg), device, dtype)
+    basis, forms = problem.program(cell, inputs, specs, device, dtype)
     _set_fields(forms, specs, seed, 0, warmup=True, every=True)
     request = importlib.import_module(f"fem_bench.entries.{traffic['entry']}").build(
         basis, forms, traffic["keywords"])
@@ -154,25 +155,16 @@ def build_program(root: Path, cell: Cell, seed: int, device) -> Program:
         _, _, converged = request()
         bool(converged)
     _sync(device)
-    return Program(request, forms, basis, kind, specs, inputs, tables_s)
-
-
-def _base_load(cfg: dict) -> Callable:
-    return importlib.import_module(f"fem_bench.loads.{cfg['load']}").at
-
-
-def _params(specs: dict, seed: int, index: int | None, warmup: bool = False) -> dict:
-    from . import fields
-
-    return {role: fields.draw(spec, role, seed, index, warmup=warmup)
-            for role, spec in specs.items()}
+    return Program(request, forms, basis, problem, specs, inputs, tables_s)
 
 
 def _set_fields(forms, specs: dict, seed: int, index: int, warmup: bool = False,
                 every: bool = False) -> None:
     """Write request ``index``'s fields into the forms: those drawn per
     request, and with ``every`` also those drawn once per run."""
-    p = _params(specs, seed, index, warmup)
+    from .fields import params
+
+    p = params(specs, seed, index, warmup)
     forms.set(*(p[r] if every or specs[r].per_request else None for r in ("coefficient", "load")))
 
 
@@ -191,7 +183,7 @@ def window(prog: Program, cell: Cell, seed: int, seconds: float, trace: bool, de
            share: float | None = None):
     """The measured window: returns (latencies, iterations, converged,
     window seconds, peak bytes of the window, events or None, the sampled
-    answers as ``[(index, u at the input vertices)]``). ``share`` replaces
+    answers as ``[(index, the problem's answer)]``). ``share`` replaces
     the cell's sampled share."""
     import torch
 
@@ -236,42 +228,8 @@ def window(prog: Program, cell: Cell, seed: int, seconds: float, trace: bool, de
         events = device_events(prof)
         print(f"profiler stop {t_read - t_stop:.3f} s, {len(events)} device events read in "
               f"{time.perf_counter() - t_read:.3f} s", file=sys.stderr)
-    dofs = prog.mesh_kind.port_vertex_dofs(prog.basis)
-    answers = [(k, u.reshape(-1).double().cpu().numpy()[dofs]) for k, u in kept]
+    answers = [(k, prog.problem.answer(cell, prog.basis, u)) for k, u in kept]
     return lat, its, conv, window_s, peak, events, answers
-
-
-def judge(cell: Cell, inputs: dict, specs: dict, answers: list, seed: int, device,
-          control: str | None = None):
-    """The compared numbers of ``answers`` (``u_err``: the largest
-    max-norm gap at the input vertices over max |u_ref|) and the glued mesh
-    input. With ``control``, the answers are the reference's
-    own in that lower precision, computed here in the program's place."""
-    import numpy as np
-
-    from .reference import p1
-
-    glue = importlib.import_module(f"fem_bench.reference.{cell.config['mesh']['kind']}").glue
-    glued = glue(inputs)
-    ref = p1.Reference(glued, device, int(cell.config["element"]["quadrature_degree"]))
-    base = _base_load(cell.config)
-    worst, most = 0.0, 0
-    for i, u in answers:
-        p = _params(specs, seed, i)
-        fk, fg = (p1.field_function(specs[r], p[r], ref.device) for r in ("coefficient", "load"))
-
-        def ff(x, fg=fg):
-            return base(x)[..., 0] + fg(x)
-        u_ref, iters = ref.solve(fk, ff)
-        most = max(most, iters)
-        u_ref = u_ref.cpu().numpy()[glued.vertex_node]
-        if control is not None:
-            u = ref.solve(fk, ff, control=control)[0].cpu().numpy()[glued.vertex_node]
-        gap = float(np.abs(u - u_ref).max() / np.abs(u_ref).max())
-        # a reference that did not converge judges nothing
-        worst = math.nan if math.isnan(gap) or iters >= p1.MAXITER else max(worst, gap)
-    print(f"reference: {len(answers)} solves, up to {most} CG iterations", file=sys.stderr)
-    return {"u_err": worst if answers else math.nan}, glued
 
 
 def verdict(cell: Cell, numbers: dict) -> tuple[bool, dict]:
@@ -288,8 +246,6 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     """One run of a cell; returns the result line as a dict."""
     import torch
 
-    from .work import reduced_nonzeros
-
     cell = load_cell(root, workload)
     cuda = torch.device(device).type == "cuda"
     prog = build_program(root, cell, seed, device)
@@ -297,14 +253,14 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     setup_s = time.perf_counter() - T0
     lat, its, conv, window_s, peak, events, answers = window(
         prog, cell, seed, seconds, trace, device)
-    inputs, specs, tables_s = prog.inputs, prog.specs, prog.tables_s
+    inputs, specs, tables_s, problem = prog.inputs, prog.specs, prog.tables_s, prog.problem
     del prog
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
 
     t_check = time.perf_counter()
-    numbers, glued = judge(cell, inputs, specs, answers, seed, device)
+    numbers, work = problem.compare(cell, inputs, specs, answers, seed, device)
     quarters = [slice(k * len(lat) // 4, (k + 1) * len(lat) // 4) for k in range(4)]
     per_iteration = [1e3 * sum(lat[q]) / max(1, sum(its[q])) for q in quarters]
     print(f"set-up {setup_s:.3f} s (tables {tables_s:.3f} s); window {window_s:.3f} s, "
@@ -313,11 +269,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
           f"{len(answers)} answers {time.perf_counter() - t_check:.3f} s", file=sys.stderr)
     numbers["unconverged"] = conv.count(False)
     correct, compared = verdict(cell, numbers)
-    work = None
-    if trace:
-        nnz, rows = reduced_nonzeros(glued.cells, glued.dirichlet)
-        work = {"nnz": nnz, "rows": rows}
-    record = RunRecord(setup_s, tables_s, window_s, lat, its, conv, peak, events, work)
+    record = RunRecord(setup_s, tables_s, window_s, lat, its, conv, peak, events,
+                       work() if trace else None)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = importlib.import_module(f"fem_bench.metrics.{m['name']}").read(record)

@@ -1,0 +1,5 @@
+"""The nonzeros of the operator that the SpMV applies, as the problem counts them."""
+
+
+def read(run):
+    return float(run.work["nnz"]) if run.work else None

@@ -5,17 +5,20 @@ path broken underneath) coming out as not correct."""
 
 import json
 import math
+import os
 import shutil
+import subprocess
+import sys
 
 import pytest
 import torch
 
 import fem_bench.entries.compiled_refined
 import fem_bench.entries.compiled_solver
-from fem_bench import forms
-from fem_bench.run import build_program, judge, load_cell, run_cell, window
+from fem_bench import forms, problems, work
+from fem_bench.run import _set_fields, build_program, load_cell, run_cell, window
 
-from fem_bench.tests.conftest import TINY, write_cell
+from fem_bench.tests.conftest import REPO, TINY, write_cell
 
 CELLS = [name for name, _, _ in TINY]
 SEED = 2**31 + 5
@@ -140,17 +143,65 @@ def test_control_is_not_correct(tiny_root, cell, control):
     prog = build_program(tiny_root, c, SEED, "cpu")
     *_, answers = window(prog, c, SEED, 0.5, False, "cpu")
     limit = c.checks["limits"]["u_err"]
-    bad = judge(c, prog.inputs, prog.specs, answers, SEED, "cpu", control=control)[0]
+    problem = problems.of(c.config)
+    assert problem.control_for(c) == control
+    bad = problem.compare(c, prog.inputs, prog.specs, answers, SEED, "cpu", control=control)[0]
     assert bad["u_err"] > limit
-    sound = judge(c, prog.inputs, prog.specs, answers, SEED, "cpu")[0]
+    sound = problem.compare(c, prog.inputs, prog.specs, answers, SEED, "cpu")[0]
     assert sound["u_err"] <= limit
 
 
-def test_a_cell_added_from_files_alone(tiny_root, tmp_path):
-    """A fourth cell needs a configuration file, a traffic file, a checks
-    file and an entry in BENCHMARK.json; no file of the harness changes."""
+#: the cell of the scalar case, and the files of the three-component
+#: problem that the vector cases add, laid out as under fem_bench/
+SCALAR_CELL = "cube3.mc_half_sigma"
+VECTOR = REPO / "fem_bench/tests/fixtures/vector_laplace"
+VECTOR_CELL = "cube_vec.mc_lognormal_vec"
+
+#: run in the checkout's own directory, so that ``fem_bench`` is its copy;
+#: argv: the cell, and the factor of the limit by which the largest entry
+#: of every answer is moved where it is produced (0: not moved)
+IN_CHECKOUT = """
+import json, sys
+from pathlib import Path
+import fem_bench
+import fem_bench.entries.compiled_solver as entry
+from fem_bench.run import build_program, load_cell, run_cell, window
+
+root = Path.cwd()
+cell, factor = sys.argv[1], float(sys.argv[2])
+limit = load_cell(root, cell).checks["limits"]["u_err"]
+if factor:
+    build = entry.build
+
+    def moved(basis, forms, kwargs):
+        request = build(basis, forms, kwargs)
+
+        def answer():
+            u, its, conv = request()
+            u = u.clone().reshape(-1)
+            k = int(u.abs().argmax())
+            u[k] += factor * limit * u[k].abs()
+            return u, its, conv
+        return answer
+    entry.build = moved
+c = load_cell(root, cell)
+*_, answers = window(build_program(root, c, 7, "cpu"), c, 7, 0.2, False, "cpu")
+print(json.dumps({"harness": str(Path(fem_bench.__file__).parent),
+                  "shapes": [list(a.shape) for _, a in answers],
+                  "result": run_cell(root, cell, 7, 0.3, True, device="cpu")}))
+"""
+
+
+def _checkout(tiny_root, tmp_path):
+    """The tiny cells' files and a copy of the harness's code, as a checkout."""
     root = tmp_path / "checkout"
     shutil.copytree(tiny_root, root)
+    shutil.copytree(REPO / "fem_bench", root / "fem_bench", dirs_exist_ok=True,
+                    ignore=shutil.ignore_patterns("tests", "data", "__pycache__"))
+    return root
+
+
+def _add_scalar_cell(root):
     cfg = json.loads((root / "fem_bench/configs/cube_tiny.json").read_text())
     cfg.update(name="cube3", mesh=dict(cfg["mesh"], n=3))
     (root / "fem_bench/configs/cube3.json").write_text(json.dumps(cfg))
@@ -161,10 +212,103 @@ def test_a_cell_added_from_files_alone(tiny_root, tmp_path):
     traffic = json.loads((root / "fem_bench/traffic/mc_lognormal.json").read_text())
     traffic["coefficient"]["sigma"] = 0.5
     (root / "fem_bench/traffic/mc_half_sigma.json").write_text(json.dumps(traffic))
-    write_cell(root, "cube3.mc_half_sigma", "cube3", "mc_half_sigma", {"u_err": 1e-4})
-    r = run_cell(root, "cube3.mc_half_sigma", 7, 0.3, True, device="cpu")
-    assert r["correct"] and r["attempted"] >= 1
-    assert "pcg_iterations_mean" in r["metrics"]
+    write_cell(root, SCALAR_CELL, "cube3", "mc_half_sigma", {"u_err": 1e-4})
+
+
+def _add_vector_problem(root):
+    for path in VECTOR.rglob("*"):
+        if path.is_file() and path.name != "BENCHMARK.entries.json":
+            target = root / "fem_bench" / path.relative_to(VECTOR)
+            assert not target.exists()
+            shutil.copy(path, target)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    for group, entries in json.loads((VECTOR / "BENCHMARK.entries.json").read_text()).items():
+        bench[group] += entries
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+@pytest.mark.parametrize("case", ["scalar", "vector", "vector_perturbed"])
+def test_a_cell_added_from_files_alone(tiny_root, tmp_path, case):
+    """A cell added with a configuration file, a traffic file, a checks
+    file and entries in BENCHMARK.json; and a cell of a three-component
+    problem, which adds its problem module, its plain reference and a
+    metric besides. No file of the harness changes: the run happens in the
+    checkout's own copy of it. An answer moved past the limit is not
+    correct."""
+    root = _checkout(tiny_root, tmp_path)
+    before = {p.relative_to(root): p.read_bytes() for p in (root / "fem_bench").rglob("*.py")}
+    if case == "scalar":
+        _add_scalar_cell(root)
+    else:
+        _add_vector_problem(root)
+    assert all((root / p).read_bytes() == b for p, b in before.items())
+    cell = SCALAR_CELL if case == "scalar" else VECTOR_CELL
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    out = subprocess.run([sys.executable, "-c", IN_CHECKOUT, cell,
+                          "10" if case == "vector_perturbed" else "0"],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    r = line["result"]
+    assert line["harness"] == str(root / "fem_bench")
+    assert r["attempted"] >= 1 and line["shapes"]
+    if case == "scalar":
+        assert r["correct"], r["compared"]
+        assert "pcg_iterations_mean" in r["metrics"]
+        return
+    v = json.loads((tiny_root / "fem_bench/configs/cube_tiny.json").read_text())["mesh"]["n"] + 1
+    assert all(shape == [v**3, 3] for shape in line["shapes"])
+    assert set(r["metrics"]) == {"operator_rows", "operator_nonzeros"}
+    from fem_bench.meshes.kuhn_cube import kuhn_cube
+    from fem_bench.reference.kuhn_cube import glue
+
+    g = glue(dict(zip(("vertices", "tetrahedra"), kuhn_cube(v - 1))))
+    nnz, rows = work.reduced_nonzeros(g.cells, g.dirichlet)
+    assert r["metrics"]["operator_rows"]["value"] == 3 * rows
+    assert r["metrics"]["operator_nonzeros"]["value"] == 9 * nnz
+    if case == "vector":
+        assert r["correct"], r["compared"]
+    else:
+        assert not r["correct"] and r["compared"]["unconverged"]["value"] == 0
+        assert r["compared"]["u_err"]["value"] > r["compared"]["u_err"]["limit"]
+
+
+#: at the parent of the move of the comparison into ``problems/``, on the CPU
+#: (PyTorch 2.13.0): the first three requests' iterations at SEED, and the
+#: ``u_err`` of their answers, sound and under the control, as float.hex
+PINNED = {
+    "net_tiny.mc_lognormal": ([21, 20, 20], "0x1.f5463d0a3b162p-22", "0x1.5af19ba36cd8bp-10",
+                              (1279, 203)),
+    "cube_tiny.mc_lognormal": ([2, 2, 2], "0x1.2f3d95cc9c6a3p-22", "0x1.25ea84ff01588p-11",
+                               (223, 27)),
+    "net_tiny.loadcases_f64": ([58, 57, 56], "0x1.1633f5166937ep-50", "0x1.1bcbc2c40f4c6p-22",
+                               (1279, 203)),
+}
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_the_problem_module_reads_as_before(tiny_root, cell):
+    """The Poisson problem gives the same iterations, answers, ``u_err``
+    (bitwise), control reading and work as the harness gave before it
+    named problems."""
+    c = load_cell(tiny_root, cell)
+    problem = problems.of(c.config)
+    assert problem is problems.poisson_p1 and "problem_kind" not in c.config
+    prog = build_program(tiny_root, c, SEED, "cpu")
+    its, answers = [], []
+    for i in range(3):
+        _set_fields(prog.forms, prog.specs, SEED, i)
+        u, iterations, _ = prog.request()
+        its.append(int(iterations))
+        answers.append((i, problem.answer(c, prog.basis, u)))
+    numbers, count = problem.compare(c, prog.inputs, prog.specs, answers, SEED, "cpu")
+    controlled = problem.compare(c, prog.inputs, prog.specs, answers, SEED, "cpu",
+                                 control=problem.control_for(c))[0]
+    pinned_its, u_err, control_u_err, (nnz, rows) = PINNED[cell]
+    assert its == pinned_its
+    assert numbers["u_err"].hex() == u_err and controlled["u_err"].hex() == control_u_err
+    assert count() == {"nnz": nnz, "rows": rows}
 
 
 @pytest.mark.cuda

@@ -61,9 +61,13 @@ def test_metrics_and_cells():
 
 
 def test_every_name_is_a_file():
+    from fem_bench import problems
+
     configs = {c["name"]: c for c in BENCH["configs"]}
     for w in BENCH["workloads"]:
         cfg = json.loads((REPO / configs[w["config"]]["file"]).read_text())
+        kind = cfg.get("problem_kind", problems.DEFAULT)
+        assert (REPO / f"fem_bench/problems/{kind}.py").exists()
         assert cfg["name"] == w["config"] and cfg["reduced"] == configs[w["config"]]["reduced"]
         traffic = json.loads((REPO / f"fem_bench/traffic/{w['traffic']}.json").read_text())
         # the precision is stated once, by the traffic's entry
@@ -74,9 +78,18 @@ def test_every_name_is_a_file():
         assert (REPO / f"fem_bench/meshes/{cfg['mesh']['kind']}.py").exists()
         assert (REPO / f"fem_bench/reference/{cfg['mesh']['kind']}.py").exists()
         checks = json.loads((REPO / f"fem_bench/checks/{w['name']}.json").read_text())
-        assert set(checks["limits"]) == {"u_err"} and 0 < checks["share"] <= 1
+        assert set(checks["limits"]) == set(problems.of(cfg).COMPARED)
+        assert 0 < checks["share"] <= 1
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert (REPO / f"fem_bench/metrics/{m['name']}.py").exists()
+
+
+@pytest.mark.parametrize("name", ["run.py", "calibrate.py"])
+def test_the_harness_names_no_problem(name):
+    """What a cell solves and how it is judged lives in ``problems/``."""
+    text = (REPO / "fem_bench" / name).read_text()
+    for word in ("p1", "u_err", "reduced_nonzeros", "port_vertex_dofs"):
+        assert word not in text, word
 
 
 def _imports(path: Path) -> set:
@@ -98,7 +111,7 @@ def test_no_jax_anywhere(path):
     assert not _imports(path) & {"jax", "jaxlib", "flax", "pytorch_fem_solver_tpu"}
 
 
-@pytest.mark.parametrize("path", sorted((REPO / "fem_bench/reference").glob("*.py")),
+@pytest.mark.parametrize("path", sorted((REPO / "fem_bench").rglob("reference/*.py")),
                          ids=lambda p: p.name)
 def test_reference_takes_nothing_of_the_program(path):
     assert "pytorch_fem_solver_tpu_torch" not in _imports(path)
