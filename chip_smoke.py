@@ -2801,11 +2801,7 @@ def phase_chunked(card):
 
     from pytorch_fem_solver_tpu_torch.bench import _sine_load_3d, _stiffness
     from pytorch_fem_solver_tpu_torch.ops import compiled
-    from pytorch_fem_solver_tpu_torch.ops.bsr import (
-        bsr_values_from_chunks_symmetric,
-        default_max_b,
-        get_bsr_structure,
-    )
+    from pytorch_fem_solver_tpu_torch.ops.bsr import default_max_b, get_bsr_structure
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2844,9 +2840,10 @@ def phase_chunked(card):
           f"iterations {info_c.iterations} == {info_0.iterations} == {iters}")
     # the assembled values differ only by the order of the float32 sums:
     # within 2 x (SLOT_TERMS + 1) x eps32 of each slot's sum of |terms|
-    # the assembly alone, each with the other's output not yet resident
+    # the assembly alone (the solver's own), each with the other's output
+    # not yet resident
     def assemble(form, table):
-        return bsr_values_from_chunks_symmetric(st, compiled._local_chunks(V, st, form, table))
+        return compiled._assemble_symmetric(V, st, form, table)[0]
 
     vals_0, base_a0, peak_a0 = _peak_of(lambda: assemble(_stiffness, None))
     vals_0 = tuple(v.cpu() for v in vals_0)

@@ -357,34 +357,28 @@ def bsr_values_from_local_symmetric(structure: BSRStructure, local_matrices):
     (row-block <= col-block) slot, then completes every mirror block
     (``bsr_complete_symmetric``). Only valid for symmetric local matrices.
     """
-    return bsr_values_from_chunks_symmetric(
-        structure, ((structure.entry_slot_sym, local_matrices),)
-    )
-
-
-def bsr_values_from_chunks_symmetric(structure: BSRStructure, chunks):
-    """``bsr_values_from_local_symmetric`` over runs of cells, so the
-    element matrices of the whole mesh need never exist at once.
-
-    ``chunks`` yields ``(slots, local_matrices)`` per run: its element
-    matrices and its rows of ``entry_slot_sym``. Every run's canonical
-    pairs are added into one buffer of ``n_values + 1`` slots, the last the
-    sink of the Dirichlet-touching pairs (``mode="drop"``); the mirror
-    blocks are completed once, after the last run.
-    """
-    values = None
-    for slots, local_matrices in chunks:
-        n_loc = local_matrices.shape[-1]
-        iu, ju = torch.triu_indices(n_loc, n_loc, device=local_matrices.device)
-        # local (i, i) pairs are exactly the global diagonal scalars, which
-        # the self-partnered transpose doubles: halve them before the scatter
-        w = torch.where(iu == ju, 0.5, 1.0).to(local_matrices.dtype)
-        pairs = (local_matrices[..., iu, ju] * w).reshape(-1)
-        if values is None:
-            values = pairs.new_zeros(structure.n_values + 1)
-        values.index_add_(0, slots, pairs)
-        del pairs  # not held through the completion, whose copies set the peak
+    values = bsr_add_pairs_symmetric(structure, None, structure.entry_slot_sym, local_matrices)
     return bsr_complete_symmetric(structure, values[: structure.n_values])
+
+
+def bsr_add_pairs_symmetric(structure: BSRStructure, values, slots, local_matrices):
+    """Add one run of cells' canonical pairs (its element matrices and its
+    rows of ``entry_slot_sym``) into the buffer ``values`` of ``n_values +
+    1`` slots, the last the sink of the Dirichlet-touching pairs (None: a
+    new one), and return it. Runs over the whole mesh, summed in one buffer,
+    let the element matrices of the whole mesh never exist at once;
+    ``bsr_complete_symmetric`` of the first ``n_values`` slots ends the
+    assembly. The pairs are not held past the call, through the completion,
+    whose copies set the peak."""
+    n_loc = local_matrices.shape[-1]
+    iu, ju = torch.triu_indices(n_loc, n_loc, device=local_matrices.device)
+    # local (i, i) pairs are exactly the global diagonal scalars, which
+    # the self-partnered transpose doubles: halve them before the scatter
+    w = torch.where(iu == ju, 0.5, 1.0).to(local_matrices.dtype)
+    pairs = (local_matrices[..., iu, ju] * w).reshape(-1)
+    if values is None:
+        values = pairs.new_zeros(structure.n_values + 1)
+    return values.index_add_(0, slots, pairs)
 
 
 def bsr_complete_symmetric(structure: BSRStructure, values):

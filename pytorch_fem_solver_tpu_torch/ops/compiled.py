@@ -7,8 +7,10 @@ the returned ``solve`` runs local assembly, the BSR value scatter, the
 preconditioner setup and PCG (with the SpMV kernel) on the basis's device.
 PyTorch runs eagerly, so there is nothing to compile: the name is kept so a
 reader finds the counterpart. Under a profiler session a solve records
-the spans ``fem.solve``, ``fem.assemble`` and ``fem.precond_setup``, and
-the constructor ``fem.tables.solver`` always (``utils.profiling``).
+the spans ``fem.solve``, ``fem.assemble`` (with ``fem.assemble.local`` and
+``fem.assemble.scatter`` inside, one pair per run of cells of
+``_assemble_symmetric``) and ``fem.precond_setup``, and the constructor
+``fem.tables.solver`` always (``utils.profiling``).
 
 The chunked assembly (``chunk_cells``; on by default for a symmetric form
 above 2M cells) streams the canonical-pair scatter over cell chunks, so
@@ -61,11 +63,12 @@ import torch
 from ..utils.profiling import span
 from .bsr import (
     _scatter_drop,
+    bsr_add_pairs_symmetric,
+    bsr_complete_symmetric,
     bsr_diagonal,
     bsr_expand,
     bsr_matvec,
     bsr_reduce,
-    bsr_values_from_chunks_symmetric,
     bsr_values_from_local,
     bsr_values_from_local_symmetric,
     default_max_b,
@@ -279,20 +282,43 @@ def _chunk_table(basis, structure, chunk_cells: int, max_b: int):
     return cache[key]
 
 
-def _local_chunks(basis, structure, bilinear_form, chunks):
-    """``(slots, local_matrices)`` for ``bsr_values_from_chunks_symmetric``:
-    with ``chunks`` None, the whole mesh at once with the form on the basis
-    itself; else chunk by chunk, the form on a ``_CellChunkView`` of the
-    chunk's cells."""
-    if chunks is None:
-        yield structure.entry_slot_sym, basis.integrate_bilinear_form_local(bilinear_form)
-        return
-    for c0, c1, slots in chunks:
-        view = _CellChunkView(
-            basis.v, basis.v_grad[c0:c1], basis.integration_points[c0:c1],
-            basis._dx[c0:c1], basis._element,
-        )
-        yield slots, (basis._evaluate_form(bilinear_form, view) * basis._dx[c0:c1]).sum(-3)
+_NO_LOAD = (lambda: None, lambda _: None)
+
+
+def _assemble_symmetric(basis, structure, bilinear_form, chunks, load=_NO_LOAD):
+    """The BSR values of a symmetric form, run by run of cells: each run's
+    element matrices under the span ``fem.assemble.local``, then the scatter
+    of their canonical pairs under ``fem.assemble.scatter``, into one
+    ``n_values + 1`` buffer; the mirror completion ends the last run's
+    scatter. ``chunks`` is ``_chunk_table``'s, or None for the whole mesh as
+    one run, the form on the basis itself.
+
+    ``load``, a pair of callables ``(local, scatter)``, adds the load to the
+    last run's two spans: ``local()`` after the element matrices, and
+    ``scatter`` of its result after the completion. Returns ``(values,
+    scatter's result)``.
+    """
+    runs = chunks or ((None, None, structure.entry_slot_sym),)
+    acc, dev = None, basis.device
+    for k, (c0, c1, slots) in enumerate(runs):
+        last = k == len(runs) - 1
+        with span("fem.assemble.local", dev):
+            if c0 is None:
+                local = basis.integrate_bilinear_form_local(bilinear_form)
+            else:
+                view = _CellChunkView(
+                    basis.v, basis.v_grad[c0:c1], basis.integration_points[c0:c1],
+                    basis._dx[c0:c1], basis._element,
+                )
+                local = (basis._evaluate_form(bilinear_form, view) * basis._dx[c0:c1]).sum(-3)
+            load_local = load[0]() if last else None
+        with span("fem.assemble.scatter", dev):
+            acc = bsr_add_pairs_symmetric(structure, acc, slots, local)
+            del local  # not held through the completion, whose copies set the peak
+            if last:
+                values = bsr_complete_symmetric(structure, acc[: structure.n_values])
+                b_pad = load[1](load_local)
+    return values, b_pad
 
 
 def compiled_bsr_solver(
@@ -410,26 +436,35 @@ def compiled_bsr_solver(
 
         n_dofs = basis.n_dofs
 
+        def _load_local():  # a flat layout's element loads; other layouts have none
+            if rhs_pad_idx is not None:
+                return basis.integrate_linear_form_local(linear_form)
+            return None
+
+        def _load_scatter(b, load):  # the padded load
+            if rhs_pad_idx is not None:
+                lv = basis.reshape_for_assembly(load, "linear")[:, 0]
+                return _scatter_drop(rhs_pad_idx, lv, st.n_pad)
+            if linear_form is not None:  # another layout: the basis's own call
+                b = basis.integrate_linear_form(linear_form)
+            return bsr_reduce(st, b)
+
         def _run(b):
+            dev = basis.device
             with span("fem.solve"):
-                with span("fem.assemble", basis.device):
+                with span("fem.assemble", dev):
                     if symmetric_form:
-                        values = bsr_values_from_chunks_symmetric(
-                            st, _local_chunks(basis, st, bilinear_form, chunks)
+                        values, b_pad = _assemble_symmetric(
+                            basis, st, bilinear_form, chunks,
+                            (_load_local, lambda load: _load_scatter(b, load)),
                         )
                     else:
-                        values = bsr_values_from_local(
-                            st, basis.integrate_bilinear_form_local(bilinear_form)
-                        )
-                    if rhs_pad_idx is not None:
-                        lv = basis.reshape_for_assembly(
-                            basis.integrate_linear_form_local(linear_form), "linear"
-                        )[:, 0]
-                        b_pad = _scatter_drop(rhs_pad_idx, lv, st.n_pad)
-                    else:
-                        if linear_form is not None:
-                            b = basis.integrate_linear_form(linear_form)
-                        b_pad = bsr_reduce(st, b)
+                        with span("fem.assemble.local", dev):
+                            local = basis.integrate_bilinear_form_local(bilinear_form)
+                            load = _load_local()
+                        with span("fem.assemble.scatter", dev):
+                            values = bsr_values_from_local(st, local)
+                            b_pad = _load_scatter(b, load)
                 x, info = solve_padded(values, b_pad)
                 u = basis.solution_tensor() + bsr_expand(st, x, n_dofs)
                 return u, info

@@ -30,6 +30,13 @@ smoothed Galerkin coarse matrix: gather-only restriction and prolongation
 and a dense coarse inverse) and the plain block two-level
 ``build_two_level``.
 
+Under a profiler session the numeric set-ups of the block and affine
+families record the spans ``fem.precond_setup.galerkin`` (the coarse
+matrix, symmetrised), ``fem.precond_setup.coarse_inverse`` (its shift and
+``spd_inverse``) and ``fem.precond_setup.smoother`` (the fine smoother's
+block or aggregate-block inverses), and add the coarse size to the
+counter ``coarse_rows`` (``utils.profiling``).
+
 ``operand_dtype`` (e.g. ``torch.bfloat16``) stores the dense apply
 operands of the BSR family (block and aggregate-block inverses, coarse and
 bottom-level inverses) in a reduced dtype; each apply then rounds its
@@ -49,7 +56,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..utils.profiling import read
+from ..utils.profiling import count, read, span
 from . import cuda_build
 from .bsr import bsr_matvec
 from .sparse import ELLStructure, invert_scatter_map
@@ -310,26 +317,29 @@ def block_two_level_from_values(
     nb, B = structure.bcols.shape
 
     v1, v2 = values
-    bcols = structure.bcols.long()
-    rows_c = (torch.arange(nb, device=bcols.device) // bpa)[:, None]
-    bins = (rows_c * nc + bcols // bpa).reshape(-1)
-    block_sums = v1.sum(dim=(-1, -2)).reshape(-1)
-    coarse = torch.zeros(nc * nc, dtype=v1.dtype, device=v1.device)
-    coarse.index_add_(0, bins, block_sums)
-    if structure.heavy_rows.shape[0]:
-        bins2 = (
-            (structure.heavy_rows.long() // bpa)[:, None] * nc
-            + structure.bcols2.long() // bpa
-        ).reshape(-1)
-        coarse.index_add_(0, bins2, v2.sum(dim=(-1, -2)).reshape(-1))
-    coarse = coarse.reshape(nc, nc)
-    coarse = 0.5 * (coarse + coarse.T)
-    # aggregates made purely of padding rows are all-zero: the shift keeps
-    # the inverse finite without affecting preconditioning quality
-    shift_scale = torch.clamp(torch.trace(coarse) / nc, min=1.0)
-    coarse_inv = spd_inverse(
-        coarse + 1e-7 * shift_scale * torch.eye(nc, dtype=coarse.dtype, device=coarse.device)
-    )
+    with span("fem.precond_setup.galerkin", v1.device):
+        bcols = structure.bcols.long()
+        rows_c = (torch.arange(nb, device=bcols.device) // bpa)[:, None]
+        bins = (rows_c * nc + bcols // bpa).reshape(-1)
+        block_sums = v1.sum(dim=(-1, -2)).reshape(-1)
+        coarse = torch.zeros(nc * nc, dtype=v1.dtype, device=v1.device)
+        coarse.index_add_(0, bins, block_sums)
+        if structure.heavy_rows.shape[0]:
+            bins2 = (
+                (structure.heavy_rows.long() // bpa)[:, None] * nc
+                + structure.bcols2.long() // bpa
+            ).reshape(-1)
+            coarse.index_add_(0, bins2, v2.sum(dim=(-1, -2)).reshape(-1))
+        coarse = coarse.reshape(nc, nc)
+        coarse = 0.5 * (coarse + coarse.T)
+    count("coarse_rows", nc)
+    with span("fem.precond_setup.coarse_inverse", v1.device):
+        # aggregates made purely of padding rows are all-zero: the shift keeps
+        # the inverse finite without affecting preconditioning quality
+        shift_scale = torch.clamp(torch.trace(coarse) / nc, min=1.0)
+        coarse_inv = spd_inverse(
+            coarse + 1e-7 * shift_scale * torch.eye(nc, dtype=coarse.dtype, device=coarse.device)
+        )
 
     safe = torch.where(diag != 0, diag, torch.ones_like(diag))
     blk_inv = _fine_block_smoother(v1, fine, operand_dtype)
@@ -347,8 +357,9 @@ def _fine_block_smoother(v1, fine: str = "block_jacobi", operand_dtype=None):
         return None
     if fine != "block_jacobi":
         raise ValueError(f"unknown fine smoother: {fine!r}")
-    blk_inv = batched_small_inv(_pin_zero_diagonal(v1[:, 0]))
-    return blk_inv if operand_dtype is None else blk_inv.to(operand_dtype)
+    with span("fem.precond_setup.smoother", v1.device):
+        blk_inv = batched_small_inv(_pin_zero_diagonal(v1[:, 0]))
+        return blk_inv if operand_dtype is None else blk_inv.to(operand_dtype)
 
 
 def _pin_zero_diagonal(d: torch.Tensor) -> torch.Tensor:
@@ -461,20 +472,21 @@ def aggregate_block_inverses(structure, values, gs: int, table=None, operand_dty
     v1, v2 = values
     if table is None:
         table = torch.as_tensor(build_agg_block_table(structure, gs), device=v1.device)
-    flat = torch.cat(
-        [
-            v1.reshape(-1, k * k),
-            v2.reshape(-1, k * k),
-            torch.zeros((1, k * k), dtype=v1.dtype, device=v1.device),
-        ],
-        dim=0,
-    )
-    rows = flat[table]  # (ns, bpa, bpa, k*k)
-    bpa = gs // k
-    blocks = rows.reshape(-1, bpa, bpa, k, k)
-    D = blocks.permute(0, 1, 3, 2, 4).reshape(-1, gs, gs)
-    inv_agg = batched_small_inv(_pin_zero_diagonal(D))
-    return inv_agg if operand_dtype is None else inv_agg.to(operand_dtype)
+    with span("fem.precond_setup.smoother", v1.device):
+        flat = torch.cat(
+            [
+                v1.reshape(-1, k * k),
+                v2.reshape(-1, k * k),
+                torch.zeros((1, k * k), dtype=v1.dtype, device=v1.device),
+            ],
+            dim=0,
+        )
+        rows = flat[table]  # (ns, bpa, bpa, k*k)
+        bpa = gs // k
+        blocks = rows.reshape(-1, bpa, bpa, k, k)
+        D = blocks.permute(0, 1, 3, 2, 4).reshape(-1, gs, gs)
+        inv_agg = batched_small_inv(_pin_zero_diagonal(D))
+        return inv_agg if operand_dtype is None else inv_agg.to(operand_dtype)
 
 
 # -- the three-level family -----------------------------------------------------
@@ -1059,20 +1071,23 @@ def affine_two_level_from_values(
     na, m = ast.na, ast.m
     Wb = ast.Wb.to(v1.dtype)
 
-    Wc = Wb[structure.bcols.long()]  # (nb, B, block, m) row gathers
-    t1 = torch.einsum("rbij,rbjm->rbim", v1, Wc)
-    G1 = torch.einsum("rin,rbim->rbnm", Wb, t1).reshape(-1, m, m)
-    coarse = v1.new_zeros((na * na, m, m)).index_add_(0, ast.bins1, G1)
-    if structure.heavy_rows.shape[0]:
-        Wh = Wb[structure.heavy_rows.long()]
-        t2 = torch.einsum("rbij,rbjm->rbim", v2, Wb[structure.bcols2.long()])
-        G2 = torch.einsum("rin,rbim->rbnm", Wh, t2).reshape(-1, m, m)
-        coarse.index_add_(0, ast.bins2, G2)
-    Ac = coarse.reshape(na, na, m, m).permute(0, 2, 1, 3).reshape(na * m, na * m)
-    Ac = 0.5 * (Ac + Ac.T)
-    shift_scale = torch.clamp(torch.trace(Ac) / (na * m), min=1.0)
-    eye = torch.eye(na * m, dtype=Ac.dtype, device=Ac.device)
-    coarse_inv = spd_inverse(Ac + 1e-7 * shift_scale * eye)
+    with span("fem.precond_setup.galerkin", v1.device):
+        Wc = Wb[structure.bcols.long()]  # (nb, B, block, m) row gathers
+        t1 = torch.einsum("rbij,rbjm->rbim", v1, Wc)
+        G1 = torch.einsum("rin,rbim->rbnm", Wb, t1).reshape(-1, m, m)
+        coarse = v1.new_zeros((na * na, m, m)).index_add_(0, ast.bins1, G1)
+        if structure.heavy_rows.shape[0]:
+            Wh = Wb[structure.heavy_rows.long()]
+            t2 = torch.einsum("rbij,rbjm->rbim", v2, Wb[structure.bcols2.long()])
+            G2 = torch.einsum("rin,rbim->rbnm", Wh, t2).reshape(-1, m, m)
+            coarse.index_add_(0, ast.bins2, G2)
+        Ac = coarse.reshape(na, na, m, m).permute(0, 2, 1, 3).reshape(na * m, na * m)
+        Ac = 0.5 * (Ac + Ac.T)
+    count("coarse_rows", na * m)
+    with span("fem.precond_setup.coarse_inverse", v1.device):
+        shift_scale = torch.clamp(torch.trace(Ac) / (na * m), min=1.0)
+        eye = torch.eye(na * m, dtype=Ac.dtype, device=Ac.device)
+        coarse_inv = spd_inverse(Ac + 1e-7 * shift_scale * eye)
 
     safe = torch.where(diag != 0, diag, torch.ones_like(diag))
     inv_agg = None

@@ -19,9 +19,13 @@ changes nothing. Under a session:
   Spans of one request share ``request``, numbered when an outermost
   ``fem.solve`` opens; ``parent`` is the index of the enclosing span in
   ``recorded().spans``;
-* a span also enters ``torch.profiler.record_function(name)``, so it shows
-  in the Chrome trace beside the kernels (``read``'s ``fem.host_read``
-  spans do not: they are too many);
+* a span also enters a profiler range of its name (PyTorch's
+  ``_RecordFunctionFast``, else ``record_function``), so it shows in the
+  Chrome trace beside the kernels (``read``'s ``fem.host_read`` spans do
+  not: they are too many).
+  Its start is stamped inside that range, microseconds after the
+  profiler's own event starts (``record_function``'s entry alone can take
+  a millisecond);
 * a span given a CUDA ``device`` records a pair of timing events on its
   current stream; ``device_ms``, the stream time between them, is resolved
   by ``recorded()``, after the caller's own synchronise (none is added);
@@ -35,8 +39,21 @@ counters of the solve path:
 ``fem.solve``         a ``compiled_bsr_solver`` or ``compiled_refined_solver``
                       solve (numbers the request)
 ``fem.assemble``      the operator's values and the load vector (CUDA events)
+``.local``            inside it, per run of cells: the element matrices (and
+                      in the last run the element loads) (CUDA events)
+``.scatter``          inside it, after each ``.local``: their scatter into the
+                      BSR values (and in the last run the mirror completion
+                      and the padded load) (CUDA events)
 ``fem.precond_setup`` the diagonal and the preconditioner's set-up (CUDA
                       events)
+``.galerkin``         inside it: the coarse matrix of the block or affine
+                      M, symmetrised (CUDA events)
+``.coarse_inverse``   inside it: the shifted coarse matrix's ``spd_inverse``
+                      (CUDA events)
+``.smoother``         inside it: the fine smoother's block or aggregate-block
+                      inverses (CUDA events)
+``coarse_rows``       the counter of the coarse sizes set up (n_pad / g, or
+                      na m of the affine and rigid-body-mode M)
 ``fem.pcg``           a PCG solve (``fem.pcg_cols``, ``fem.minres``,
                       ``fem.bicgstab``: the other loops of ``ops.solvers``)
 ``fem.host_read``     one blocking read (stop tests, ``spd_inverse``)
@@ -216,7 +233,8 @@ class _Recorder:
         self.spans.append(Span(name, request, parent, start, None))
         self.open.append(index)
         try:
-            with torch.profiler.record_function(name) if annotate else contextlib.nullcontext():
+            with _range(name) if annotate else contextlib.nullcontext():
+                start = time.time_ns()  # the range's event starts inside its entry
                 if events is not None:
                     events[0].record(stream)
                 try:
@@ -258,6 +276,13 @@ class _Recorder:
         self.open.clear()
         self.generation += 1
 
+
+#: the profiler range of a span: PyTorch's C++ context manager, entered
+#: without the dispatcher call that ``record_function`` makes (a private
+#: name: where a build lacks it, ``record_function`` itself)
+_range = getattr(
+    getattr(torch._C, "_profiler", None), "_RecordFunctionFast", torch.profiler.record_function
+)
 
 _RECORDER = _Recorder()
 _OFF = contextlib.nullcontext()  # reusable: what ``span`` returns outside a session

@@ -13,7 +13,7 @@ PCG iteration counts, at P1 and at P2. The view's guard names "chunked
 assembly", a non-symmetric form with ``chunk_cells`` raises the JAX
 ``ValueError``, the per-chunk slot views are cached on the basis and
 reused by a second build, and they are views of the structure's
-``entry_slot_sym``, not copies. ``bsr_values_from_chunks_symmetric``
+``entry_slot_sym``, not copies. The solver's ``_assemble_symmetric``
 over those chunks is bitwise ``bsr_values_from_local_symmetric``.
 """
 
@@ -27,12 +27,8 @@ import pytorch_fem_solver_tpu_torch as pt
 from pytorch_fem_solver_tpu.element import ElementTet
 from pytorch_fem_solver_tpu.mesh import MeshTet, unit_cube
 from pytorch_fem_solver_tpu_torch import config
-from pytorch_fem_solver_tpu_torch.ops.bsr import (
-    bsr_values_from_chunks_symmetric,
-    bsr_values_from_local_symmetric,
-    get_bsr_structure,
-)
-from pytorch_fem_solver_tpu_torch.ops.compiled import _chunk_table, _local_chunks
+from pytorch_fem_solver_tpu_torch.ops.bsr import bsr_values_from_local_symmetric, get_bsr_structure
+from pytorch_fem_solver_tpu_torch.ops.compiled import _assemble_symmetric, _chunk_table
 
 torch.set_num_threads(1)
 config.set_default_dtype(torch.float64)
@@ -88,10 +84,11 @@ def test_values_from_chunks_equal_the_whole_mesh(chunk_cells):
     st = get_bsr_structure(V, max_b=24, want_entry_slot=False)
     whole = bsr_values_from_local_symmetric(st, V.integrate_bilinear_form_local(_var_stiffness))
     chunks = _chunk_table(V, st, chunk_cells, 24)
-    streamed = bsr_values_from_chunks_symmetric(st, _local_chunks(V, st, _var_stiffness, chunks))
+    streamed, none = _assemble_symmetric(V, st, _var_stiffness, chunks)
+    assert none is None  # no load asked for
     assert all(torch.equal(a, b) for a, b in zip(streamed, whole))
     # no chunk table: the whole mesh as one run, the form on the basis itself
-    one = bsr_values_from_chunks_symmetric(st, _local_chunks(V, st, _var_stiffness, None))
+    one, _ = _assemble_symmetric(V, st, _var_stiffness, None)
     assert all(torch.equal(a, b) for a, b in zip(one, whole))
 
 
