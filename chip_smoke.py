@@ -137,8 +137,9 @@ Phases (any failure exits non-zero and prints no result):
     cells, 99,856 DOFs; ``tools/exp_solver_tier.py``'s "p3" phase, the sine
     problem) and P2 on phase 13's h=0.1 network (the DFN stiffness and unit
     load), each in float32 with a float64 twin on the card, PCG to 1e-6:
-    counts reset before the solve, K2 launched once per iteration and once
-    for the start; the PCG residual; the true residual in float64 against a
+    counts reset before the solve, K2 launched once per iteration issued
+    (``_issued``: held ones too), once for the start and once in the
+    solver's warm-up; the PCG residual; the true residual in float64 against a
     COO operator (phase 15's bound); f32 within 1e-4 of f64 beyond twice
     the float32 floor (the float32 element matrices solved in float64 to
     1e-12: 8.7e-4 at P3, so no float32 solve gets within 1e-4 there), a
@@ -320,9 +321,10 @@ Phases (any failure exits non-zero and prints no result):
     1e-4 + 2 x the float32 floor of the float64 solution (the float32
     affine M, whose coarse inverse loses its near-null directions in
     float32, within 5e-3 and its 1e-4 distance reported), K2 launched
-    exactly (iterations + 1) x (1 + 2 for the cycles and the smoothed M)
-    + 12 for ``omega="auto"``; per configuration the median wall of 3, one
-    profiled solve (device ms, idle share, K2's us per launch) and the
+    exactly (iterations issued + 1 + 1 warm-up) x (1 + 2 for the cycles
+    and the smoothed M) + 12 for ``omega="auto"`` (``_k2_rule``: the
+    card's ``bsr_pcg`` issues whole chunks of CUDA-graph iterations); per
+    configuration the median wall of 3, one profiled solve (device ms, idle share, K2's us per launch) and the
     distance from the float64 aggblock solution; aggblock (float32 and
     bf16 operands), mult and three_level at h=0.02 (the host seconds of
     its mesh; bf16 operands and mult reported if they do not converge in
@@ -2189,8 +2191,10 @@ def _higher_order_case(tag, make, load, size, card, ladder=LADDER_TOLS, structur
     rel = float(info.residual_norm / V.reduce(b).norm())
     check(bool(info.converged) and rel <= TOL, f"{tag}: PCG residual {rel:.3e} <= {TOL:g} "
           f"in {info.iterations} iterations")
-    check(k2 == info.iterations + 1, f"{tag}: K2 launches {k2} == iterations {info.iterations} "
-          "+ 1 (one per iteration and one for the start)")
+    issued = _issued(info.iterations)
+    check(k2 == issued + 2, f"{tag}: K2 launches {k2} == iterations issued {issued} + 1 + 1 "
+          f"(one per iteration issued, {info.iterations} taken; one for the start; one in the "
+          "solver's warm-up)")
     check(bool(torch.isfinite(r.u).all()) and r.u.shape == (V.n_dofs, 1),
           f"{tag}: solution finite, shape {tuple(r.u.shape)}")
     true_rel, rounding = _true_residual(V, r.u, b, form)
@@ -3872,14 +3876,35 @@ def phase_stokes(card):
     return launches_by_path, stokes_ref
 
 
-def _k2_rule(name, iterations):
-    """K2 launches of one make_bsr_solve / compiled solve: the PCG's
-    iterations + 1 A products, 2 per M apply (one apply for r0 and one
-    per iteration) for the cycles and the smoothed M, 12 at setup for
-    omega="auto"."""
+def _issued(iterations, maxiter=None):
+    """The PCG iterations that ``bsr_pcg``'s loop issues on the card
+    (``ops.solvers.pcg_chunked``) in a solve of ``iterations``: chunks of
+    ``PCG_CHUNK`` until a count read falls short of the iterations issued
+    or reaches ``maxiter``, with the chunk queued behind that read (none
+    once ``maxiter`` is issued). Every one launches K2, held or not."""
+    from pytorch_fem_solver_tpu_torch.ops.compiled import PCG_CHUNK as k
+
+    if maxiter is None or iterations < maxiter:
+        reads = iterations // k + 1
+        return k * (reads + 1 if maxiter is None or reads * k < maxiter else reads)
+    return k * -(-maxiter // k)
+
+
+def _k2_rule(name, iterations, maxiter=None, chunked=True):
+    """K2 launches of a solver's first make_bsr_solve / compiled solve on
+    the card: one A product an iteration issued (``_issued``), one for
+    r0 and one in the warm-up iteration of the solver's side stream, each
+    with 2 more per M apply for the cycles and the smoothed M, and 12 at
+    setup for omega="auto". Without ``chunked`` (``pcg``'s host loop, as
+    in ``solve_iterative``): iterations + 1 products and no warm-up."""
     per_apply = SPMV_PER_APPLY.get(name, 0)
-    expected = (iterations + 1) * (1 + per_apply) + POWER_STEPS.get(name, 0)
-    rule = f"(iterations + 1) x {1 + per_apply}" + (
+    if chunked:
+        issued = _issued(iterations, maxiter)
+        products, what = issued + 2, f"(iterations issued {issued} + 1 + 1 warm-up)"
+    else:
+        products, what = iterations + 1, "(iterations + 1)"
+    expected = products * (1 + per_apply) + POWER_STEPS.get(name, 0)
+    rule = f"{what} x {1 + per_apply}" + (
         f" + {POWER_STEPS[name]}" if name in POWER_STEPS else "")
     return expected, rule
 
@@ -3911,7 +3936,7 @@ def _precond_case(tag, name, bf16, V32, V64, ref64, card, maxiter, held=True):
     x64, it64, rel64 = make_bsr_solve(V64, tol=TOL, maxiter=maxiter, precond=name,
                                       operand_dtype=od)()
     converged = bool(torch.isfinite(x).all()) and float(rel) <= TOL
-    expected, rule = _k2_rule(name, iterations)
+    expected, rule = _k2_rule(name, iterations, maxiter)
     check(k2 == {"bsr_spmv": expected, "bsr_spmv_bf16": 0},
           f"{label}: K2 launches {k2} == {{float32: {rule} = {expected}, bf16 values: 0}}")
     d64 = float((x.double() - x64).norm() / x64.norm())
@@ -4057,9 +4082,10 @@ def _values_bf16_case(tag, solve32, solve_bf16, u32, info32, card):
     check(bool(info.converged) and bool(torch.isfinite(u).all()),
           f"{tag} bf16 values: converged in {info.iterations} iterations "
           f"(float32 {info32.iterations})")
-    check(k2 == {"bsr_spmv": 0, "bsr_spmv_bf16": info.iterations + 1},
-          f"{tag} bf16 values: K2 launches {k2} == {{float32: 0, bf16 values: iterations + 1 = "
-          f"{info.iterations + 1}}}")
+    issued = _issued(info.iterations)
+    check(k2 == {"bsr_spmv": 0, "bsr_spmv_bf16": issued + 2},
+          f"{tag} bf16 values: K2 launches {k2} == {{float32: 0, bf16 values: iterations issued "
+          f"+ 1 + 1 warm-up = {issued + 2}}}")
     du = float((u - u32).norm() / u32.norm())
     check(du > VALUES_BF16_MIN,
           f"{tag} bf16 values: the solution lies {du:.3e} from float32's (> {VALUES_BF16_MIN:g}: "
@@ -4116,7 +4142,7 @@ def _smoothed_and_mult(card):
         check(bool(info.converged), f"solve_iterative h={SMOOTHED_H} {precondition}: converged "
               f"in {info.iterations} iterations")
         if precondition == "mult_two_level":
-            expected, rule = _k2_rule("mult", info.iterations)
+            expected, rule = _k2_rule("mult", info.iterations, chunked=False)
             check(k2 == expected, f"solve_iterative mult_two_level: K2 launches {k2} == {rule} "
                   f"= {expected}")
     check(fig["bsr_mult_two_level"]["iterations"] < fig["bsr_two_level"]["iterations"],

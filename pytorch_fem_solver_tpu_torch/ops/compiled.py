@@ -89,7 +89,7 @@ from .precondition import (
     smoothed_two_level_matrix_free,
     three_level_from_values,
 )
-from .solvers import bicgstab, pcg
+from .solvers import PCGGraphs, bicgstab, pcg, pcg_chunked
 
 __all__ = [
     "aggblock_setup",
@@ -200,6 +200,13 @@ def preconditioner_setup(
         return lambda values, diag: build(tl, st, values, diag, operand_dtype=od)
 
 
+#: iterations a CUDA graph of ``bsr_pcg``'s loop holds (``pcg_chunked``):
+#: each costs a request ~0.5-0.8 ms of capture on an H100's host, and the
+#: count is read once a graph; 6 keeps those reads at or under a quarter of
+#: the iterations of both scalar cells (PERF.md, "Findings")
+PCG_CHUNK = 6
+
+
 def bsr_pcg(
     structure,
     precondition: str = "auto",
@@ -219,24 +226,35 @@ def bsr_pcg(
     the SpMV kernel. ``"jacobi"`` preconditions with the BSR diagonal.
     With ``values_dtype`` the PCG products run on a copy of the values in
     that dtype, made after the diagonal and the preconditioner.
+
+    On a CUDA device the loop is ``pcg_chunked``: replays of a CUDA graph
+    of ``PCG_CHUNK`` iterations, captured each run over that run's values,
+    M and right-hand side, on a side stream and into a memory pool the
+    solver keeps (``PCGGraphs``, made at its first run on the card). On
+    the CPU it is ``pcg``'s host loop.
     """
     st = structure
     setup = preconditioner_setup(st, precondition, basis, **options)
+    graphs = None  # the solver's PCGGraphs, once it runs on the card
 
     def run(values, b_pad):
+        nonlocal graphs
         with span("fem.precond_setup", b_pad.device):
             diag = bsr_diagonal(st, values)
             precond = None if setup is None else setup(values, diag)
         if values_dtype is not None:
             values = tuple(v.to(values_dtype) for v in values)
-        return pcg(
-            lambda v: bsr_matvec(st, values, v),
-            b_pad,
-            precond_diag=diag,
-            precond=precond,
-            tol=tol,
-            maxiter=maxiter,
-        )
+
+        def matvec(v):
+            return bsr_matvec(st, values, v)
+
+        if not b_pad.is_cuda:
+            return pcg(matvec, b_pad, precond_diag=diag, precond=precond, tol=tol,
+                       maxiter=maxiter)
+        if graphs is None:
+            graphs = PCGGraphs(b_pad.device)
+        return pcg_chunked(matvec, b_pad, precond_diag=diag, precond=precond, tol=tol,
+                           maxiter=maxiter, chunk=PCG_CHUNK, graphs=graphs)
 
     return run
 

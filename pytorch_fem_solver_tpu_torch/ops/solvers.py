@@ -8,10 +8,15 @@ device-to-host read of the stopping test per iteration, through
 ``utils.profiling.read``, and each loop is the span ``fem.<solver>``
 (both recorded only under a profiler session). ``pcg_steps`` is
 the fixed-length loop with no host read, which ``bench.make_fused_pcg``
-captures as a CUDA graph; routing ``pcg`` itself onto the device is queued
-in ROADMAP.md (B2). The stopping rules, the default ``maxiter``, the
-``converged`` tests and BiCGStab's breakdown guards are the JAX package's,
-so iteration counts match. ``PCGInfo.iterations`` is a Python int.
+captures as a CUDA graph. ``pcg_chunked`` is ``pcg`` with the stop test
+and the iteration count kept on the device, issued in chunks of k
+iterations with one host read a chunk: on the card each chunk is a replay
+of a CUDA graph captured once a call (``PCGGraphs``), on the CPU it runs
+eagerly. ``ops.compiled.bsr_pcg`` takes it on the card; ``pcg`` and its
+other callers keep the host loop. The stopping rules, the default
+``maxiter``, the ``converged`` tests and BiCGStab's breakdown guards are
+the JAX package's, so iteration counts match. ``PCGInfo.iterations`` is a
+Python int.
 ``pcg``, ``minres`` and ``bicgstab`` take the JAX package's ``dot``
 argument: the row-sharded solves of ``parallel`` pass a dot that sums the
 rank-local products over the process group (``torch.dot`` when omitted).
@@ -23,7 +28,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..utils.profiling import read, span
+from ..utils.profiling import count, read, span
+from . import cuda_build
 
 
 class PCGInfo(NamedTuple):
@@ -109,6 +115,178 @@ def pcg(
             k += 1
         res = torch.sqrt(dot(r, r))
         info = PCGInfo(iterations=k, residual_norm=res, converged=res <= torch.sqrt(atol2))
+        return x, info
+
+
+class PCGGraphs:
+    """What ``pcg_chunked`` keeps on one CUDA device from call to call: the
+    side stream it captures on, the memory pool of its graphs, the last
+    call's graph (None before the first, when the side stream runs a
+    warm-up iteration), two pinned host words for the counts it reads back
+    with an event each. One per solver.
+
+    A call's graph is released at the next call's capture, not at its own
+    end: PyTorch's device and pinned-host allocators each close a graph
+    pool when its last graph is released, and refuse a later capture into
+    it (the assertion ``use_count > 0``), so one graph always holds the
+    pool open. Nothing of it is allocated between calls (its temporaries
+    are freed inside the capture, into the pool), it is never replayed
+    after its own call, and its release first waits for the event
+    ``done``, recorded after its last replay."""
+
+    def __init__(self, device):
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graph = None
+        self.counts = torch.zeros(2, dtype=torch.int64, pin_memory=True)
+        self.events = (torch.cuda.Event(), torch.cuda.Event())
+        self.done = torch.cuda.Event()
+
+
+def _pcg_step(matvec, precond, atol2, maxiter, x, r, p, rz, its, active):
+    """One PCG iteration written into ``x, r, p, rz`` in place, taken only
+    while ``active``: ``active`` drops for good once ``dot(r, r) <=
+    atol2`` (or is NaN) or ``its`` reaches ``maxiter``, and from then on
+    ``x`` and ``r`` keep their values bit for bit (``p`` and ``rz`` may
+    drift: nothing reads them for the answer). ``its`` counts the
+    iterations taken. ``pcg``'s expressions, so the same roundings."""
+    active &= (torch.dot(r, r) > atol2) & (its < maxiter)
+    ap = matvec(p)
+    alpha = rz / torch.dot(p, ap)
+    torch.where(active, x + alpha * p, x, out=x)
+    torch.where(active, r - alpha * ap, r, out=r)
+    z = precond(r)
+    rz_new = torch.dot(r, z)
+    beta = rz_new / rz
+    torch.add(z, beta * p, out=p)
+    rz.copy_(rz_new)
+    its += active
+
+
+def _capture(step, state, chunk: int, graphs: PCGGraphs):
+    """``chunk`` calls of ``step(*state)`` captured as one CUDA graph on
+    ``graphs.stream`` into ``graphs.pool`` (the span ``fem.pcg.capture``,
+    instantiation included); it replaces ``graphs.graph``, which is
+    released. Capture launches nothing, so the hand-written kernels it
+    meets are taken back off ``cuda_build.launch_counts`` and returned, to
+    count once a replay."""
+    if graphs.graph is None:  # library handles and workspaces of the side stream
+        current = torch.cuda.current_stream(graphs.stream.device)
+        graphs.stream.wait_stream(current)
+        with torch.cuda.stream(graphs.stream):
+            step(*(t.clone() for t in state))
+        current.wait_stream(graphs.stream)
+    before = dict(cuda_build.launch_counts)
+    graph = torch.cuda.CUDAGraph()
+    with span("fem.pcg.capture"), torch.cuda.stream(graphs.stream):
+        graph.capture_begin(pool=graphs.pool, capture_error_mode="thread_local")
+        try:
+            for _ in range(chunk):
+                step(*state)
+        finally:
+            graph.capture_end()
+    if graphs.graph is not None:
+        graphs.done.synchronize()
+        graphs.graph.reset()
+    graphs.graph = graph
+    launched = {name: n - before[name] for name, n in cuda_build.launch_counts.items()
+                if n != before[name]}
+    cuda_build.launch_counts.update(before)
+    return graph, launched
+
+
+def pcg_chunked(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    precond_diag: Optional[torch.Tensor] = None,
+    precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    tol: float = 1e-10,
+    maxiter: Optional[int] = None,
+    *,
+    chunk: int,
+    graphs: Optional[PCGGraphs] = None,
+):
+    """:func:`pcg` from x0 = 0 with the stop test on the device, issued
+    ``chunk`` iterations at a time.
+
+    Each iteration is ``pcg``'s, written in place into buffers this call
+    owns, and taken only while ``dot(r, r) > atol2`` and fewer than
+    ``maxiter`` have been taken; after that x and r hold (``_pcg_step``).
+    A device count adds up the iterations taken. After each chunk the
+    count is copied to the host; the host reads it one chunk late, with
+    the next chunk already queued, so the device does not wait on the
+    read. A count short of the iterations issued (or at ``maxiter``) ends
+    the loop: the same ``iterations``, ``x`` and ``converged`` as
+    ``pcg``, after at most ``2 chunk - 1`` held iterations.
+
+    With ``graphs`` (a CUDA ``b``) the chunk is captured once, as a CUDA
+    graph over this call's tensors, and replayed (``PCGGraphs`` keeps the
+    graph, unreplayed, until the next call's capture). Without it the
+    chunk runs eagerly. Under a profiler session the counter
+    ``pcg_graphed_iterations`` adds the iterations that ran in replays.
+
+    Returns ``(x, PCGInfo)``.
+    """
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    n = b.shape[-1]
+    if maxiter is None:
+        maxiter = max(10 * n, 100)
+    with span("fem.pcg"):
+        precond = _jacobi_or_identity(precond, precond_diag)
+        atol2 = _squared_tolerance(b, tol)
+        x = torch.zeros_like(b)
+        r = b - matvec(x)
+        p = precond(r).clone()  # a buffer of its own: M may hand back r
+        rz = torch.dot(r, p)
+        its = torch.zeros((), dtype=torch.int64, device=b.device)
+        active = torch.ones((), dtype=torch.bool, device=b.device)
+        state = (x, r, p, rz, its, active)
+
+        def step(*s):
+            _pcg_step(matvec, precond, atol2, maxiter, *s)
+
+        graph, launched = None, {}
+        if graphs is None:
+            counts, events = torch.zeros(2, dtype=torch.int64), (None, None)
+        else:
+            counts, events = graphs.counts, graphs.events
+            graph, launched = _capture(step, state, chunk, graphs)
+        issued = 0
+
+        def issue():
+            nonlocal issued
+            if graph is None:
+                for _ in range(chunk):
+                    step(*state)
+            else:
+                graph.replay()
+                for name, k in launched.items():
+                    cuda_build.launch_counts[name] += k
+            slot = (issued // chunk) % 2
+            issued += chunk
+            counts[slot].copy_(its, non_blocking=True)
+            if events[slot] is not None:
+                events[slot].record()
+            return slot, issued
+
+        ahead = issue()
+        while True:
+            slot, at = ahead
+            if issued < maxiter:
+                ahead = issue()
+            k = read(counts[slot], after=events[slot])
+            if k < at or k >= maxiter:
+                break
+        res = torch.sqrt(torch.dot(r, r))
+        info = PCGInfo(iterations=k, residual_norm=res, converged=res <= torch.sqrt(atol2))
+        if graph is not None:
+            graphs.done.record()
+            count("pcg_graphed_iterations", k)
+            # the capture stream's cuBLAS workspace (32 MiB on an H100) is
+            # held only while the graph runs; PyTorch frees workspaces all
+            # at once, so the current stream's is made anew at its next use
+            torch._C._cuda_clearCublasWorkspaces()
         return x, info
 
 

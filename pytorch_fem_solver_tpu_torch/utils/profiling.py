@@ -56,7 +56,12 @@ counters of the solve path:
                       na m of the affine and rigid-body-mode M)
 ``fem.pcg``           a PCG solve (``fem.pcg_cols``, ``fem.minres``,
                       ``fem.bicgstab``: the other loops of ``ops.solvers``)
-``fem.host_read``     one blocking read (stop tests, ``spd_inverse``)
+``.capture``          inside it, on the card: the capture and instantiation
+                      of ``pcg_chunked``'s CUDA graph; beside it the counter
+                      ``pcg_graphed_iterations`` of the iterations that ran
+                      in the graph's replays
+``fem.host_read``     one blocking read (stop tests, chunk counts,
+                      ``spd_inverse``)
 ``host_reads``        the counter of those reads
 ``fem.tables.solver`` a solver's construction, with ``fem.tables.bsr`` (the
                       BSR layout) and ``fem.tables.precond`` (the
@@ -254,8 +259,10 @@ class _Recorder:
                 if events is not None:
                     self.events.append((index, *events))
 
-    def host_read(self, tensor: torch.Tensor):
+    def host_read(self, tensor: torch.Tensor, after):
         start = time.time_ns()
+        if after is not None:
+            after.synchronize()
         value = tensor.item()
         end = time.time_ns()
         self.spans.append(Span("fem.host_read", self.request,
@@ -303,14 +310,18 @@ def span(name: str, device=None, always: bool = False):
     return _RECORDER.span(name, device, annotate=True)
 
 
-def read(tensor: torch.Tensor):
+def read(tensor: torch.Tensor, after=None):
     """``tensor.item()``: a blocking device-to-host read of a one-element
     tensor, recorded as a ``fem.host_read`` span and counted under
-    ``host_reads`` during a profiler session."""
+    ``host_reads`` during a profiler session. With ``after``, a CUDA event,
+    the read waits for the event and then reads ``tensor``, a host copy
+    that the work before the event writes (the wait is the read's)."""
     if not _autograd_profiler._is_profiler_enabled:
+        if after is not None:
+            after.synchronize()
         return tensor.item()
     count("host_reads")
-    return _RECORDER.host_read(tensor)
+    return _RECORDER.host_read(tensor, after)
 
 
 def count(name: str, n: int = 1) -> None:

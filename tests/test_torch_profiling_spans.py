@@ -59,7 +59,8 @@ def lame_form(b):
 
 
 def body_load(b):
-    return (torch.tensor([0.5, -1.0, 1.0], dtype=b.v.dtype) * b.v).sum(-1, keepdim=True)
+    return (torch.tensor([0.5, -1.0, 1.0], dtype=b.v.dtype, device=b.v.device) * b.v).sum(
+        -1, keepdim=True)
 
 
 @pytest.fixture(scope="module")
