@@ -49,12 +49,15 @@ Phases (any failure exits non-zero and prints no result):
    off a 16-byte boundary; the machine code of K3's warp kernels read back
    with cuobjdump (every global load before the fence and the products); their
    times beside plain, library and bound;
-   ``run_stock(30)`` against ``run_fused(30)`` as CUDA
-   graphs (5e-5 in f32, the tool's measure; 1e-10 in f64); the graphed
-   per-iteration time of both over 100 iterations, median of 3; one
-   profiled replay of ``run_fused(100)``: device us per iteration of K2, K3,
-   K4, the dots, the p update and the scalar operations; and
-   ``solve_fused(1e-6)``: residual <= 1e-6 in <= 80 iterations, within 1
+   the stock loop (``pcg_chunked``) against the fused one (``fused_pcg``)
+   at ``tol=0.0, maxiter=30``, each captured in chunks of ``PCG_CHUNK``
+   through a ``PCGGraphs`` of its own (5e-5 in f32, the tool's measure;
+   1e-10 in f64); the kernels counted once a replay in a call of 100
+   iterations; the device time per iteration issued of both loops from the
+   profiler's trace of such a call (a call captures its own graph, so its
+   wall is not the loop's), in turns, and of the fused one by kernel: K2,
+   K3, K4, the dots, the p update and the scalar operations; and
+   ``fused_pcg`` to 1e-6: residual <= 1e-6 in <= 80 iterations, within 1
    of phase 4's count (equal in f64), within 1e-4 of phase 4's solution,
    K2-K4 launched at least once per iteration;
 8. K5 (the 2D P1 element kernel) against its plain version on the RVPINN
@@ -1282,17 +1285,41 @@ FUSED_BUCKETS = (
 )
 
 
-def _fused_iteration_split(run_fused, s_per_iter: float):
-    """One replay of the graphed ``run_fused(LOOP_ITERS)`` under the
-    profiler: device us and launches per iteration, by bucket."""
+def _loop(fused, fused_tail, graphs, tol=0.0, maxiter=LOOP_ITERS):
+    """The stock (``pcg_chunked``) or the fused (``fused_pcg``) loop on
+    ``make_fused_pcg``'s system, captured in chunks of the main path's
+    ``PCG_CHUNK``; ``tol=0.0`` runs ``maxiter`` iterations."""
+    from pytorch_fem_solver_tpu_torch.ops.compiled import PCG_CHUNK
+    from pytorch_fem_solver_tpu_torch.ops.fused_pcg import fused_pcg
+    from pytorch_fem_solver_tpu_torch.ops.solvers import pcg_chunked
+
+    if fused_tail:
+        return fused_pcg(fused.matvec, fused.b_pad, fused.precond, tol=tol, maxiter=maxiter,
+                         chunk=PCG_CHUNK, graphs=graphs)
+    return pcg_chunked(fused.matvec, fused.b_pad, precond=fused.precond, tol=tol,
+                       maxiter=maxiter, chunk=PCG_CHUNK, graphs=graphs)
+
+
+def _replay_split(run):
+    """One call of ``run()`` (``LOOP_ITERS`` iterations, its graph captured
+    in the call) under the profiler: the device s per iteration issued and
+    the kernels. Capture launches nothing, so the device trace holds the
+    replays and the call's start and end (one SpMV, one M apply, three
+    dots), which add under one iteration's work to the sum."""
     import torch
 
-    run_fused(LOOP_ITERS)  # captured by now
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        run_fused(LOOP_ITERS)
+    run()  # the side stream's warm-up, if still to come
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
         torch.cuda.synchronize()
-    kernels, device_ms = _device_kernels(prof, LOOP_ITERS)
+    issued = _issued(LOOP_ITERS, LOOP_ITERS)
+    kernels, device_ms = _device_kernels(prof, issued)
+    return device_ms / 1e3, kernels
+
+
+def _fused_iteration_split(kernels, s_per_iter: float):
+    """The fused loop's device us and launches per iteration, by bucket."""
     split = {name: [0.0, 0.0] for name, _ in FUSED_BUCKETS}
     other = []
     for us, count, name in kernels:
@@ -1302,33 +1329,15 @@ def _fused_iteration_split(run_fused, s_per_iter: float):
         else:
             split[bucket][0] += us
             split[bucket][1] += count
-    device_us = 1e3 * device_ms
-    log(f"one replay of run_fused({LOOP_ITERS}) under the profiler: device {device_us:.2f} us "
-        f"per iteration of the {1e6 * s_per_iter:.2f} us unprofiled "
-        f"(the rest is gaps between kernels); us / launches per iteration: "
+    log(f"fused loop, {LOOP_ITERS} iterations under the profiler: device "
+        f"{1e6 * s_per_iter:.2f} us per iteration issued; us / launches per iteration: "
         + "; ".join(f"{name} {us:.2f} / {count:.2f}" for name, (us, count) in split.items())
         + f"; other {sum(o[0] for o in other):.2f} / {sum(o[1] for o in other):.2f}")
     for us, count, name in other[:8]:
         log(f"  other: {us:.3f} us / {count:.2f} per iteration  {name[:100]}")
     check(all(split[b][1] >= 1 for b in ("K2 bsr_spmv", "K3 agg_smooth_restrict",
                                          "K4 coarse_prolong_dot")),
-          "the profiled replay shows K2, K3 and K4 once per iteration")
-
-
-def _loop_s_per_iter(run) -> float:
-    """Median wall time per iteration of ``run(LOOP_ITERS)`` (a replayed
-    CUDA graph), over 3 runs after the capturing one."""
-    import torch
-
-    run(LOOP_ITERS)
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(LOOP_ITERS)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) / LOOP_ITERS)
-    return float(np.median(times))
+          "the profiled replays show K2, K3 and K4 once per iteration")
 
 
 def _figure(tag, name, replaces, kernel, plain, library, lib_name, n_bytes, n_flops,
@@ -1363,6 +1372,8 @@ def phase_fused(st, V32, V64, x32, iters, iters64, card):
     from pytorch_fem_solver_tpu_torch.ops import cuda_build
     from pytorch_fem_solver_tpu_torch.ops import fused_pcg as fp
     from pytorch_fem_solver_tpu_torch.ops.bsr import bsr_matvec
+    from pytorch_fem_solver_tpu_torch.ops.compiled import PCG_CHUNK
+    from pytorch_fem_solver_tpu_torch.ops.solvers import PCGGraphs
 
     fused = {torch.float32: make_fused_pcg(V32), torch.float64: make_fused_pcg(V64)}
     ns, gs = fp.fused_shape(fused[torch.float32].precond, st.n_pad)
@@ -1431,27 +1442,41 @@ def phase_fused(st, V32, V64, x32, iters, iters64, card):
     windows["K4"] = lambda: fp.coarse_prolong_dot(pre.coarse_inv, rc, s, rn)
     windows["torch.mv"] = lambda: torch.mv(pre.coarse_inv, rc)
 
-    # 3. fixed-length runs as CUDA graphs
+    # 3. fixed-length runs as CUDA graphs: tol=0, maxiter=iters; a
+    # PCGGraphs per loop and dtype, as one per solver
+    graphs = {(dtype, tail): PCGGraphs(fused[dtype].b_pad.device)
+              for dtype in fused for tail in (False, True)}
     for dtype, tol in ((torch.float64, 1e-10), (torch.float32, FUSED_VS_STOCK)):
-        xs, _ = fused[dtype].run_stock(FIXED_ITERS)
-        xf, _ = fused[dtype].run_fused(FIXED_ITERS)
+        xs, info_s = _loop(fused[dtype], False, graphs[dtype, False], maxiter=FIXED_ITERS)
+        xf, info_f = _loop(fused[dtype], True, graphs[dtype, True], maxiter=FIXED_ITERS)
         torch.cuda.synchronize()
         dx = _rel_err(xf, xs)
+        check(info_s.iterations == info_f.iterations == FIXED_ITERS,
+              f"graphed fixed-length loops {dtype}: {info_s.iterations} and "
+              f"{info_f.iterations} iterations == {FIXED_ITERS}")
         check(bool(torch.isfinite(xf).all()) and dx <= tol,
-              f"graphed run_fused({FIXED_ITERS}) vs run_stock({FIXED_ITERS}) {dtype}: "
+              f"graphed fused({FIXED_ITERS}) vs stock({FIXED_ITERS}) {dtype}: "
               f"{dx:.3e} <= {tol:g}")
     f32 = fused[torch.float32]
-    cuda_build.reset_launch_counts()
-    s_stock = _loop_s_per_iter(f32.run_stock)
-    captured_stock = dict(cuda_build.launch_counts)
-    cuda_build.reset_launch_counts()
-    s_fused = _loop_s_per_iter(f32.run_fused)
-    captured_fused = dict(cuda_build.launch_counts)
-    log(f"launches counted while capturing {LOOP_ITERS} iterations (warm-up + capture, "
-        f"so twice one replay): stock {captured_stock}, fused {captured_fused}")
-    s_stock2 = _loop_s_per_iter(f32.run_stock)
-    s_fused2 = _loop_s_per_iter(f32.run_fused)
-    log(f"graphed s/iteration, in turns stock, fused, stock, fused: "
+    issued = _issued(LOOP_ITERS, LOOP_ITERS)
+    launched = {}
+    for tail in (False, True):
+        cuda_build.reset_launch_counts()
+        _loop(f32, tail, graphs[torch.float32, tail])
+        launched[tail] = {k: v for k, v in cuda_build.launch_counts.items() if v}
+        for name in ("bsr_spmv",) + (("agg_smooth_restrict", "coarse_prolong_dot") if tail else ()):
+            want = issued + (name == "bsr_spmv")
+            check(launched[tail].get(name, 0) == want,
+                  f"{'fused' if tail else 'stock'} loop of {LOOP_ITERS}: {name} counted "
+                  f"{launched[tail].get(name, 0)} == {want} (once a replay, {issued} issued"
+                  + (", + 1 for r0)" if name == "bsr_spmv" else ")"))
+    log(f"launches counted in a call of {LOOP_ITERS} iterations ({issued} issued): "
+        f"stock {launched[False]}, fused {launched[True]}")
+    per_iter = []
+    for tail in (False, True, False, True):
+        per_iter.append(_replay_split(lambda t=tail: _loop(f32, t, graphs[torch.float32, t])))
+    (s_stock, _), (s_fused, _), (s_stock2, _), (s_fused2, kernels_fused) = per_iter
+    log(f"device s/iteration of the replays, in turns stock, fused, stock, fused: "
         f"{s_stock:.4e} {s_fused:.4e} {s_stock2:.4e} {s_fused2:.4e}")
     log(json.dumps({
         "metric": "fused_pcg_s_per_iter",
@@ -1459,41 +1484,46 @@ def phase_fused(st, V32, V64, x32, iters, iters64, card):
         "n_pad": st.n_pad,
         "g": f32.precond.g,
         "reps": LOOP_ITERS,
+        "chunk": PCG_CHUNK,
         "stock_s_per_iter": s_stock2,
         "fused_s_per_iter": s_fused2,
         "speedup": s_stock2 / s_fused2,
         "card": card,
     }))
-    _fused_iteration_split(f32.run_fused, s_fused2)
+    _fused_iteration_split(kernels_fused, s_fused2)
 
     # 4. the fused solve to tolerance
+    def solve_fused(dtype):
+        x, info = _loop(fused[dtype], True, graphs[dtype, True], tol=TOL, maxiter=600)
+        return x, info.iterations, info.residual_norm / fused[dtype].b_pad.norm()
+
     cuda_build.reset_launch_counts()
-    xf, it, rel = f32.solve_fused(TOL)
+    xf, it, rel = solve_fused(torch.float32)
     torch.cuda.synchronize()
     launches = dict(cuda_build.launch_counts)
     n_in = st.n_inner
     diff = float((xf[:n_in] - x32[:n_in]).norm() / x32[:n_in].norm())
-    log(f"solve_fused f32: iterations={it} rel_res={float(rel):.4e} launches={launches}; "
+    log(f"fused_pcg f32: iterations={it} rel_res={float(rel):.4e} launches={launches}; "
         f"vs main path rel L2 {diff:.4e}")
-    check(float(rel) <= TOL, f"solve_fused relative residual {float(rel):.3e} <= {TOL:g}")
-    check(it <= MAX_ITERATIONS, f"solve_fused iterations {it} <= {MAX_ITERATIONS}")
-    check(abs(it - iters) <= 1, f"solve_fused iterations {it} within 1 of the main path's {iters}")
+    check(float(rel) <= TOL, f"fused_pcg relative residual {float(rel):.3e} <= {TOL:g}")
+    check(it <= MAX_ITERATIONS, f"fused_pcg iterations {it} <= {MAX_ITERATIONS}")
+    check(abs(it - iters) <= 1, f"fused_pcg iterations {it} within 1 of the main path's {iters}")
     check(bool(torch.isfinite(xf).all()) and diff <= 1e-4,
-          f"solve_fused vs main-path solution {diff:.3e} <= 1e-4")
+          f"fused_pcg vs main-path solution {diff:.3e} <= 1e-4")
     for name in ("bsr_spmv", "agg_smooth_restrict", "coarse_prolong_dot"):
         check(launches[name] >= it, f"{name} launches {launches[name]} >= iterations {it}")
-    _, it64, rel64 = fused[torch.float64].solve_fused(TOL)
-    log(f"solve_fused f64: iterations={it64} rel_res={float(rel64):.4e}")
-    check(it64 == iters64, f"solve_fused f64 iterations {it64} == main path f64 {iters64}")
+    _, it64, rel64 = solve_fused(torch.float64)
+    log(f"fused_pcg f64: iterations={it64} rel_res={float(rel64):.4e}")
+    check(it64 == iters64, f"fused_pcg f64 iterations {it64} == main path f64 {iters64}")
     times = []
     for _ in range(TIMED_REPEATS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        f32.solve_fused(TOL)
+        solve_fused(torch.float32)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    log(f"solve_fused f32 (host-driven loop, assembly and setup excluded): median "
-        f"{float(np.median(times)):.6f} s over {TIMED_REPEATS} repeats {times}")
+    log(f"fused_pcg f32 (the chunked graphed loop, its capture included; assembly and setup "
+        f"excluded): median {float(np.median(times)):.6f} s over {TIMED_REPEATS} repeats {times}")
     for fig in (k3, k4):
         fig["launches"] = launches[fig["name"]]
     return k3, k4

@@ -19,10 +19,10 @@ path takes both from the output rows of the P1 element kernel K1
 package asserts it), computed by the kernel the port carries over from the
 TPU. The per-iteration SpMV is kernel K2 (``ops.bsr.bsr_spmv``).
 
-``make_fused_pcg`` is the counterpart of ``tools/exp_pallas_fused_pcg.py``
-on the same assembled system: the stock iteration and the one whose tail
-runs through kernels K3/K4 (``ops.fused_pcg``), each as a fixed-length loop
-captured as a CUDA graph, and the fused iteration to tolerance.
+``make_fused_pcg`` is the system of ``tools/exp_pallas_fused_pcg.py``: the
+same assembled values and load with the aggregate-block M, on which
+``ops.solvers.pcg_chunked`` runs the stock iteration and
+``ops.fused_pcg.fused_pcg`` the one whose tail runs through kernels K3/K4.
 
 ``adaptive_dfn_level`` is the counterpart of
 ``examples/example_adaptive_dfn.py:solve_and_estimate``, one level of the
@@ -127,10 +127,10 @@ from .ops.bsr import (
     inverse_inner_perm,
 )
 from .ops.compiled import PRECONDITIONERS, aggblock_setup, bsr_pcg
-from .ops.fused_pcg import fused_pcg, fused_pcg_steps, fused_shape
+from .ops.fused_pcg import fused_shape
 from .ops.kernels import p1_element_3d
 from .ops.precondition import AggBlockTwoLevel
-from .ops.solvers import PCGInfo, pcg_steps
+from .ops.solvers import PCGInfo
 
 #: K1 rows of the canonical pairs (0,0) (0,1) (0,2) (1,1) (1,2) (2,2)
 SYM_ROWS = (0, 1, 2, 4, 5, 8)
@@ -222,93 +222,33 @@ def make_bsr_solve(
 
 
 class FusedPCG(NamedTuple):
-    """The assembled benchmark system and its three PCG entry points (see
+    """The assembled benchmark system and its aggblock M (see
     ``make_fused_pcg``)."""
 
     structure: BSRStructure
     values: tuple
     b_pad: torch.Tensor
     precond: AggBlockTwoLevel
-    run_stock: Callable  # iters -> (x_pad, r_pad)
-    run_fused: Callable  # iters -> (x_pad, r_pad)
-    solve_fused: Callable  # tol, maxiter=600 -> (x_pad, iterations, rel_res)
 
-
-def _capture(loop, b):
-    """Capture ``loop(b)`` once as a CUDA graph; returns ``(graph, static_b,
-    outputs)``. One warm-up run on a side stream first, as capture needs
-    (library handles, kernel loading, the allocator's pool)."""
-    static_b = b.clone()
-    current = torch.cuda.current_stream(b.device)
-    side = torch.cuda.Stream(device=b.device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        loop(static_b)
-    current.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = loop(static_b)
-    return graph, static_b, out
-
-
-def _fixed_length(loop, matvec, precond, b):
-    """``run(iters) -> (x, r)`` of a fixed-length loop on ``b``: eager on the
-    CPU; on the card captured once per ``iters`` as a CUDA graph and
-    replayed (the port's ``jax.jit(..., static_argnames=("iters",))`` over
-    ``lax.scan``). Launch counts rise at capture (warm-up and capture runs),
-    not at replay."""
-    graphs = {}
-
-    def run(iters: int):
-        if b.device.type == "cpu":
-            return loop(matvec, precond, b, iters)
-        if iters not in graphs:
-            graphs[iters] = _capture(lambda v: loop(matvec, precond, v, iters), b)
-        graph, static_b, out = graphs[iters]
-        static_b.copy_(b)
-        graph.replay()
-        return tuple(t.clone() for t in out)
-
-    return run
+    def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        return bsr_matvec(self.structure, self.values, v)
 
 
 def make_fused_pcg(basis, *, max_b: int = 8) -> FusedPCG:
     """Assemble the benchmark system once and set up its aggblock
-    preconditioner; return the entry points of ``tools/exp_pallas_fused_pcg.py``:
-
-    * ``run_stock(iters)``: ``ops.solvers.pcg_steps``, the stock iteration;
-    * ``run_fused(iters)``: ``ops.fused_pcg.fused_pcg_steps``, the same
-      iteration with the tail through K3/K4;
-    * ``solve_fused(tol, maxiter=600)``: ``ops.fused_pcg.fused_pcg`` to
-      tolerance, ``(x_pad, iterations, rel_res)`` as ``make_bsr_solve``.
-
-    The fixed-length runs start from r0 = b (as the tool does) and return
-    ``(x_pad, r_pad)``; on the card each is a CUDA graph per ``iters``.
-    Raises ``ValueError`` unless the aggregates satisfy the fused algebra
-    (``g == gs``).
+    preconditioner, for ``tools/exp_pallas_fused_pcg.py``'s two loops:
+    ``pcg_chunked(fused.matvec, fused.b_pad, precond=fused.precond, ...)``
+    (the stock iteration) and ``fused_pcg(fused.matvec, fused.b_pad,
+    fused.precond, ...)`` (its tail through K3/K4); the tool's
+    fixed-length loops are both at ``tol=0.0, maxiter=iters``, and on the
+    card each takes a ``PCGGraphs`` of its own. Raises ``ValueError``
+    unless the aggregates satisfy the fused algebra (``g == gs``).
     """
     st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=False)
     values, b_pad = _assembly(basis, st)()
     precond = aggblock_setup(st)(values)
     fused_shape(precond, st.n_pad)
-
-    def matvec(v):
-        return bsr_matvec(st, values, v)
-
-    def solve_fused(tol: float, maxiter: int = 600):
-        x, info = fused_pcg(matvec, b_pad, precond, tol=tol, maxiter=maxiter)
-        rel = info.residual_norm / torch.sqrt(torch.dot(b_pad, b_pad))
-        return x, info.iterations, rel
-
-    return FusedPCG(
-        structure=st,
-        values=values,
-        b_pad=b_pad,
-        precond=precond,
-        run_stock=_fixed_length(pcg_steps, matvec, precond, b_pad),
-        run_fused=_fixed_length(fused_pcg_steps, matvec, precond, b_pad),
-        solve_fused=solve_fused,
-    )
+    return FusedPCG(structure=st, values=values, b_pad=b_pad, precond=precond)
 
 
 # -- one level of the adaptive DFN loop ----------------------------------------

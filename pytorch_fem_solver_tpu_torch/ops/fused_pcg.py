@@ -17,22 +17,24 @@ be the smoother blocks (``g == gs``, ``nc == ns``); otherwise the loops raise.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and on a CUDA
 tensor launches ``csrc/fused_pcg.cu`` or raises. ``alpha`` is a 0-d device
-tensor that K3 reads through a pointer, and ``rz`` comes back as one, so a
-fixed-length loop (``fused_pcg_steps``) never reads the device from the
-host and can be captured as a CUDA graph.
+tensor that K3 reads through a pointer, and ``rz`` comes back as one, so
+an iteration never reads the device from the host: ``fused_pcg`` runs it
+as a step of ``ops.solvers``' chunked loop, captured as a CUDA graph on
+the card.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import cuda_build
 from .precondition import AggBlockTwoLevel
-from .solvers import PCGInfo
+from .solvers import PCGGraphs, _pcg_state, _run_chunks, _squared_tolerance
 
 _K3_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
 _K4_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
@@ -195,40 +197,25 @@ def fused_shape(precond: AggBlockTwoLevel, n: int) -> tuple[int, int]:
     return ns, gs
 
 
-def _fused_step(matvec, precond, x2, r2, p2, rz):
-    """One iteration: SpMV, alpha, K3, K4, beta, the p update."""
+def _fused_step(matvec, precond, atol2, maxiter, x2, r2, p2, rz, its, active):
+    """``ops.solvers._pcg_step`` with the tail through K3/K4, on the
+    ``(ns, gs)`` views of x, r and p: SpMV, alpha, K3, K4, beta, the p
+    update. Taken only while ``active``; after that x and r hold."""
     ns, gs = r2.shape
-    p = p2.reshape(-1)
+    r = r2.view(-1)
+    active &= (torch.dot(r, r) > atol2) & (its < maxiter)
+    p = p2.view(-1)
     ap = matvec(p)
     alpha = rz / torch.dot(p, ap)
-    x2, r2, s, rc = agg_smooth_restrict(
+    xn, rn, s, rc = agg_smooth_restrict(
         alpha, x2, r2, p2, ap.view(ns, gs), precond.inv_agg
     )
-    z2, rz_new = coarse_prolong_dot(precond.coarse_inv, rc, s, r2)
-    return x2, r2, z2 + (rz_new / rz) * p2, rz_new
-
-
-def fused_pcg_steps(
-    matvec: Callable[[torch.Tensor], torch.Tensor],
-    precond: AggBlockTwoLevel,
-    b: torch.Tensor,
-    iters: int,
-):
-    """``iters`` PCG iterations with the fused tail, from x0 = 0 and r0 = b,
-    with no host read of the device; returns ``(x, r)``.
-
-    The tool's ``run_fused``: z0 = ``precond(b)`` unfused, then the fused
-    body under a fixed trip count, so the loop can be captured as a CUDA
-    graph.
-    """
-    ns, gs = fused_shape(precond, b.shape[-1])
-    z = precond(b)
-    rz = torch.dot(b, z)
-    x2 = torch.zeros_like(b).view(ns, gs)
-    r2, p2 = b.view(ns, gs), z.view(ns, gs)
-    for _ in range(iters):
-        x2, r2, p2, rz = _fused_step(matvec, precond, x2, r2, p2, rz)
-    return x2.reshape(-1), r2.reshape(-1)
+    z2, rz_new = coarse_prolong_dot(precond.coarse_inv, rc, s, rn)
+    torch.where(active, xn, x2, out=x2)
+    torch.where(active, rn, r2, out=r2)
+    torch.add(z2, (rz_new / rz) * p2, out=p2)
+    rz.copy_(rz_new)
+    its += active
 
 
 def fused_pcg(
@@ -236,33 +223,32 @@ def fused_pcg(
     b: torch.Tensor,
     precond: AggBlockTwoLevel,
     tol: float = 1e-10,
-    maxiter: int | None = None,
+    maxiter: Optional[int] = None,
+    *,
+    chunk: int,
+    graphs: Optional[PCGGraphs] = None,
 ):
-    """PCG to ``||r|| <= tol * ||b||`` with the fused tail; returns
-    ``(x, PCGInfo)``.
+    """``ops.solvers.pcg_chunked`` with the fused tail; returns ``(x,
+    PCGInfo)``.
 
-    The start (x0 = 0, r0 = b - A x0), the default ``maxiter``, the stopping
-    rule and ``PCGInfo`` are those of ``ops.solvers.pcg``; only the x and r
-    updates, z and rz go through K3/K4, so the iteration counts can be held
-    to the stock loop's.
+    The start (x0 = 0, r0 = b - A x0, z0 = M r0 unfused), the default
+    ``maxiter``, the stopping rule, ``chunk``, ``graphs`` and ``PCGInfo``
+    are ``pcg_chunked``'s; only the x and r updates, z and rz go through
+    K3/K4, so the iteration counts can be held to the stock loop's.
+    ``tol=0.0, maxiter=iters`` runs ``iters`` iterations. Raises
+    ``ValueError`` unless ``fused_shape`` holds.
     """
     n = b.shape[-1]
     ns, gs = fused_shape(precond, n)
     if maxiter is None:
         maxiter = max(10 * n, 100)
-    b_norm = torch.sqrt(torch.dot(b, b))
-    atol2 = (tol * torch.clamp(b_norm, min=1e-300)) ** 2
+    with span("fem.pcg"):
+        atol2 = _squared_tolerance(b, tol)
+        x, r, p, rz, its, active = _pcg_state(matvec, precond, b)
+        state = (x.view(ns, gs), r.view(ns, gs), p.view(ns, gs), rz, its, active)
 
-    x = torch.zeros_like(b)
-    r = b - matvec(x)
-    z = precond(r)
-    rz = torch.dot(r, z)
-    x2, r2, p2 = x.view(ns, gs), r.view(ns, gs), z.view(ns, gs)
-    k = 0
-    while k < maxiter and bool(torch.dot(r2.view(-1), r2.view(-1)) > atol2):
-        x2, r2, p2, rz = _fused_step(matvec, precond, x2, r2, p2, rz)
-        k += 1
-    r = r2.reshape(-1)
-    res = torch.sqrt(torch.dot(r, r))
-    info = PCGInfo(iterations=k, residual_norm=res, converged=res <= torch.sqrt(atol2))
-    return x2.reshape(-1), info
+        def step(*s):
+            _fused_step(matvec, precond, atol2, maxiter, *s)
+
+        info = _run_chunks(step, state, atol2, maxiter, chunk, graphs)
+        return x, info

@@ -100,6 +100,14 @@ def _mixed_matvec(eq: str, mat: torch.Tensor, vec: torch.Tensor, out_dtype) -> t
     return torch.einsum(eq, mat.to(out_dtype), vec.to(mat.dtype).to(out_dtype))
 
 
+def _coarse_apply(coarse_inv: torch.Tensor, g: int, r: torch.Tensor) -> torch.Tensor:
+    """P0 A_c^{-1} P0^T r over contiguous aggregates of ``g``: the
+    restriction and the prolongation are reshapes."""
+    r_c = r.reshape(-1, g).sum(dim=-1)
+    z_c = _mixed_matvec("ij,j->i", coarse_inv, r_c, r.dtype)
+    return _prolong(z_c, g, r.shape[0])
+
+
 def _apply_fine(blk_inv, inv_diag, r):
     """Fine smoother application: batched block-Jacobi or point Jacobi."""
     if blk_inv is None:
@@ -171,9 +179,7 @@ class BlockTwoLevel(NamedTuple):
 
     def coarse_apply(self, r: torch.Tensor) -> torch.Tensor:
         """P0 A_c^{-1} P0^T r — restriction/prolongation are reshapes."""
-        r_c = r.reshape(-1, self.g).sum(dim=-1)
-        z_c = _mixed_matvec("ij,j->i", self.coarse_inv, r_c, r.dtype)
-        return _prolong(z_c, self.g, r.shape[0])
+        return _coarse_apply(self.coarse_inv, self.g, r)
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         return _apply_fine(self.blk_inv, self.inv_diag, r) + self.coarse_apply(r)
@@ -388,9 +394,7 @@ class AggBlockTwoLevel(NamedTuple):
     gs: int  # smoother block size (>= g allowed; both divide n_pad)
 
     def coarse_apply(self, r: torch.Tensor) -> torch.Tensor:
-        r_c = r.reshape(-1, self.g).sum(dim=-1)
-        z_c = _mixed_matvec("ij,j->i", self.coarse_inv, r_c, r.dtype)
-        return _prolong(z_c, self.g, r.shape[0])
+        return _coarse_apply(self.coarse_inv, self.g, r)
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         fine = _mixed_matvec(

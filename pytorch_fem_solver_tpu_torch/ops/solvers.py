@@ -6,14 +6,16 @@ Counterpart of ``dense_solve``, ``pcg``, ``cg``, ``pcg_cols``, ``minres``,
 ``lax.while_loop``s on the device; here the loops run on the host with one
 device-to-host read of the stopping test per iteration, through
 ``utils.profiling.read``, and each loop is the span ``fem.<solver>``
-(both recorded only under a profiler session). ``pcg_steps`` is
-the fixed-length loop with no host read, which ``bench.make_fused_pcg``
-captures as a CUDA graph. ``pcg_chunked`` is ``pcg`` with the stop test
-and the iteration count kept on the device, issued in chunks of k
-iterations with one host read a chunk: on the card each chunk is a replay
-of a CUDA graph captured once a call (``PCGGraphs``), on the CPU it runs
-eagerly. ``ops.compiled.bsr_pcg`` takes it on the card; ``pcg`` and its
-other callers keep the host loop. The stopping rules, the default
+(both recorded only under a profiler session). ``pcg_chunked`` is
+``pcg`` with the stop test and the iteration count kept on the device,
+issued in chunks of k iterations with one host read a chunk: on the card
+each chunk is a replay of a CUDA graph captured once a call
+(``PCGGraphs``), on the CPU it runs eagerly. ``_run_chunks`` is that
+loop for any in-place step: ``pcg_chunked`` gives it ``_pcg_step``,
+``ops.fused_pcg.fused_pcg`` the step whose tail runs through K3/K4. A
+fixed number of iterations is ``tol=0.0, maxiter=iters``.
+``ops.compiled.bsr_pcg`` takes ``pcg_chunked`` on the card; ``pcg`` and
+its other callers keep the host loop. The stopping rules, the default
 ``maxiter``, the ``converged`` tests and BiCGStab's breakdown guards are
 the JAX package's, so iteration counts match. ``PCGInfo.iterations`` is a
 Python int.
@@ -132,7 +134,8 @@ class PCGGraphs:
     pool open. Nothing of it is allocated between calls (its temporaries
     are freed inside the capture, into the pool), it is never replayed
     after its own call, and its release first waits for the event
-    ``done``, recorded after its last replay."""
+    ``done``, recorded after its last replay. The warm-up runs the step
+    of the first call only, so a ``PCGGraphs`` serves one step."""
 
     def __init__(self, device):
         self.stream = torch.cuda.Stream(device)
@@ -195,6 +198,85 @@ def _capture(step, state, chunk: int, graphs: PCGGraphs):
     return graph, launched
 
 
+def _pcg_state(matvec, precond, b):
+    """The in-place state of a PCG loop from x0 = 0: ``(x, r, p, rz, its,
+    active)``, as ``_pcg_step`` takes it."""
+    x = torch.zeros_like(b)
+    r = b - matvec(x)
+    p = precond(r).clone()  # a buffer of its own: M may hand back r
+    rz = torch.dot(r, p)
+    its = torch.zeros((), dtype=torch.int64, device=b.device)
+    active = torch.ones((), dtype=torch.bool, device=b.device)
+    return x, r, p, rz, its, active
+
+
+def _run_chunks(step, state, atol2, maxiter: int, chunk: int,
+                graphs: Optional[PCGGraphs]) -> PCGInfo:
+    """Run ``step(*state)`` ``chunk`` times at a time until the device
+    count stops; returns the ``PCGInfo`` of the state's r.
+
+    ``state`` is ``(x, r, p, rz, its, active)`` (x, r and p of any one
+    shape), which ``step`` updates in place: one iteration while
+    ``active``, adding it to ``its``, and x and r held after. After each
+    chunk the count is copied to the host; the host reads it one chunk
+    late, with the next chunk already queued, so the device does not wait
+    on the read. A count short of the iterations issued (or at
+    ``maxiter``) ends the loop.
+
+    With ``graphs`` the chunk is captured once, as a CUDA graph over these
+    tensors, and replayed (``PCGGraphs`` keeps the graph, unreplayed,
+    until the next call's capture); the hand-written kernels count once a
+    replay. Without it the chunk runs eagerly. Under a profiler session the
+    counter ``pcg_graphed_iterations`` adds the iterations that ran in
+    replays.
+    """
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    its, r = state[4], state[1].view(-1)
+    graph, launched = None, {}
+    if graphs is None:
+        counts, events = torch.zeros(2, dtype=torch.int64), (None, None)
+    else:
+        counts, events = graphs.counts, graphs.events
+        graph, launched = _capture(step, state, chunk, graphs)
+    issued = 0
+
+    def issue():
+        nonlocal issued
+        if graph is None:
+            for _ in range(chunk):
+                step(*state)
+        else:
+            graph.replay()
+            for name, k in launched.items():
+                cuda_build.launch_counts[name] += k
+        slot = (issued // chunk) % 2
+        issued += chunk
+        counts[slot].copy_(its, non_blocking=True)
+        if events[slot] is not None:
+            events[slot].record()
+        return slot, issued
+
+    ahead = issue()
+    while True:
+        slot, at = ahead
+        if issued < maxiter:
+            ahead = issue()
+        k = read(counts[slot], after=events[slot])
+        if k < at or k >= maxiter:
+            break
+    res = torch.sqrt(torch.dot(r, r))
+    info = PCGInfo(iterations=k, residual_norm=res, converged=res <= torch.sqrt(atol2))
+    if graph is not None:
+        graphs.done.record()
+        count("pcg_graphed_iterations", k)
+        # the capture stream's cuBLAS workspace (32 MiB on an H100) is
+        # held only while the graph runs; PyTorch frees workspaces all
+        # at once, so the current stream's is made anew at its next use
+        torch._C._cuda_clearCublasWorkspaces()
+    return info
+
+
 def pcg_chunked(
     matvec: Callable[[torch.Tensor], torch.Tensor],
     b: torch.Tensor,
@@ -207,87 +289,33 @@ def pcg_chunked(
     graphs: Optional[PCGGraphs] = None,
 ):
     """:func:`pcg` from x0 = 0 with the stop test on the device, issued
-    ``chunk`` iterations at a time.
+    ``chunk`` iterations at a time (``_run_chunks``).
 
     Each iteration is ``pcg``'s, written in place into buffers this call
     owns, and taken only while ``dot(r, r) > atol2`` and fewer than
     ``maxiter`` have been taken; after that x and r hold (``_pcg_step``).
-    A device count adds up the iterations taken. After each chunk the
-    count is copied to the host; the host reads it one chunk late, with
-    the next chunk already queued, so the device does not wait on the
-    read. A count short of the iterations issued (or at ``maxiter``) ends
-    the loop: the same ``iterations``, ``x`` and ``converged`` as
-    ``pcg``, after at most ``2 chunk - 1`` held iterations.
+    So the same ``iterations``, ``x`` and ``converged`` as ``pcg``, after
+    at most ``2 chunk - 1`` held iterations; ``tol=0.0`` runs ``maxiter``
+    iterations.
 
-    With ``graphs`` (a CUDA ``b``) the chunk is captured once, as a CUDA
-    graph over this call's tensors, and replayed (``PCGGraphs`` keeps the
-    graph, unreplayed, until the next call's capture). Without it the
-    chunk runs eagerly. Under a profiler session the counter
-    ``pcg_graphed_iterations`` adds the iterations that ran in replays.
+    With ``graphs`` (a CUDA ``b``) the chunk is a replayed CUDA graph,
+    captured once a call; without it the chunk runs eagerly.
 
     Returns ``(x, PCGInfo)``.
     """
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
     n = b.shape[-1]
     if maxiter is None:
         maxiter = max(10 * n, 100)
     with span("fem.pcg"):
         precond = _jacobi_or_identity(precond, precond_diag)
         atol2 = _squared_tolerance(b, tol)
-        x = torch.zeros_like(b)
-        r = b - matvec(x)
-        p = precond(r).clone()  # a buffer of its own: M may hand back r
-        rz = torch.dot(r, p)
-        its = torch.zeros((), dtype=torch.int64, device=b.device)
-        active = torch.ones((), dtype=torch.bool, device=b.device)
-        state = (x, r, p, rz, its, active)
+        state = _pcg_state(matvec, precond, b)
 
         def step(*s):
             _pcg_step(matvec, precond, atol2, maxiter, *s)
 
-        graph, launched = None, {}
-        if graphs is None:
-            counts, events = torch.zeros(2, dtype=torch.int64), (None, None)
-        else:
-            counts, events = graphs.counts, graphs.events
-            graph, launched = _capture(step, state, chunk, graphs)
-        issued = 0
-
-        def issue():
-            nonlocal issued
-            if graph is None:
-                for _ in range(chunk):
-                    step(*state)
-            else:
-                graph.replay()
-                for name, k in launched.items():
-                    cuda_build.launch_counts[name] += k
-            slot = (issued // chunk) % 2
-            issued += chunk
-            counts[slot].copy_(its, non_blocking=True)
-            if events[slot] is not None:
-                events[slot].record()
-            return slot, issued
-
-        ahead = issue()
-        while True:
-            slot, at = ahead
-            if issued < maxiter:
-                ahead = issue()
-            k = read(counts[slot], after=events[slot])
-            if k < at or k >= maxiter:
-                break
-        res = torch.sqrt(torch.dot(r, r))
-        info = PCGInfo(iterations=k, residual_norm=res, converged=res <= torch.sqrt(atol2))
-        if graph is not None:
-            graphs.done.record()
-            count("pcg_graphed_iterations", k)
-            # the capture stream's cuBLAS workspace (32 MiB on an H100) is
-            # held only while the graph runs; PyTorch frees workspaces all
-            # at once, so the current stream's is made anew at its next use
-            torch._C._cuda_clearCublasWorkspaces()
-        return x, info
+        info = _run_chunks(step, state, atol2, maxiter, chunk, graphs)
+        return state[0], info
 
 
 def cg(matvec, b, **kwargs):
@@ -517,31 +545,3 @@ def bicgstab(
         info = PCGInfo(iterations=k, residual_norm=res, converged=res <= torch.sqrt(atol2))
         return x, info
 
-
-def pcg_steps(
-    matvec: Callable[[torch.Tensor], torch.Tensor],
-    precond: Callable[[torch.Tensor], torch.Tensor],
-    b: torch.Tensor,
-    iters: int,
-):
-    """``iters`` PCG iterations from x0 = 0 and r0 = b, with no host read of
-    the device; returns ``(x, r)``.
-
-    The stock loop of ``tools/exp_pallas_fused_pcg.py`` (``run_stock``): a
-    fixed trip count in place of the stopping test, so the loop can be
-    captured as a CUDA graph.
-    """
-    x = torch.zeros_like(b)
-    r = b
-    p = precond(r)
-    rz = torch.dot(r, p)
-    for _ in range(iters):
-        ap = matvec(p)
-        alpha = rz / torch.dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = precond(r)
-        rz_new = torch.dot(r, z)
-        p = z + (rz_new / rz) * p
-        rz = rz_new
-    return x, r

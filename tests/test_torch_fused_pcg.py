@@ -9,10 +9,12 @@ plain versions, on the seven-fracture DFN at h=0.25 and h=0.1:
   the aggregate sums and ``rz = rn . M^{-1} rn``;
 * the same at ``g = gs = 128``, where the coarse size (10 and 69) is no
   multiple of 4, the shape that takes K4's one-word loads on the card;
-* ``bench.make_fused_pcg``'s ``run_stock(30)`` and ``run_fused(30)`` match
-  the tool's ``stock_body``, written here with JAX functions, to 1e-10;
-* ``solve_fused`` takes the iteration count of the JAX ``pcg`` with the
-  JAX preconditioner, and its solution is within 1e-9;
+* on ``bench.make_fused_pcg``'s system, ``pcg_chunked`` and ``fused_pcg``
+  at ``tol=0.0, maxiter=30`` (the tool's fixed-length loops) match the
+  tool's ``stock_body``, written here with JAX functions: x to 1e-10, the
+  residual norm to 1e-12 max|b| sqrt(n);
+* ``fused_pcg`` to tolerance takes the iteration count of the JAX ``pcg``
+  with the JAX preconditioner, and its solution is within 1e-9;
 * the tool itself, its Pallas kernels run in interpret mode, keeps the
   fused loop within 5e-5 of the JAX stock loop (its own float32 check), so
   port = JAX stock = JAX Pallas;
@@ -49,6 +51,7 @@ from pytorch_fem_solver_tpu_torch import bench, config, interop
 from pytorch_fem_solver_tpu_torch.ops import cuda_build
 from pytorch_fem_solver_tpu_torch.ops import fused_pcg as fp
 from pytorch_fem_solver_tpu_torch.ops.precondition import agg_block_two_level_from_values
+from pytorch_fem_solver_tpu_torch.ops.solvers import PCGGraphs, pcg_chunked
 
 torch.set_num_threads(1)
 config.set_default_dtype(torch.float64)
@@ -57,6 +60,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 SEED = 0
 ITERS = 30
 TOL = 1e-10
+CHUNK = 6  # the main path's PCG_CHUNK; ITERS is a multiple of it
 
 
 def _rel(ours, ref):
@@ -190,28 +194,42 @@ def test_wrappers_on_cpu_are_the_plain_versions(setup):
         assert torch.equal(ours, ref)
 
 
+def _fixed_length(fused, fused_tail, graphs=None):
+    """``iters`` = ITERS iterations of the stock or the fused loop on the
+    fixture's system: ``(x, PCGInfo)``."""
+    if fused_tail:
+        return fp.fused_pcg(fused.matvec, fused.b_pad, fused.precond, tol=0.0,
+                            maxiter=ITERS, chunk=CHUNK, graphs=graphs)
+    return pcg_chunked(fused.matvec, fused.b_pad, precond=fused.precond, tol=0.0,
+                       maxiter=ITERS, chunk=CHUNK, graphs=graphs)
+
+
 def test_fixed_length_loops_match_jax_stock_loop(setup):
     x_ref, r_ref = _jax_stock_steps(
         setup["st"], setup["values"], setup["precond"], setup["b"], ITERS
     )
     fused = setup["fused"]
     b_scale = float(np.abs(np.asarray(setup["b"])).max())
-    for run in (fused.run_stock, fused.run_fused):
-        x, r = run(ITERS)
+    for fused_tail in (False, True):
+        x, info = _fixed_length(fused, fused_tail)
+        assert info.iterations == ITERS
         assert _rel(x.numpy(), x_ref) <= 1e-10
         # r has shrunk by orders of magnitude after 30 iterations; its
-        # roundoff is that of b
-        assert np.abs(r.numpy() - r_ref).max() <= 1e-12 * b_scale
+        # roundoff is that of b, in each of its n entries
+        bound = 1e-12 * b_scale * np.sqrt(r_ref.size)
+        assert abs(float(info.residual_norm) - np.linalg.norm(r_ref)) <= bound
 
 
 def test_solve_fused_matches_jax_pcg(setup):
     st, values, jprec = setup["st"], setup["values"], setup["precond"]
-    x, iters, rel = setup["fused"].solve_fused(TOL)
-    x_ref, info = jax_pcg(
+    fused = setup["fused"]
+    x, info = fp.fused_pcg(fused.matvec, fused.b_pad, fused.precond, tol=TOL, chunk=CHUNK)
+    x_ref, info_ref = jax_pcg(
         lambda v: jb.bsr_matvec(st, values, v), setup["b"], precond=jprec, tol=TOL
     )
-    assert iters == int(info.iterations)
-    assert float(rel) <= TOL
+    assert info.iterations == int(info_ref.iterations)
+    assert bool(info.converged)
+    assert float(info.residual_norm / fused.b_pad.norm()) <= TOL
     x_ref = np.asarray(x_ref)
     assert np.linalg.norm(x.numpy() - x_ref) <= 1e-9 * np.linalg.norm(x_ref)
 
@@ -223,9 +241,9 @@ def test_fused_tail_needs_coarse_aggregates_equal_to_smoother_blocks(setup):
     coarse64 = agg_block_two_level_from_values(st, fused.values, diag, g=64, gs=32)
     matvec = lambda v: v  # noqa: E731  (never reached)
     with pytest.raises(ValueError, match="g=64 gs=32"):
-        fp.fused_pcg_steps(matvec, coarse64, fused.b_pad, 1)
+        fp.fused_pcg(matvec, fused.b_pad, coarse64, chunk=1)
     with pytest.raises(ValueError, match="g=64 gs=32"):
-        fp.fused_pcg(matvec, fused.b_pad, coarse64)
+        fp.fused_shape(coarse64, st.n_pad)
     with pytest.raises(ValueError, match="n=32"):
         fp.fused_shape(fused.precond, 32)
 
@@ -380,13 +398,25 @@ def test_k3_k4_kernels_match_plain_on_card(setup, dtype, tol, g):
 
 @pytest.mark.cuda
 def test_graphed_fused_loop_matches_stock_on_card(setup):
+    """Both loops captured as CUDA graphs, each through a ``PCGGraphs`` of
+    its own, twice (the second call captures without the warm-up)."""
     _need_card()
     fused = bench.make_fused_pcg(_port_basis(setup["jm"], "cuda"))
-    xs, _ = fused.run_stock(ITERS)
-    xf, _ = fused.run_fused(ITERS)
-    x_ref, _ = setup["fused"].run_stock(ITERS)
-    assert _rel(xf.cpu(), xs.cpu()) <= 1e-10
-    assert _rel(xs.cpu(), x_ref) <= 1e-10
+    x_ref, _ = _fixed_length(setup["fused"], False)
+    for fused_tail in (False, True):
+        graphs = PCGGraphs(fused.b_pad.device)
+        names = ("bsr_spmv",) + (
+            ("agg_smooth_restrict", "coarse_prolong_dot") if fused_tail else ())
+        for call in range(2):
+            before = dict(cuda_build.launch_counts)
+            x, info = _fixed_length(fused, fused_tail, graphs)
+            assert info.iterations == ITERS
+            assert _rel(x.cpu(), x_ref) <= 1e-10
+            # counted once a replay, ITERS in all, beside the start's SpMV
+            # and the first call's warm-up iteration
+            for name in names:
+                extra = (name == "bsr_spmv") + (call == 0)
+                assert cuda_build.launch_counts[name] - before[name] == ITERS + extra
 
 
 @pytest.mark.cuda

@@ -8,7 +8,12 @@ and the same ``converged``, with point Jacobi, the aggregate-block M and the
 rigid-body-mode M, at k = 1, 5 and a k above the count, with ``maxiter``
 inside a chunk, with b = 0 and with a NaN in the operator; and it reads the
 count once a chunk. Float64 on ``unit_square(n=16)`` P1 and on a
-three-component P1 basis on ``unit_cube(3)``.
+three-component P1 basis on ``unit_cube(3)``. The fused loop
+(``ops.fused_pcg.fused_pcg``, the K3/K4 tail as the driver's other step) is
+a case of the same tests on the aggregate-block system of the square, where
+n_pad = 256 and g = gs = 32: the host loop's count and x, bitwise the same
+x at every k, ``maxiter`` inside and at the end of a chunk, one read a
+chunk.
 
 On the card (marked ``cuda``): the captured loop of ``bsr_pcg`` gives the
 eager chunked loop's counts and x within float32 rounding on a cube and a
@@ -32,6 +37,7 @@ from pytorch_fem_solver_tpu_torch.ops.bsr import (
     default_max_b,
     get_bsr_structure,
 )
+from pytorch_fem_solver_tpu_torch.ops.fused_pcg import fused_pcg, fused_shape
 from pytorch_fem_solver_tpu_torch.ops.solvers import PCGGraphs, pcg, pcg_chunked
 from pytorch_fem_solver_tpu_torch.utils.profiling import read, recorded, reset
 
@@ -81,23 +87,35 @@ def systems():
     scalar = pt.Basis(mesh, pt.ElementTri(1, 2))
     cube = pt.MeshTet(pt.unit_cube(3), device="cpu", dtype=torch.float64)
     vector = pt.VectorBasis(cube, pt.ElementTet(1, 2))
+    aggblock = System(scalar, a_form, l_form, "auto")
     return {
         "jacobi": System(scalar, a_form, l_form, "jacobi"),
-        "aggblock": System(scalar, a_form, l_form, "auto"),
+        "aggblock": aggblock,
         "rbm": System(vector, lame_form, body_load, "auto"),
+        "fused": aggblock,
     }
 
 
-def _both(system, chunk, tol=1e-10, maxiter=None, matvec=None, b=None):
-    """(pcg's, pcg_chunked's) ``(x, info)`` on one system; ``matvec`` a
-    factory called once per loop (a fresh one for each)."""
-    out = []
-    for loop, extra in ((pcg, {}), (pcg_chunked, {"chunk": chunk})):
-        out.append(loop(system.matvec if matvec is None else matvec(),
-                        system.b if b is None else b,
-                        precond_diag=system.diag, precond=system.precond, tol=tol,
-                        maxiter=maxiter, **extra))
-    return out
+def _chunked(system, precondition, chunk, tol=1e-10, maxiter=None, matvec=None, b=None):
+    """``pcg_chunked``'s ``(x, info)``, or ``fused_pcg``'s for the
+    ``"fused"`` case."""
+    matvec = system.matvec if matvec is None else matvec
+    b = system.b if b is None else b
+    if precondition == "fused":
+        return fused_pcg(matvec, b, system.precond, tol=tol, maxiter=maxiter, chunk=chunk)
+    return pcg_chunked(matvec, b, precond_diag=system.diag, precond=system.precond, tol=tol,
+                       maxiter=maxiter, chunk=chunk)
+
+
+def _both(system, chunk, tol=1e-10, maxiter=None, matvec=None, b=None,
+          precondition="stock"):
+    """(pcg's, the chunked loop's) ``(x, info)`` on one system; ``matvec``
+    a factory called once per loop (a fresh one for each)."""
+    ref = pcg(system.matvec if matvec is None else matvec(), system.b if b is None else b,
+              precond_diag=system.diag, precond=system.precond, tol=tol, maxiter=maxiter)
+    got = _chunked(system, precondition, chunk, tol=tol, maxiter=maxiter,
+                   matvec=None if matvec is None else matvec(), b=b)
+    return ref, got
 
 
 def _agree(ref, got):
@@ -110,7 +128,13 @@ def _agree(ref, got):
     assert float((x1[fin] - x0[fin]).norm()) <= 1e-12 * scale
 
 
-@pytest.mark.parametrize("precondition", ["jacobi", "aggblock", "rbm"])
+def test_the_fused_case_takes_the_fused_tail(systems):
+    system = systems["fused"]
+    assert system.b.shape[0] == 256
+    assert fused_shape(system.precond, 256) == (8, 32) and system.precond.g == 32
+
+
+@pytest.mark.parametrize("precondition", ["jacobi", "aggblock", "rbm", "fused"])
 @pytest.mark.parametrize("chunk", [1, 5, "above"])
 def test_chunked_matches_pcg(systems, precondition, chunk):
     system = systems[precondition]
@@ -118,13 +142,17 @@ def test_chunked_matches_pcg(systems, precondition, chunk):
               tol=1e-10)
     assert ref[1].iterations > 3 and bool(ref[1].converged)
     k = ref[1].iterations + 3 if chunk == "above" else chunk
-    _agree(ref, _both(system, k)[1])
+    got = _chunked(system, precondition, k)
+    _agree(ref, got)
+    # the held iterations leave x as it was: every k gives the same bits
+    assert torch.equal(got[0], _chunked(system, precondition, 1)[0])
 
 
-@pytest.mark.parametrize("precondition", ["jacobi", "rbm"])
+@pytest.mark.parametrize("precondition", ["jacobi", "rbm", "fused"])
 @pytest.mark.parametrize("maxiter", [7, 10])
 def test_maxiter_inside_and_at_the_end_of_a_chunk(systems, precondition, maxiter):
-    ref, got = _both(systems[precondition], 5, tol=1e-14, maxiter=maxiter)
+    ref, got = _both(systems[precondition], 5, tol=1e-14, maxiter=maxiter,
+                     precondition=precondition)
     assert ref[1].iterations == maxiter and not bool(ref[1].converged)
     _agree(ref, got)
 
@@ -162,12 +190,13 @@ def test_nan_in_the_operator_stops_both_alike(systems, turns_nan_at):
     _agree(ref, got)
 
 
+@pytest.mark.parametrize("precondition", ["jacobi", "fused"])
 @pytest.mark.parametrize("chunk", [1, 4])
-def test_one_read_a_chunk(systems, chunk):
-    system = systems["jacobi"]
+def test_one_read_a_chunk(systems, precondition, chunk):
+    system = systems[precondition]
     reset()
     with torch.profiler.profile(activities=CPU):
-        _, info = pcg_chunked(system.matvec, system.b, precond_diag=system.diag, chunk=chunk)
+        _, info = _chunked(system, precondition, chunk)
     rec = recorded()
     # the count is read after each chunk until it falls short of the issued
     assert rec.counters == {"host_reads": info.iterations // chunk + 1}
