@@ -392,6 +392,24 @@ Phases (any failure exits non-zero and prints no result):
     float32 ulps (``tests/test_torch_small_inv.py``'s bounds); its time
     behind both flushes beside the plain loop's, ``torch.linalg.inv``'s
     and its bound.
+30. K8 (``bsr_add_pairs_symmetric``'s scatter-add, ``csrc/pair_scatter.cu``)
+    at the benchmark cells' shapes on ``kuhn_cube(64)`` (1,572,864 tets):
+    vector P1 (n_loc 12, the elasticity cell) and scalar P1 (n_loc 4, the
+    cube cell), element matrices of a Lame or Laplace form scaled by a
+    seeded log-normal factor a cell; the structure's ``n_values``, the share
+    of pairs on the sink and the byte bound (the 32-byte sectors of the
+    element matrices that hold an upper-triangle word, the slots, and a
+    read and a write of each 32-byte sector of the values that a kept pair
+    adds into); one launch a call, the sink left 0, float32 within m eps32
+    of each slot's sum of absolute terms against the stock path in float64
+    (m the most adds into one slot); its time behind the write flush beside
+    the stock path's (the pairs copied out and ``index_add_``) and
+    ``index_add_``'s alone, and the times of the rest of the assembly's
+    scatter span: the zeroed buffer, the mirror completion and the load's
+    scatter. The load's scatter (``_scatter_drop``, K8's flat entry) of
+    seeded log-normal element loads into the padded vector is held the same
+    way against ``index_add_`` in float64, one launch, its sink 0, and
+    timed beside ``index_add_`` of the same loads.
 
 To compare two builds of a kernel, run this script from each checkout in
 turns within one boot of one machine and card (copy this file into the older
@@ -706,6 +724,7 @@ SHARDED_SOLVER_REPEATS = 3  # phase 28's medians
 # 128 (its shared-memory kernel; float64 where the block fits, n <= 168)
 K7_SHAPES = ((4_072, 64), (3_908, 64), (231_459, 8), (1_024, 160), (1_024, 192))
 K7_ZERO_BLOCK = 3
+K8_CUBE_N = 64  # phase 30: the cube and elasticity cells' kuhn_cube(64)
 
 failures: list[str] = []
 # name -> one launch at the benchmark shapes, registered by the phases for
@@ -1099,6 +1118,10 @@ def phase_compiled(st, V32, x32):
     check(bool(info.converged), "compiled_bsr_solver converged")
     check(diff <= 1e-4, f"compiled_bsr_solver vs main path {diff:.3e} <= 1e-4")
     check(launches["bsr_spmv"] >= info.iterations, "compiled_bsr_solver ran K2")
+    # the assembly's two scatters, each one launch of K8 a request
+    check(launches["pair_scatter"] == 1 and launches["flat_scatter"] == 1,
+          f"compiled_bsr_solver: one pair_scatter and one flat_scatter launch "
+          f"({launches['pair_scatter']}, {launches['flat_scatter']})")
     return solve
 
 
@@ -4957,6 +4980,167 @@ def phase_k7():
     }
 
 
+def _k8_triangle_sectors(n_loc: int, itemsize: int = 4) -> int:
+    """The 32-byte sectors of one contiguous (n_loc, n_loc) matrix that hold
+    a word of its upper triangle: what K8 reads of each cell, where a cell's
+    matrix starts on a sector (its n_loc^2 words a whole number of them)."""
+    assert n_loc * n_loc * itemsize % 32 == 0
+    iu, ju = np.triu_indices(n_loc)
+    return int(np.unique((iu * n_loc + ju) * itemsize // 32).size)
+
+
+def _k8_stock(values, slots, local):
+    """The pair scatter as the port ran it before K8: the pairs copied out,
+    the diagonal halved, added with ``index_add_``."""
+    import torch
+
+    n_loc = local.shape[-1]
+    iu, ju = torch.triu_indices(n_loc, n_loc, device=local.device)
+    w = torch.where(iu == ju, 0.5, 1.0).to(local.dtype)
+    return values.index_add_(0, slots, (local[..., iu, ju] * w).reshape(-1))
+
+
+def _k8_lame(b):
+    """2 mu eps(u):eps(v) + lambda div u div v with mu = 1, lambda = 2."""
+    import torch
+
+    g = b.v_grad
+    eps = 0.5 * (g + g.transpose(-1, -2))
+    div = torch.diagonal(g, dim1=-2, dim2=-1).sum(-1)
+    return (2.0 * torch.einsum("...icd,...jcd->...ij", eps, eps)
+            + 2.0 * div[..., :, None] * div[..., None, :])
+
+
+def phase_k8():
+    """Phase 30: K8 at the cube and elasticity cells' shapes against the
+    stock path, its bound and its time."""
+    import torch
+
+    import pytorch_fem_solver_tpu_torch as pt
+    from fem_bench.meshes.kuhn_cube import kuhn_cube
+    from pytorch_fem_solver_tpu_torch.ops import cuda_build
+    from pytorch_fem_solver_tpu_torch.ops.bsr import (
+        _scatter_drop,
+        bsr_add_pairs_symmetric,
+        bsr_complete_symmetric,
+        default_max_b,
+        get_bsr_structure,
+        inverse_inner_perm,
+    )
+
+    eps32 = float(np.finfo(np.float32).eps)
+    vertices, tets = kuhn_cube(K8_CUBE_N)
+    mesh = pt.MeshTet({"vertices": vertices, "tetrahedra": tets}, device=DEVICE,
+                      dtype=torch.float32)
+    scale = torch.exp(torch.randn(tets.shape[0], generator=torch.Generator().manual_seed(8),
+                                  dtype=torch.float64)).to(DEVICE, torch.float32)
+    shapes = []
+    for cell, V, form in (
+        ("cube64_elast_p1", pt.VectorBasis(mesh, pt.ElementTet(1, 2)), _k8_lame),
+        ("cube64_p1", pt.Basis(mesh, pt.ElementTet(1, 2)), lambda b: b.v_grad @ b.v_grad.mT),
+    ):
+        t0 = time.perf_counter()
+        st = get_bsr_structure(V, max_b=default_max_b(V), want_entry_slot=False)
+        tables_s = time.perf_counter() - t0
+        local = V.integrate_bilinear_form_local(form) * scale[:, None, None]
+        slots = st.entry_slot_sym
+        T, n_loc = local.shape[0], local.shape[-1]
+        kept = slots[slots < st.n_values].long()
+        sink_share = 1.0 - kept.numel() / slots.numel()
+        sectors = int(torch.unique(kept // 8).numel())  # 32-byte sectors of float32 values
+        most = int(torch.bincount(kept).max())
+        del kept
+        local_sectors = T * _k8_triangle_sectors(n_loc)
+        n_bytes = 32 * local_sectors + slots.numel() * slots.element_size() + 2 * 32 * sectors
+        b_ms, by = bound_ms(n_bytes, 0)
+        tag = f"K8 {cell} ({T}, {n_loc}, {n_loc})"
+        log(f"{tag}: n_values {st.n_values}, {slots.numel()} pairs, sink share {sink_share:.6f}, "
+            f"{_k8_triangle_sectors(n_loc)} of a matrix's {n_loc * n_loc // 8} sectors read, "
+            f"{sectors} value sectors added into, at most {most} adds a slot, tables "
+            f"{tables_s:.1f} s")
+        ref = _k8_stock(local.new_zeros(st.n_values + 1, dtype=torch.float64), slots,
+                        local.double())
+        abs_sum = _k8_stock(torch.zeros_like(ref), slots, local.double().abs())
+        cuda_build.reset_launch_counts()
+        out = bsr_add_pairs_symmetric(st, None, slots, local)
+        torch.cuda.synchronize()
+        launches = cuda_build.launch_counts["pair_scatter"]
+        check(launches == 1, f"{tag}: one launch ({launches})")
+        check(float(out[st.n_values]) == 0.0, f"{tag}: the sink slot is 0")
+        gap = (out[: st.n_values].double() - ref[: st.n_values]).abs()
+        bound = most * eps32 * abs_sum[: st.n_values]
+        worst = float((gap / bound.clamp_min(1e-300)).max())
+        check(bool((gap <= bound).all()), f"{tag} float32 vs the stock path in float64: every "
+              f"slot within m eps32 of its sum of absolute terms (worst {worst:.3e} of it)")
+        del ref, abs_sum, gap, bound, out
+        buf = local.new_zeros(st.n_values + 1)
+        iu, ju = torch.triu_indices(n_loc, n_loc, device=DEVICE)
+        pairs = (local[..., iu, ju] * torch.where(iu == ju, 0.5, 1.0)).reshape(-1)
+        ms = time_ms(lambda: bsr_add_pairs_symmetric(st, buf, slots, local))
+        stock_ms = time_ms(lambda: _k8_stock(buf, slots, local), reps=10)
+        index_add_ms = time_ms(lambda: buf.index_add_(0, slots, pairs), reps=10)
+        log(f"{tag} float32: {ms:.4f} ms (stock path {stock_ms:.4f} ms, index_add_ alone "
+            f"{index_add_ms:.4f} ms, bound {b_ms:.4f} ms by {by}: {n_bytes / 1e6:.1f} MB)")
+        # the rest of the scatter span: the zeroed buffer, the mirror completion and
+        # the load's flat scatter into the padded vector (one value a local DOF)
+        inv = inverse_inner_perm(st, int(V.n_dofs))
+        lf = V._basis_parameters["linear_form_idx"][0]
+        load_slots = torch.as_tensor(inv[V._as_host_index(lf)], device=DEVICE)
+        load32 = torch.exp(torch.randn(load_slots.shape[0], generator=torch.Generator()
+                                       .manual_seed(9))).to(DEVICE)
+        load_ref = torch.zeros(st.n_pad + 1, dtype=torch.float64, device=DEVICE).index_add_(
+            0, load_slots, load32.double())
+        load_kept = load_slots[load_slots < st.n_pad]
+        load_most = int(torch.bincount(load_kept).max())
+        cuda_build.reset_launch_counts()
+        load_out = _scatter_drop(load_slots, load32, st.n_pad)
+        torch.cuda.synchronize()
+        launches = cuda_build.launch_counts["flat_scatter"]
+        check(launches == 1, f"{tag} load: one flat_scatter launch ({launches})")
+        sink = torch.as_strided(load_out, (st.n_pad + 1,), (1,), load_out.storage_offset())
+        check(float(sink[st.n_pad]) == 0.0, f"{tag} load: the sink slot is 0")
+        gap = (load_out.double() - load_ref[: st.n_pad]).abs()
+        bound = load_most * eps32 * load_ref[: st.n_pad]  # the loads are positive
+        worst = float((gap / bound.clamp_min(1e-300)).max())
+        check(bool((gap <= bound).all()), f"{tag} load float32 vs index_add_ in float64: every "
+              f"slot within m eps32 of its sum (m {load_most}, worst {worst:.3e} of it)")
+        del load_ref, load_kept, load_out, sink, gap, bound
+        rest = {
+            "zeros_ms": time_ms(lambda: local.new_zeros(st.n_values + 1), reps=10),
+            "completion_ms": time_ms(lambda: bsr_complete_symmetric(st, buf[: st.n_values]),
+                                     reps=10),
+            "load_ms": time_ms(lambda: _scatter_drop(load_slots, load32, st.n_pad), reps=10),
+            "load_index_add_ms": time_ms(
+                lambda: load32.new_zeros(st.n_pad + 1).index_add_(0, load_slots, load32),
+                reps=10),
+        }
+        log(f"{tag}: the rest of the scatter span, ms: " + ", ".join(
+            f"{k.removesuffix('_ms')} {v:.4f}" for k, v in rest.items()))
+        shapes.append({"cell": cell, "shape": [T, n_loc, n_loc], "n_values": st.n_values,
+                       "pairs": slots.numel(), "sink_share": sink_share, "sectors": sectors,
+                       "local_sectors": local_sectors, "load_values": load_slots.numel(),
+                       "load_most_adds": load_most,
+                       "most_adds": most, "ms": ms, "stock_ms": stock_ms,
+                       "index_add_ms": index_add_ms, "bound_ms": b_ms, "bound_by": by,
+                       "bytes": n_bytes, **rest})
+        del buf, pairs, local, st, V, load_slots, load32
+        torch.cuda.empty_cache()
+    first = shapes[0]
+    return {
+        "name": "pair_scatter",
+        "route": "cuda",
+        "source": "pytorch_fem_solver_tpu_torch/csrc/pair_scatter.cu",
+        "replaces": "none (ops/bsr.py:362 bsr_values_from_local_symmetric is .at[].add)",
+        "max_abs_err": None,
+        "ms": first["ms"],
+        "plain_ms": first["index_add_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"],
+        "library_ms": None,
+        "shapes": shapes,
+    }
+
+
 def phase_windows():
     """Phase 12: what the timing window itself holds, per kernel; then the
     stream figures, which hold no event pair. Returns ``name -> stream us``."""
@@ -5089,6 +5273,8 @@ def main() -> int:
     done("28 sharded solvers")
     k7 = phase_k7()
     done("29 K7")
+    k8 = phase_k8()
+    done("30 K8")
     log("seconds by phase: " + "; ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(marks, marks[1:])
     ) + f"; start to tables {marks[0][1] - t_start:.1f}; total {time.perf_counter() - t_start:.1f}")
@@ -5129,7 +5315,7 @@ def main() -> int:
         fig["stream_us"] = stream.get(name)  # None where no stream figure is taken
     log(f"main path median {median:.6f} s, {iters} iterations, on {card}")
     print(card, flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8]}), flush=True)
     # the run uses one card, whatever the machine holds
     print(json.dumps({
         "ok": True,

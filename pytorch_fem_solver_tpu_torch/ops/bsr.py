@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import cuda_build
 
 
@@ -323,11 +323,80 @@ def build_bsr_structure(
     )
 
 
+# -- kernel K8: the scatter-add into the values, with a sink -----------------
+
+#: the largest n_loc K8's pair scatter takes: each CTA holds the call's table
+#: of n_loc (n_loc + 1) / 2 int64 offsets in at most 227 KiB of shared memory
+#: (``csrc/pair_scatter.cu``)
+PAIR_SCATTER_MAX_LOC = 240
+_PAIR_SCATTER_ARGTYPES = (
+    [ctypes.c_void_p] + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                                                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+)
+_FLAT_SCATTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                          ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+_SLOT_SUFFIX = {torch.int32: "i32", torch.int64: "i64"}
+
+
+def _k8_slots(entry: str, data, slots, values):
+    """Raise unless K8's ``entry`` can add the CUDA tensor ``data`` at
+    ``slots`` into ``values``: float32 or float64 data that needs no
+    gradient (K8 adds outside autograd), int32 or int64 slots on its device,
+    and a contiguous buffer of its dtype on its device. Returns the slots,
+    contiguous."""
+    if data.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{entry}: K8 takes float32 or float64, got {data.dtype}")
+    if slots.dtype not in _SLOT_SUFFIX:
+        raise TypeError(f"{entry}: K8 takes int32 or int64 slots, got {slots.dtype}")
+    if torch.is_grad_enabled() and (data.requires_grad or values.requires_grad):
+        raise RuntimeError(
+            f"{entry}: K8 adds outside autograd; scatter tensors that need a gradient on the CPU"
+        )
+    for name, t in (("slots", slots), ("values", values)):
+        if t.device != data.device:
+            raise ValueError(f"{entry}: {name} on {t.device}, the values added on {data.device}")
+    cuda_build.check(values, "values", values.shape, data.dtype)
+    return slots.contiguous()
+
+
+def _launch_k8(entry: str, argtypes, slots, data, *args) -> None:
+    """One launch of K8's ``entry`` (``pair_scatter`` or ``flat_scatter``)
+    for ``slots``' and ``data``'s dtypes, on the current stream; counted
+    under ``entry``."""
+    fn = cuda_build.function(
+        "pair_scatter", f"{entry}_{_SLOT_SUFFIX[slots.dtype]}", data.dtype, argtypes
+    )
+    err = fn(*args, torch.cuda.current_stream(data.device).cuda_stream)
+    cuda_build.raise_on_error(err, entry)
+    cuda_build.launch_counts[entry] += 1
+
+
 def _scatter_drop(slots, data, n: int):
     """``zeros(n).at[slots].add(data, mode="drop")``: slots equal to ``n``
-    land in a sink one past the end, which is sliced off."""
+    land in a sink one past the end, which is sliced off.
+
+    CPU tensors add with ``index_add_``. CUDA tensors launch K8's flat
+    scatter (one launch), which adds each value whose slot lies in
+    ``[0, n)`` and skips the rest, the sink among them, which stays 0; it
+    raises for slots and values that are not 1-D of one length, and where
+    ``_k8_slots`` does. Counts ``scatter_values`` and, where K8 took them,
+    ``scatter_kernel_values``.
+    """
     out = torch.zeros(n + 1, dtype=data.dtype, device=data.device)
-    return out.index_add_(0, slots, data)[:n]
+    count("scatter_values", data.numel())
+    if data.device.type == "cpu":
+        return out.index_add_(0, slots, data)[:n]
+    if data.dim() != 1 or slots.dim() != 1 or slots.shape[0] != data.shape[0]:
+        raise ValueError(
+            f"_scatter_drop: 1-D slots and values of one length expected, got "
+            f"{tuple(slots.shape)} and {tuple(data.shape)}"
+        )
+    slots = _k8_slots("flat_scatter", data, slots, out)
+    if data.shape[0]:
+        _launch_k8("flat_scatter", _FLAT_SCATTER_ARGTYPES, slots, data, data.data_ptr(),
+                   data.stride(0), slots.data_ptr(), data.shape[0], out.data_ptr(), n)
+    count("scatter_kernel_values", data.shape[0])
+    return out[:n]
 
 
 def bsr_values_from_local(structure: BSRStructure, local_matrices):
@@ -368,16 +437,57 @@ def bsr_add_pairs_symmetric(structure: BSRStructure, values, slots, local_matric
     new one), and return it. Runs over the whole mesh, summed in one buffer,
     let the element matrices of the whole mesh never exist at once;
     ``bsr_complete_symmetric`` of the first ``n_values`` slots ends the
-    assembly. The pairs are not held past the call, through the completion,
-    whose copies set the peak."""
+    assembly.
+
+    CPU tensors copy the pairs out, the diagonal halved, and add them with
+    ``index_add_``; the pairs are not held past the call, through the
+    completion, whose copies set the peak. CUDA tensors launch K8's pair
+    scatter (one launch), which reads each pair in place from the element
+    matrices and adds it unless its slot is the sink, which stays 0; it
+    raises for n_loc above ``PAIR_SCATTER_MAX_LOC`` and where ``_k8_slots``
+    does. Refuses element matrices that are not square and slots or a
+    buffer of the wrong length. Counts ``scatter_values`` and, where K8
+    took them, ``scatter_kernel_values``."""
     n_loc = local_matrices.shape[-1]
+    if local_matrices.dim() < 2 or local_matrices.shape[-2] != n_loc:
+        raise ValueError(
+            "bsr_add_pairs_symmetric: (..., n_loc, n_loc) element matrices expected, got "
+            f"{tuple(local_matrices.shape)}"
+        )
+    n_pairs = n_loc * (n_loc + 1) // 2
+    n_cells = local_matrices.numel() // (n_loc * n_loc) if n_loc else 0
+    if slots.dim() != 1 or slots.shape[0] != n_cells * n_pairs:
+        raise ValueError(
+            f"bsr_add_pairs_symmetric: {n_cells} cells of {n_pairs} pairs need "
+            f"{n_cells * n_pairs} slots, got shape {tuple(slots.shape)}"
+        )
+    if values is not None and tuple(values.shape) != (structure.n_values + 1,):
+        raise ValueError(
+            f"bsr_add_pairs_symmetric: values must have shape ({structure.n_values + 1},), "
+            f"got {tuple(values.shape)}"
+        )
+    count("scatter_values", slots.shape[0])
+    if values is None:
+        values = local_matrices.new_zeros(structure.n_values + 1)
+    if local_matrices.device.type != "cpu":
+        if n_loc > PAIR_SCATTER_MAX_LOC:
+            raise ValueError(
+                f"bsr_add_pairs_symmetric: n_loc = {n_loc} > {PAIR_SCATTER_MAX_LOC}, the "
+                "largest whose table of pairs one CTA of K8 holds"
+            )
+        slots = _k8_slots("pair_scatter", local_matrices, slots, values)
+        local = local_matrices.reshape(n_cells, n_loc, n_loc)  # a view of a (T, n, n) run
+        if n_cells:
+            _launch_k8("pair_scatter", _PAIR_SCATTER_ARGTYPES, slots, local, local.data_ptr(),
+                       *local.stride(), n_loc, slots.data_ptr(), slots.shape[0],
+                       values.data_ptr(), structure.n_values)
+        count("scatter_kernel_values", slots.shape[0])
+        return values
     iu, ju = torch.triu_indices(n_loc, n_loc, device=local_matrices.device)
     # local (i, i) pairs are exactly the global diagonal scalars, which
     # the self-partnered transpose doubles: halve them before the scatter
     w = torch.where(iu == ju, 0.5, 1.0).to(local_matrices.dtype)
     pairs = (local_matrices[..., iu, ju] * w).reshape(-1)
-    if values is None:
-        values = pairs.new_zeros(structure.n_values + 1)
     return values.index_add_(0, slots, pairs)
 
 

@@ -32,6 +32,7 @@ SOURCES = {
     "fused_pcg": SOURCE_DIR / "fused_pcg.cu",
     "gather": SOURCE_DIR / "gather.cu",
     "small_inv": SOURCE_DIR / "small_inv.cu",
+    "pair_scatter": SOURCE_DIR / "pair_scatter.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,6 +49,8 @@ launch_counts = {
     "p1_element_2d": 0,
     "gather_rows": 0,
     "small_inv": 0,
+    "pair_scatter": 0,
+    "flat_scatter": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -54,6 +54,9 @@ counters of the solve path:
                       inverses (CUDA events)
 ``coarse_rows``       the counter of the coarse sizes set up (n_pad / g, or
                       na m of the affine and rigid-body-mode M)
+``scatter_values``    the counter of the values the assembly's scatters add
+                      (``ops.bsr``: canonical pairs and drop-mode values);
+                      ``scatter_kernel_values`` of those the kernel K8 added
 ``fem.pcg``           a PCG solve (``fem.pcg_cols``, ``fem.minres``,
                       ``fem.bicgstab``: the other loops of ``ops.solvers``)
 ``.capture``          inside it, on the card: the capture and instantiation

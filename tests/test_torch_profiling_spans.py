@@ -8,8 +8,9 @@ one ``fem.assemble.local`` and ``fem.assemble.scatter`` pair per run of
 cells, inside ``fem.precond_setup`` the M's ``.galerkin``,
 ``.coarse_inverse`` and ``.smoother``; one ``fem.host_read`` per blocking
 read: the stop test's ``iterations + 1`` inside ``fem.pcg`` and the two of
-``spd_inverse`` inside the coarse inverse; and the counter ``coarse_rows``
-of the M's coarse size. The answers are bitwise those of an unrecorded
+``spd_inverse`` inside the coarse inverse; the counter ``coarse_rows``
+of the M's coarse size, and ``scatter_values`` of the canonical pairs and
+element loads the assembly scatters. The answers are bitwise those of an unrecorded
 solve. The spans are stamped on the clock of the profiler's own events.
 Float64 on ``unit_square(n=16)``, P1, and for the rigid-body-mode M a
 three-component P1 basis on ``unit_cube(3)``, on the CPU; the spans' CUDA
@@ -92,6 +93,15 @@ def _coarse_size(basis):
     return st.n_pad // pt.ops.precondition.default_aggregate_size(st)
 
 
+def _scattered(basis):
+    """The values a solve scatters: one a canonical pair of every cell, and
+    the element loads of the flat load layout (n_loc a cell). On the CPU
+    they all take ``index_add_``, so no ``scatter_kernel_values``."""
+    st = pt.ops.bsr.get_bsr_structure(basis, max_b=pt.ops.bsr.default_max_b(basis),
+                                      want_entry_slot=False)
+    return st.entry_slot_sym.shape[0] + basis._global_dofs4elements.numel()
+
+
 def _by_name(spans, name):
     return [(k, s) for k, s in enumerate(spans) if s.name == name]
 
@@ -167,7 +177,8 @@ def test_spans_nest_under_one_request_per_solve(request, kind):
         assert sum(s.parent == at["fem.precond_setup.coarse_inverse"] for s in reads) == 2
         assert len(reads) == info.iterations + 3
     assert rec.counters == {"host_reads": sum(i.iterations + 3 for i in infos),
-                            "coarse_rows": 2 * _coarse_size(basis)}
+                            "coarse_rows": 2 * _coarse_size(basis),
+                            "scatter_values": 2 * _scattered(basis)}
     assert all(s.device_ms is None for s in rec.spans)  # no CUDA events on the CPU
 
 
