@@ -34,9 +34,13 @@ step), around the jvp Jacobian, the BSR scatter, the preconditioner setup
 and BiCGStab on the SpMV kernel.
 
 ``compiled_eigsh_solver`` is the counterpart of the one-jit generalized
-eigensolve: both forms' BSR values, the preconditioner setup and LOBPCG or
-subspace iteration (``ops.eigen``), whose host loops read the stopping test
-once per round.
+eigensolve: both forms' BSR values by ``_assemble_symmetric`` (the
+canonical-pair scatter, where the JAX package scatters every entry), the
+preconditioner setup and LOBPCG or subspace iteration (``ops.eigen``), whose
+host loops read the stopping test once per round. A solve records
+``fem.solve``, ``fem.assemble`` (a ``.local`` / ``.scatter`` pair per form
+and run of cells) and ``fem.precond_setup`` as ``compiled_bsr_solver``'s
+does, and the eigensolver's own spans inside.
 
 ``compiled_stokes_solver`` is the counterpart of the one-jit Stokes solve:
 the host tables (the velocity BSR structure, the coarse space, the mixed B
@@ -300,6 +304,12 @@ def _chunk_table(basis, structure, chunk_cells: int, max_b: int):
     return cache[key]
 
 
+def _default_chunk_cells(n_cells: int) -> int:
+    """Cells a run of a symmetric form's assembly holds by default: 2^18
+    above 2M cells, else 0 (one run)."""
+    return (1 << 18) if n_cells > 2_000_000 else 0
+
+
 _NO_LOAD = (lambda: None, lambda _: None)
 
 
@@ -397,7 +407,7 @@ def compiled_bsr_solver(
             "(docs/performance.md)"
         )
     if chunk_cells is None:
-        chunk_cells = (1 << 18) if (n_cells > 2_000_000 and symmetric_form) else 0
+        chunk_cells = _default_chunk_cells(n_cells) if symmetric_form else 0
 
     with span("fem.tables.solver", always=True):
         # construction-time spot check: symmetric_form=True with a
@@ -501,11 +511,10 @@ def compiled_bsr_solver(
 
 
 def _bsr_setup(basis, max_b, precondition):
-    """Shared construction of the compiled Newton and eigen solves: the
-    full-entry-slot BSR structure (the Jacobians are not symmetric; the
-    eigen forms are scattered entry by entry, as in the JAX package) and
-    the per-solve preconditioner setup of ``precondition``
-    (``preconditioner_setup``), its host tables built once."""
+    """Construction of the compiled Newton solve: the full-entry-slot BSR
+    structure (the Jacobians are not symmetric) and the per-solve
+    preconditioner setup of ``precondition`` (``preconditioner_setup``),
+    its host tables built once."""
     if precondition not in ("auto", "jacobi"):
         raise ValueError(
             f"unknown precondition: {precondition!r} (expected 'auto' or 'jacobi')"
@@ -667,8 +676,11 @@ def compiled_eigsh_solver(
     package's one-jit ``compiled_eigsh_solver`` and of
     :meth:`AbstractBasis.solve_eigsh`.
 
-    Each solve scatters both forms into the BSR layout (full entry slots),
-    sets the preconditioner up from A's values and runs
+    Each solve assembles both forms, which must be symmetric, into the BSR
+    layout by ``_assemble_symmetric`` (one value per canonical pair, in
+    runs of cells above 2M cells, as ``compiled_bsr_solver``; the JAX
+    package scatters every entry, and the values agree to rounding), sets
+    the preconditioner up from A's values and runs
     ``method="lobpcg"`` (the default; ``ops.eigen.lobpcg_eigsh`` with
     ``max_rounds=max(max_rounds, 200)``: one A- and one M-product and one
     preconditioner application per column per round; ``solve_tol`` and
@@ -705,9 +717,15 @@ def compiled_eigsh_solver(
         raise ValueError(f"requested k={k} eigenpairs from an n={n_inner} system")
     m_block = min(k + max(2, k // 2), n_inner)
 
-    st, setup = _bsr_setup(
-        basis, max_b, "auto" if precondition == "two_level" else "jacobi"
-    )
+    with span("fem.tables.solver", always=True):
+        if max_b is None:
+            max_b = default_max_b(basis)
+        st = get_bsr_structure(basis, max_b=max_b, want_entry_slot=False)
+        chunk_cells = _default_chunk_cells(int(basis.v_grad.shape[0]))
+        chunks = _chunk_table(basis, st, chunk_cells, max_b) if chunk_cells else None
+        setup = preconditioner_setup(
+            st, "auto" if precondition == "two_level" else "jacobi", basis
+        )
     n_dofs = basis.n_dofs
     rand = torch.as_tensor(
         np.random.default_rng(seed).standard_normal((n_dofs, m_block)),
@@ -715,11 +733,14 @@ def compiled_eigsh_solver(
     )
 
     def solve():
-        with _mm_precision(matmul_precision):
-            va = bsr_values_from_local(st, basis.integrate_bilinear_form_local(a_form))
-            vm = bsr_values_from_local(st, basis.integrate_bilinear_form_local(m_form))
-            diag = bsr_diagonal(st, va)
-            precond = None if setup is None else setup(va, diag)
+        dev = basis.device
+        with span("fem.solve"), _mm_precision(matmul_precision):
+            with span("fem.assemble", dev):
+                va, _ = _assemble_symmetric(basis, st, a_form, chunks)
+                vm, _ = _assemble_symmetric(basis, st, m_form, chunks)
+            with span("fem.precond_setup", dev):
+                diag = bsr_diagonal(st, va)
+                precond = None if setup is None else setup(va, diag)
             x0 = torch.stack([bsr_reduce(st, rand[:, j]) for j in range(m_block)], dim=1)
             common = dict(
                 tol=tol,

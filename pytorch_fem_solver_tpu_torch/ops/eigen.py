@@ -18,6 +18,16 @@ its status), and every ``eigh``, which on the card reads its status back to
 the host. Eigenvector signs and rotations inside a cluster of equal
 eigenvalues may differ from the JAX package's LAPACK; the eigenvalues and
 the spans do not.
+
+Under a profiler session (``utils.profiling``) each loop records the host
+span ``fem.eigsh``; inside it every A- or M-block product
+``fem.eigsh.product`` (the column copies and the stack included) and, in
+LOBPCG, the block application of the preconditioner ``fem.eigsh.precond``
+and each dense Rayleigh-Ritz step ``fem.eigsh.rr`` (the seed step, each
+``whiten`` and ``rr_ortho``: the Gram products, the whitening and the
+``eigh`` calls), each with a CUDA event pair on the card; the counters
+``eigsh_rounds``, ``eigsh_products`` and ``eigsh_product_columns``; and
+each stop test through ``read``.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils.profiling import count, read, span
 from .solvers import pcg
 
 __all__ = [
@@ -53,6 +64,20 @@ def _block(matvec):
         return torch.stack([matvec(c) for c in cols], dim=1)
 
     return apply
+
+
+def _products(matvec, device):
+    """``_block(matvec)`` recorded as one ``fem.eigsh.product`` and
+    counted under ``eigsh_products`` and ``eigsh_product_columns``."""
+    apply = _block(matvec)
+
+    def product(s):
+        count("eigsh_products")
+        count("eigsh_product_columns", s.shape[1])
+        with span("fem.eigsh.product", device):
+            return apply(s)
+
+    return product
 
 
 def _sym(g):
@@ -149,23 +174,25 @@ def subspace_eigsh(
             rng.standard_normal((n, m)), dtype=dtype, device=config.resolve_device(device)
         )
 
-    a_blk, m_blk = _block(a_matvec), _block(m_matvec)
+    a_blk, m_blk = _products(a_matvec, x.device), _products(m_matvec, x.device)
     solve_block = _inner_solver(a_matvec, precond, precond_diag, solve_tol, solve_maxiter)
 
     last = None
     info = EighInfo(iterations=0, eig_change=np.inf, converged=False)
-    for rounds in range(1, max_rounds + 1):
-        # y = A^{-1} (M x), then Rayleigh-Ritz on span(y)
-        y = solve_block(m_blk(x))
-        vals, coeffs = _rayleigh_ritz(y, a_blk, m_blk)
-        x = y @ coeffs
-        head = vals[:k].cpu().numpy()
-        if last is not None:
-            change = float(np.max(np.abs(head - last) / np.maximum(np.abs(head), 1e-300)))
-            info = EighInfo(iterations=rounds, eig_change=change, converged=change <= tol)
-            if info.converged:
-                break
-        last = head
+    with span("fem.eigsh"):
+        for rounds in range(1, max_rounds + 1):
+            count("eigsh_rounds")
+            # y = A^{-1} (M x), then Rayleigh-Ritz on span(y)
+            y = solve_block(m_blk(x))
+            vals, coeffs = _rayleigh_ritz(y, a_blk, m_blk)
+            x = y @ coeffs
+            head = vals[:k]
+            if last is not None:
+                change = read(_relative_change(head, last, 1e-300))
+                info = EighInfo(iterations=rounds, eig_change=change, converged=change <= tol)
+                if info.converged:
+                    break
+            last = head
     return vals[:k], x[:, :k], info
 
 
@@ -189,20 +216,22 @@ def subspace_eigsh_while(
     k) is the starting block (zero on any padding rows). Returns ``(vals
     (k,), vecs (n, k), (rounds, eig_change, converged))``: ``rounds`` a
     Python int, the other two 0-dim tensors."""
-    a_blk, m_blk = _block(a_matvec), _block(m_matvec)
+    a_blk, m_blk = _products(a_matvec, x0.device), _products(m_matvec, x0.device)
     solve_block = _inner_solver(a_matvec, precond, precond_diag, solve_tol, solve_maxiter)
 
     x = x0
     head = torch.full((k,), math.inf, dtype=x0.dtype, device=x0.device)
     change = torch.tensor(math.inf, dtype=x0.dtype, device=x0.device)
     rounds = 0
-    while rounds < max_rounds and bool(change > tol):
-        y = solve_block(m_blk(x))
-        vals, coeffs = _rayleigh_ritz(y, a_blk, m_blk)
-        x = y @ coeffs
-        head_prev, head = head, vals[:k]
-        change = _relative_change(head, head_prev, 1e-300)
-        rounds += 1
+    with span("fem.eigsh"):
+        while rounds < max_rounds and read(change > tol):
+            count("eigsh_rounds")
+            y = solve_block(m_blk(x))
+            vals, coeffs = _rayleigh_ritz(y, a_blk, m_blk)
+            x = y @ coeffs
+            head_prev, head = head, vals[:k]
+            change = _relative_change(head, head_prev, 1e-300)
+            rounds += 1
     # one more Rayleigh-Ritz would be redundant: head and x are consistent
     return head, x[:, :k], (rounds, change, change <= tol)
 
@@ -241,8 +270,11 @@ def lobpcg_eigsh(
     ``psum`` sums the Gram matrices and column norms across row shards of
     a distributed block (identity by default).
 
-    A round makes 6 m operator products (m the block width) and 3 ``eigh``
-    calls; the host reads the stopping test once per round. Returns
+    A round makes 6 m operator products (m the block width) in 5 block
+    products (A X, M X, M W, M P, A [W, P]), one preconditioner
+    application and 3 ``eigh`` calls, and the host reads the stopping test
+    once; the seed step adds 2 block products (2 m columns). The spans and
+    counters are the module's. Returns
     ``(vals (k,), vecs (n, k), (rounds, eig_change, converged))``:
     ``rounds`` a Python int, the other two 0-dim tensors.
     """
@@ -252,7 +284,7 @@ def lobpcg_eigsh(
         lock_tol = float(np.sqrt(tol))
     if psum is None:
         psum = lambda x: x  # noqa: E731
-    a_blk, m_blk = _block(a_matvec), _block(m_matvec)
+    a_blk, m_blk = _products(a_matvec, device), _products(m_matvec, device)
     if precond is not None:
         t_blk = _block(precond)
     elif precond_diag is not None:
@@ -284,68 +316,76 @@ def lobpcg_eigsh(
         rank-revealing eigendecomposition of the small Gram s^T M s.
         Rank-dropped directions become zero columns; returns the
         transformed (s, ms, valid-column mask)."""
-        d, q = torch.linalg.eigh(_sym(psum(s.T @ ms)))
-        inv_sqrt, keep = masked_inv_sqrt(d, width)
-        t = q * inv_sqrt[None, :]
-        return s @ t, ms @ t, keep
+        with span("fem.eigsh.rr", device):
+            d, q = torch.linalg.eigh(_sym(psum(s.T @ ms)))
+            inv_sqrt, keep = masked_inv_sqrt(d, width)
+            t = q * inv_sqrt[None, :]
+            return s @ t, ms @ t, keep
 
     def rr_ortho(s, as_, valid):
         """Rayleigh-Ritz on an (approximately) M-orthonormal basis."""
-        return torch.linalg.eigh(push_dropped(_sym(psum(s.T @ as_)), valid))
+        with span("fem.eigsh.rr", device):
+            return torch.linalg.eigh(push_dropped(_sym(psum(s.T @ as_)), valid))
 
     def rr_seed(s, width):
         """Rank-tolerant generalised Rayleigh-Ritz, once, on the raw start
         block (not yet M-orthonormal)."""
-        ga = _sym(psum(s.T @ a_blk(s)))
-        gm = _sym(psum(s.T @ m_blk(s)))
-        d, q = torch.linalg.eigh(gm)
-        inv_sqrt, mask = masked_inv_sqrt(d, width)
-        w = q * inv_sqrt[None, :]
-        evals, evecs = torch.linalg.eigh(push_dropped(_sym(w.T @ ga @ w), mask))
-        return evals, w @ evecs
+        as_, ms = a_blk(s), m_blk(s)
+        with span("fem.eigsh.rr", device):
+            ga = _sym(psum(s.T @ as_))
+            gm = _sym(psum(s.T @ ms))
+            d, q = torch.linalg.eigh(gm)
+            inv_sqrt, mask = masked_inv_sqrt(d, width)
+            w = q * inv_sqrt[None, :]
+            evals, evecs = torch.linalg.eigh(push_dropped(_sym(w.T @ ga @ w), mask))
+            return evals, w @ evecs
 
-    # seed Ritz step on X alone: M-orthonormal X and the initial Λ; the
-    # coefficients belong to the column-normalised basis they came from
-    x0n = normalized(x0)
-    evals0, c0 = rr_seed(x0n, m)
-    x = x0n @ c0[:, :m]
-    lam = evals0[:m]
-    p = torch.zeros_like(x)
-    head = torch.full((k,), math.inf, dtype=dtype, device=device)
-    change = torch.tensor(math.inf, dtype=dtype, device=device)
-    valid_x = torch.ones((m,), dtype=torch.bool, device=device)
+    with span("fem.eigsh"):
+        # seed Ritz step on X alone: M-orthonormal X and the initial Λ; the
+        # coefficients belong to the column-normalised basis they came from
+        x0n = normalized(x0)
+        evals0, c0 = rr_seed(x0n, m)
+        x = x0n @ c0[:, :m]
+        lam = evals0[:m]
+        p = torch.zeros_like(x)
+        head = torch.full((k,), math.inf, dtype=dtype, device=device)
+        change = torch.tensor(math.inf, dtype=dtype, device=device)
+        valid_x = torch.ones((m,), dtype=torch.bool, device=device)
 
-    rounds = 0
-    while rounds < max_rounds and bool(change > tol):
-        ax = a_blk(x)
-        mx = m_blk(x)
-        r = ax - mx * lam[None, :]
-        # soft locking: converged columns contribute no residual direction
-        locked = colnorm(r) <= lock_tol * torch.clamp(
-            colnorm(ax) + torch.abs(lam) * colnorm(mx), min=tiny
-        )
-        w = torch.where(locked[None, :], torch.zeros_like(r), t_blk(r))
-        # M-project W off X (M-orthonormal, so the coefficients are
-        # (M X)^T W), pre-scale its columns to unit 2-norm (the same scale
-        # on its M-image, so the Gram stays exact) and whiten it
-        w = w - x @ psum(mx.T @ w)
-        mw = m_blk(w)
-        wscale = 1.0 / torch.clamp(colnorm(w), min=tiny)
-        w, mw, w_keep = whiten(w * wscale[None, :], mw * wscale[None, :], m)
-        # P: M-project off X and W, then whiten
-        p = p - x @ psum(mx.T @ p)
-        p = p - w @ psum(mw.T @ p)
-        mp = m_blk(p)
-        pscale = 1.0 / torch.clamp(colnorm(p), min=tiny)
-        p, mp, p_keep = whiten(p * pscale[None, :], mp * pscale[None, :], m)
-        s = torch.cat([x, w, p], dim=1)
-        as_ = torch.cat([ax, a_blk(torch.cat([w, p], dim=1))], dim=1)
-        evals, c = rr_ortho(s, as_, torch.cat([valid_x, w_keep, p_keep]))
-        x = s @ c[:, :m]
-        # next conjugate directions: the W/P part of the update only
-        p = s[:, m:] @ c[m:, :m]
-        lam = evals[:m]
-        head_prev, head = head, evals[:k]
-        change = _relative_change(head, head_prev, tiny)
-        rounds += 1
+        rounds = 0
+        while rounds < max_rounds and read(change > tol):
+            count("eigsh_rounds")
+            ax = a_blk(x)
+            mx = m_blk(x)
+            r = ax - mx * lam[None, :]
+            # soft locking: converged columns contribute no residual direction
+            locked = colnorm(r) <= lock_tol * torch.clamp(
+                colnorm(ax) + torch.abs(lam) * colnorm(mx), min=tiny
+            )
+            with span("fem.eigsh.precond", device):
+                tr = t_blk(r)
+            w = torch.where(locked[None, :], torch.zeros_like(r), tr)
+            # M-project W off X (M-orthonormal, so the coefficients are
+            # (M X)^T W), pre-scale its columns to unit 2-norm (the same scale
+            # on its M-image, so the Gram stays exact) and whiten it
+            w = w - x @ psum(mx.T @ w)
+            mw = m_blk(w)
+            wscale = 1.0 / torch.clamp(colnorm(w), min=tiny)
+            w, mw, w_keep = whiten(w * wscale[None, :], mw * wscale[None, :], m)
+            # P: M-project off X and W, then whiten
+            p = p - x @ psum(mx.T @ p)
+            p = p - w @ psum(mw.T @ p)
+            mp = m_blk(p)
+            pscale = 1.0 / torch.clamp(colnorm(p), min=tiny)
+            p, mp, p_keep = whiten(p * pscale[None, :], mp * pscale[None, :], m)
+            s = torch.cat([x, w, p], dim=1)
+            as_ = torch.cat([ax, a_blk(torch.cat([w, p], dim=1))], dim=1)
+            evals, c = rr_ortho(s, as_, torch.cat([valid_x, w_keep, p_keep]))
+            x = s @ c[:, :m]
+            # next conjugate directions: the W/P part of the update only
+            p = s[:, m:] @ c[m:, :m]
+            lam = evals[:m]
+            head_prev, head = head, evals[:k]
+            change = _relative_change(head, head_prev, tiny)
+            rounds += 1
     return head, x[:, :k], (rounds, change, change <= tol)

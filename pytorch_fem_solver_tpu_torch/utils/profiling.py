@@ -36,8 +36,9 @@ solver build) are recorded with or without a session. The spans and
 counters of the solve path:
 
 ===================== ======================================================
-``fem.solve``         a ``compiled_bsr_solver`` or ``compiled_refined_solver``
-                      solve (numbers the request)
+``fem.solve``         a ``compiled_bsr_solver``, ``compiled_refined_solver``
+                      or ``compiled_eigsh_solver`` solve (numbers the
+                      request)
 ``fem.assemble``      the operator's values and the load vector (CUDA events)
 ``.local``            inside it, per run of cells: the element matrices (and
                       in the last run the element loads) (CUDA events)
@@ -63,6 +64,18 @@ counters of the solve path:
                       of ``pcg_chunked``'s CUDA graph; beside it the counter
                       ``pcg_graphed_iterations`` of the iterations that ran
                       in the graph's replays
+``fem.eigsh``         an eigensolver's loop (``ops.eigen``: LOBPCG with its
+                      seed step, or subspace iteration); beside it the
+                      counter ``eigsh_rounds`` of its rounds
+``.product``          inside it: one A- or M-block product, the column
+                      copies and the stack included (CUDA events); beside
+                      it the counters ``eigsh_products`` of those products
+                      and ``eigsh_product_columns`` of their columns
+``.precond``          inside LOBPCG: the preconditioner's block application
+                      (CUDA events)
+``.rr``               inside LOBPCG: a dense Rayleigh-Ritz step: the seed
+                      step's, each ``whiten`` and ``rr_ortho`` (Gram
+                      products, whitening, ``eigh``) (CUDA events)
 ``fem.host_read``     one blocking read (stop tests, chunk counts,
                       ``spd_inverse``)
 ``host_reads``        the counter of those reads

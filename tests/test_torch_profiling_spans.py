@@ -12,11 +12,17 @@ read: the stop test's ``iterations + 1`` inside ``fem.pcg`` and the two of
 of the M's coarse size, and ``scatter_values`` of the canonical pairs and
 element loads the assembly scatters. The answers are bitwise those of an unrecorded
 solve. The spans are stamped on the clock of the profiler's own events.
+A ``compiled_eigsh`` solve records ``fem.solve`` with a ``fem.assemble``
+(one ``.local`` / ``.scatter`` pair per form) and ``fem.precond_setup``
+as a linear solve does, and ``fem.eigsh`` with the eigensolver's block
+products, preconditioner applications and Rayleigh-Ritz steps inside, its
+stop tests as reads, and the counters of its rounds, products and columns.
 Float64 on ``unit_square(n=16)``, P1, and for the rigid-body-mode M a
 three-component P1 basis on ``unit_cube(3)``, on the CPU; the spans' CUDA
 event pairs on the card.
 """
 
+import collections
 import time
 
 import pytest
@@ -330,3 +336,67 @@ def test_count_records_only_under_a_session():
         profiling.count("x", 3)
         profiling.count("x")
     assert recorded().counters == {"x": 4}
+
+
+def vector_mass(b):
+    return torch.einsum("...ic,...jc->...ij", b.v, b.v)
+
+
+@pytest.mark.parametrize("method", ["lobpcg", "subspace"])
+def test_eigsh_spans_and_counters(vector_basis, method):
+    """One ``fem.solve`` per eigensolve, the eigensolver inside it. LOBPCG:
+    the seed step's 2 block products (2 m columns) and 5 a round (A X, M X,
+    M W, M P, A [W, P]: 6 m columns), one preconditioner application a
+    round, the seed step's Rayleigh-Ritz and 3 a round (2 ``whiten``, 1
+    ``rr_ortho``); subspace iteration: 3 block products a round (M X, and A
+    Y and M Y of its Rayleigh-Ritz). One stop test a round, and one more
+    that ends the loop; ``spd_inverse``'s two reads in the M's set-up."""
+    k, m = 6, 9
+    solve = vector_basis.compiled_eigsh(lame_form, vector_mass, k=k, tol=1e-8, method=method,
+                                        solve_tol=1e-8)
+    reset()
+    with torch.profiler.profile(activities=CPU):
+        outs = [solve() for _ in range(2)]
+    rec = recorded()
+    solves = _by_name(rec.spans, "fem.solve")
+    assert len(solves) == 2 and all(s.parent is None for _, s in solves)
+    rounds = [info[0] for _, _, info in outs]
+    assert all(bool(info[2]) for _, _, info in outs)
+    for (top, outer), r in zip(solves, rounds):
+        mine = [(j, s) for j, s in enumerate(rec.spans) if s.request == outer.request]
+        at = {s.name: j for j, s in mine}
+        assert [s.name for _, s in mine if s.parent == top] == [
+            "fem.assemble", "fem.precond_setup", "fem.eigsh"]
+        assert [s.name for _, s in mine if s.parent == at["fem.assemble"]] == [
+            "fem.assemble.local", "fem.assemble.scatter"] * 2
+        inner = collections.Counter(s.name for _, s in mine if s.parent == at["fem.eigsh"])
+        products, columns = (2 + 5 * r, 2 * m + 6 * m * r) if method == "lobpcg" else (
+            3 * r, 3 * m * r)
+        assert inner["fem.eigsh.product"] == products
+        assert inner["fem.host_read"] == r + 1
+        if method == "lobpcg":
+            assert inner["fem.eigsh.precond"] == r and inner["fem.eigsh.rr"] == 1 + 3 * r
+            assert set(inner) == {"fem.eigsh.product", "fem.eigsh.precond", "fem.eigsh.rr",
+                                  "fem.host_read"}
+        else:  # the inner solves' PCG loops, their reads inside them
+            assert inner["fem.pcg"] == m * r
+    per = [(2 + 5 * r, 2 * m + 6 * m * r) if method == "lobpcg" else (3 * r, 3 * m * r)
+           for r in rounds]
+    c = rec.counters
+    assert c["eigsh_rounds"] == sum(rounds)
+    assert c["eigsh_products"] == sum(p for p, _ in per)
+    assert c["eigsh_product_columns"] == sum(q for _, q in per)
+    assert c["coarse_rows"] == 2 * _coarse_size(vector_basis)
+    if method == "lobpcg":
+        assert c["host_reads"] == sum(r + 1 + 2 for r in rounds)
+    assert all(s.device_ms is None for s in rec.spans)
+
+
+def test_eigsh_records_nothing_without_a_session(vector_basis):
+    solve = vector_basis.compiled_eigsh(lame_form, vector_mass, k=6, tol=1e-8)
+    reset()
+    vals, vecs, _ = solve()
+    assert recorded() == ([], {})
+    with torch.profiler.profile(activities=CPU):
+        vals_on, vecs_on, _ = solve()
+    assert torch.equal(vals_on, vals) and torch.equal(vecs_on, vecs)
